@@ -1,0 +1,580 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py                      # every phase, one card
+    python3 chip_smoke.py --phases build,kernels
+
+Phases, in order (any failed check exits non-zero; no phase's failure is
+caught and ignored):
+
+1. build    — nvcc builds the paged attention kernels from
+              src/repro_torch/kernels/paged_attention/csrc for sm_90a.
+2. kernels  — paged decode and paged prefill against their plain PyTorch
+              versions on the card, bf16 and int8 KV, at the llama2-7b
+              (Hk=32, G=1) and qwen2-7b (Hk=4, G=7) head shapes, d=128,
+              bs=16: cursors at 0, mid-block and on block seams, a chunk
+              at start>0 with valid<C, tables that share prefix blocks.
+              Then each kernel's time, its plain version's, its bound and
+              a library yardstick at the main path's shapes.
+3. engine   — the main path: llama2-7b at full width and depth (random
+              bf16 weights from a seed), paged attention, 8 requests of
+              512 prompt + 64 new tokens through 4 slots, with a radix
+              prefix hit and a copy-on-write fork; the kernels' launch
+              counts are read from this run.  Then a short int8-KV pass.
+4. parity   — llama2-7b at full width with 4 layers and f32 weights:
+              gather and paged attention give identical greedy tokens for
+              bf16 and int8 KV, and with f32 KV the engine's first token of
+              each request equals the argmax of the dense forward pass.
+
+The last lines are the engine's JSON summary, the kernels' JSON record,
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PHASES = ("build", "kernels", "engine", "parity")
+EXTRA_PHASES = ("profile",)     # run only when named
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise CheckFailed(what)
+
+
+# ---------------------------------------------------------------------------
+# timing helpers
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call (CUDA events around ``iters``)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _pool(N, bs, Hk, d, kv_dtype, gen, device):
+    import torch
+    if kv_dtype == torch.int8:
+        mk = lambda: torch.randint(-40, 41, (N, bs, Hk, d), generator=gen,
+                                   device=device, dtype=torch.int8)
+    else:
+        mk = lambda: torch.randn((N, bs, Hk, d), generator=gen,
+                                 device=device).to(kv_dtype)
+    return mk(), mk()
+
+
+def _tables(S, nb, N, shared, gen, device):
+    """S block tables over an N-block pool; rows 1.. share the first
+    ``shared`` blocks of row 0 (a radix prefix hit)."""
+    import torch
+    perm = torch.randperm(N, generator=gen, device=device).to(torch.int32)
+    need = S * nb - (S - 1) * shared
+    assert need <= N
+    rows, cur = [perm[:nb]], nb
+    for _ in range(1, S):
+        own = perm[cur:cur + nb - shared]
+        cur += nb - shared
+        rows.append(torch.cat([perm[:shared], own]))
+    return torch.stack(rows).contiguous()
+
+
+def _compare(out, ref, cache_v, what, worst):
+    """Hold a kernel's output to its plain version elementwise, within
+    ``kernel_tolerance`` (stated in its docstring); returns max|err| and
+    keeps the largest err/limit ratio seen in ``worst``."""
+    from repro_torch.kernels.paged_attention.ref import kernel_tolerance
+    diff = (out.float() - ref.float()).abs()
+    ratio = float((diff / kernel_tolerance(ref, cache_v)).max())
+    err = float(diff.max())
+    worst[0] = max(worst[0], ratio)
+    log(f"[kernels] {what} max_abs_err={err:.3e} err/limit={ratio:.3e}")
+    check(ratio <= 1.0, f"{what}: |kernel - plain| exceeds the limit "
+          f"({ratio:.3f} of it)")
+    return err
+
+
+def decode_bound(q, cache_k, tables, pos, bs):
+    """Each distinct (block, offset <= cursor) of K and V is read once:
+    blocks that several tables share count once."""
+    S, Hk, G, d = q.shape
+    kv_bytes = cache_k.element_size()
+    need = {}                                   # block id -> keys read
+    for row, p in zip(tables.tolist(), pos.tolist()):
+        for t in range(p // bs + 1):
+            n = bs if t < p // bs else p % bs + 1
+            need[row[t]] = max(need.get(row[t], 0), n)
+    keys = sum(need.values())
+    blocks = sum(p // bs + 1 for p in pos.tolist())
+    nbytes = (2 * q.numel() * q.element_size()          # q in, out
+              + keys * Hk * d * 2 * kv_bytes            # K and V once
+              + blocks * 4 + S * 4)                     # table ids, cursors
+    pairs = sum(p + 1 for p in pos.tolist())            # (query, key)
+    flops = 4 * pairs * Hk * G * d                      # QK^T and PV
+    return (max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3,
+            "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
+            else "operations")
+
+
+def prefill_bound(q, cache_k, start, valid, bs):
+    C, Hk, G, d = q.shape
+    kv_bytes = cache_k.element_size()
+    keys = start + valid
+    nbytes = (2 * q.numel() * q.element_size()
+              + keys * Hk * d * 2 * kv_bytes + (-(-keys // bs)) * 4)
+    pairs = sum(start + c + 1 for c in range(valid))    # causal (row, key)
+    flops = 4 * pairs * Hk * G * d
+    return (max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3,
+            "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
+            else "operations")
+
+
+def phase_kernels(device, results):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1234)
+    bs, d, nb, N = 16, 128, 37, 512
+    shapes = {"llama2-7b": (32, 1), "qwen2-7b": (4, 7)}
+    worst = [0.0]
+    for arch, (Hk, G) in shapes.items():
+        for kv_name, kv_dtype in (("bf16", torch.bfloat16),
+                                  ("int8", torch.int8)):
+            for q_dtype in (torch.bfloat16, torch.float32):
+                ck, cv = _pool(N, bs, Hk, d, kv_dtype, gen, device)
+                tag = f"{arch} kv={kv_name} q={str(q_dtype)[6:]}"
+                # decode: cursors at 0, mid-block, both sides of a seam,
+                # deep in the table and on its last position
+                pos = torch.tensor([0, 7, 15, 16, 300, nb * bs - 1],
+                                   dtype=torch.int32, device=device)
+                S = pos.numel()
+                bt = _tables(S, nb, N, 2, gen, device)
+                q = torch.randn((S, Hk, G, d), generator=gen,
+                                device=device).to(q_dtype)
+                out = ops.paged_decode(q, ck, cv, bt, pos)
+                ref = ops.paged_decode_ref(q, ck, cv, bt, pos)
+                _compare(out, ref, cv, f"paged_decode {tag}", worst)
+                # prefill: an admission chunk, a chunk at start>0 with
+                # valid<C that starts mid-block, a short tail chunk
+                C = 256
+                table = bt[1].contiguous()       # shares blocks with row 0
+                for start, valid in ((0, 256), (200, 77), (520, 3)):
+                    qp = torch.randn((C, Hk, G, d), generator=gen,
+                                     device=device).to(q_dtype)
+                    out = ops.paged_prefill(qp, ck, cv, table, start, valid)
+                    ref = ops.paged_prefill_ref(qp, ck, cv, table, start,
+                                                valid)
+                    _compare(out[:valid], ref[:valid], cv,
+                             f"paged_prefill {tag} start={start} "
+                             f"valid={valid}", worst)
+
+    # timing at the main path's shapes: llama2-7b, 4 slots, bf16 q and KV,
+    # cursors around the middle of the 64-token decode after a 512 prompt
+    Hk, G = shapes["llama2-7b"]
+    ck, cv = _pool(N, bs, Hk, d, torch.bfloat16, gen, device)
+    pos = torch.tensor([540, 544, 548, 552], dtype=torch.int32, device=device)
+    S = pos.numel()
+    bt = _tables(S, nb, N, 16, gen, device)
+    q = torch.randn((S, Hk, G, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    err = _compare(ops.paged_decode(q, ck, cv, bt, pos),
+                   ops.paged_decode_ref(q, ck, cv, bt, pos), cv,
+                   "paged_decode main-path shape", worst)
+    L = int(pos.max()) + 1
+    # library yardstick: SDPA over K/V already gathered into contiguous
+    # (S, Hk, L, d) buffers; the gather is done once, outside the timing
+    kg = ck[bt.long()].reshape(S, nb * bs, Hk, d)[:, :L].transpose(1, 2)
+    vg = cv[bt.long()].reshape(S, nb * bs, Hk, d)[:, :L].transpose(1, 2)
+    kg, vg = kg.contiguous(), vg.contiguous()
+    qs = q.reshape(S, Hk * G, 1, d)
+    mask = (torch.arange(L, device=device)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
+    bound, by = decode_bound(q, ck, bt, pos, bs)
+    results["paged_decode"] = dict(
+        ms=time_ms(lambda: ops.paged_decode(q, ck, cv, bt, pos)),
+        plain_ms=time_ms(lambda: ops.paged_decode_ref(q, ck, cv, bt, pos)),
+        bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
+        max_abs_err=err,
+        shape=f"S={S} Hk={Hk} G={G} d={d} bs={bs} nb={nb} "
+              f"pos={pos.tolist()} kv=bf16")
+
+    # prefill: the second 256-token chunk of a 512-token prompt
+    C, start, valid = 256, 256, 256
+    table = bt[0].contiguous()
+    qp = torch.randn((C, Hk, G, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    err = _compare(ops.paged_prefill(qp, ck, cv, table, start, valid),
+                   ops.paged_prefill_ref(qp, ck, cv, table, start, valid),
+                   cv, "paged_prefill main-path shape", worst)
+    L = start + valid
+    kg = ck[table.long()].reshape(nb * bs, Hk, d)[:L].transpose(0, 1)[None]
+    vg = cv[table.long()].reshape(nb * bs, Hk, d)[:L].transpose(0, 1)[None]
+    kg, vg = kg.contiguous(), vg.contiguous()
+    qs = qp.permute(1, 2, 0, 3).reshape(1, Hk * G, C, d)
+    k_pos = torch.arange(L, device=device)
+    q_pos = start + torch.arange(C, device=device)
+    mask = (k_pos[None, :] <= q_pos[:, None])[None, None]
+    lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
+    bound, by = prefill_bound(qp, ck, start, valid, bs)
+    results["paged_prefill"] = dict(
+        ms=time_ms(lambda: ops.paged_prefill(qp, ck, cv, table, start,
+                                             valid)),
+        plain_ms=time_ms(lambda: ops.paged_prefill_ref(qp, ck, cv, table,
+                                                       start, valid)),
+        bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
+        max_abs_err=err,
+        shape=f"C={C} start={start} valid={valid} Hk={Hk} G={G} d={d} "
+              f"bs={bs} nb={nb} kv=bf16")
+    log(f"[kernels] largest err/limit over every comparison: "
+        f"{worst[0]:.3e}")
+    for name, r in results.items():
+        log(f"[kernels] {name} @ {r['shape']}: kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) library_ms={r['library_ms']:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: the engine
+# ---------------------------------------------------------------------------
+
+def _requests(vocab, n, prompt_len, max_new, shared, seed):
+    """n prompts; request 1 shares the first ``shared`` tokens of request
+    0 (radix hit) and request 3 repeats request 2 (copy-on-write fork)."""
+    import numpy as np
+    from repro_torch.engine import Request
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, vocab, (n, prompt_len))
+    prompts[1, :shared] = prompts[0, :shared]
+    prompts[3] = prompts[2]
+    return [Request(rid=i, prompt=prompts[i].tolist(), max_new=max_new)
+            for i in range(n)]
+
+
+def _serve(cfg, params, ec, reqs, device):
+    from repro_torch.engine import Engine
+    eng = Engine(cfg, params, ec, device=device)
+    eng.warmup()
+    results = eng.run(reqs)
+    return eng, results
+
+
+def _check_results(cfg, reqs, results, tag):
+    check(len(results) == len(reqs), f"{tag}: {len(results)} results")
+    for req, res in zip(reqs, results):
+        check(len(res.tokens) == req.max_new,
+              f"{tag}: request {res.rid} made {len(res.tokens)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in res.tokens),
+              f"{tag}: request {res.rid} token out of range")
+        check(res.finished >= res.first_token >= res.admitted,
+              f"{tag}: request {res.rid} timestamps out of order")
+
+
+def phase_engine(device, summary):
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.engine import EngineConfig
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.models import init_params
+
+    cfg = configs.get("llama2-7b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[engine] llama2-7b params {n_params / 1e9:.3f} B "
+        f"({n_params * 2 / 1e9:.2f} GB bf16), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompt_len, max_new = 512, 64
+    reqs = _requests(cfg.vocab_size, 8, prompt_len, max_new, 256, seed=1)
+    ec = EngineConfig(max_slots=4, max_len=prompt_len + max_new + 16,
+                      chunk_size=256, decode_block=8, block_size=16,
+                      n_blocks=512, kv_dtype="bf16", attn_impl="paged")
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()                 # the main path starts here
+    t0 = time.perf_counter()
+    eng, results = _serve(cfg, params, ec, reqs, device)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)             # ... and ends here
+    _check_results(cfg, reqs, results, "engine bf16")
+    check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
+          f"main path did not launch both kernels: {launches}")
+    check(results[1].cached_tokens == 256,
+          f"request 1 radix hit {results[1].cached_tokens} != 256")
+    check(results[3].cached_tokens == prompt_len - 1,
+          f"request 3 COW hit {results[3].cached_tokens} != {prompt_len - 1}")
+    n_chunks = sum(1 for e in eng.trace if e.kind == "prefill_chunk")
+    n_steps = sum(e.n_steps for e in eng.trace if e.kind == "decode_block")
+    kv_gb = eng.cache.total_bytes() / 1e9
+    summary["engine_bf16"] = dict(
+        ttft_p50_ms=float(np.median([r.ttft for r in results]) * 1e3),
+        tpot_p50_ms=float(np.median([r.tpot for r in results]) * 1e3),
+        tps=eng.aggregate_tps(), prefix_hit_rate=eng.prefix_hit_rate,
+        launches=launches, prefill_chunks=n_chunks, decode_steps=n_steps,
+        kv_pool_gb=kv_gb, wall_s=wall,
+        peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+    log(f"[engine] llama2-7b paged bf16: 8 requests x ({prompt_len} prompt + "
+        f"{max_new} new), 4 slots, KV pool {kv_gb:.2f} GB; "
+        f"TTFT p50 {summary['engine_bf16']['ttft_p50_ms']:.2f} ms, "
+        f"TPOT p50 {summary['engine_bf16']['tpot_p50_ms']:.3f} ms, "
+        f"TPS {summary['engine_bf16']['tps']:.1f}, prefix hit rate "
+        f"{eng.prefix_hit_rate:.4f}; launches {launches} over {n_chunks} "
+        f"prefill chunks and {n_steps} decode steps x {cfg.n_layers} layers; "
+        f"wall {wall:.1f} s (warm-up included), peak memory "
+        f"{summary['engine_bf16']['peak_mem_gb']:.2f} GB")
+    log(f"[engine] request 2 vs its COW twin 3: first 8 tokens "
+        f"{results[2].tokens[:8]} / {results[3].tokens[:8]}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # a short second pass with int8 KV
+    reqs8 = _requests(cfg.vocab_size, 4, prompt_len, 16, 256, seed=2)
+    ec8 = dataclasses.replace(ec, kv_dtype="int8", max_len=prompt_len + 32)
+    eng, results = _serve(cfg, params, ec8, reqs8, device)
+    _check_results(cfg, reqs8, results, "engine int8")
+    check(eng.state["cache_k"].dtype == torch.int8, "int8 pool dtype")
+    summary["engine_int8"] = dict(
+        ttft_p50_ms=float(np.median([r.ttft for r in results]) * 1e3),
+        tpot_p50_ms=float(np.median([r.tpot for r in results]) * 1e3),
+        tps=eng.aggregate_tps(), prefix_hit_rate=eng.prefix_hit_rate)
+    log(f"[engine] llama2-7b paged int8: 4 requests x ({prompt_len} + 16); "
+        f"TTFT p50 {summary['engine_int8']['ttft_p50_ms']:.2f} ms, "
+        f"TPOT p50 {summary['engine_int8']['tpot_p50_ms']:.3f} ms, "
+        f"TPS {summary['engine_int8']['tps']:.1f}")
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _parity_tokens(cfg, params, reqs, kv, impl, device):
+    from repro_torch.engine import EngineConfig
+    ec = EngineConfig(max_slots=4, max_len=128, chunk_size=64,
+                      decode_block=4, block_size=16, kv_dtype=kv,
+                      attn_impl=impl)
+    eng, results = _serve(cfg, params, ec, reqs, device)
+    _check_results(cfg, reqs, results, f"parity {kv} {impl}")
+    return [r.tokens for r in results]
+
+
+def phase_parity(device):
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import forward, init_params
+
+    cfg = dataclasses.replace(configs.get("llama2-7b"), n_layers=4)
+    params = init_params(cfg, 0, device=device, dtype=torch.float32)
+    reqs = _requests(cfg.vocab_size, 6, 100, 16, 48, seed=3)
+    # the first token of each request is the argmax of the dense forward
+    first = []
+    with torch.no_grad():
+        for r in reqs:
+            ids = torch.tensor([r.prompt], device=device)
+            logits, _ = forward(cfg, params, ids)
+            first.append(int(logits[0, -1].argmax()))
+    for kv in ("bf16", "int8"):
+        toks = {}
+        for impl in ("gather", "paged"):
+            toks[impl] = _parity_tokens(cfg, params, reqs, kv, impl, device)
+        same = toks["gather"] == toks["paged"]
+        log(f"[parity] llama2-7b x4 layers f32, kv={kv}: gather == paged "
+            f"tokens: {same}")
+        check(same, f"gather and paged tokens differ with {kv} KV")
+    # with f32 KV nothing is rounded between the two: the engine's first
+    # token (paged prefill through the block tables) is the argmax of the
+    # dense forward pass over the same prompt
+    firsts = [t[0] for t in _parity_tokens(cfg, params, reqs, "fp32",
+                                           "paged", device)]
+    log(f"[parity] kv=fp32: engine first tokens {firsts}, dense forward "
+        f"argmax {first}")
+    check(firsts == first, "engine first tokens differ from dense forward")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _self_device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _kind(name: str) -> str:
+    n = name.lower()
+    if "paged_decode" in n:
+        return "paged_decode kernel"
+    if "paged_prefill" in n:
+        return "paged_prefill kernel"
+    if any(k in n for k in ("gemm", "gemv", "cutlass", "nvjet", "sm90_xmma",
+                            "cublas")):
+        return "matmul (cuBLAS)"
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    return "elementwise / norm / index"
+
+
+def phase_profile(device):
+    """Where the time goes on the main path: torch.profiler over one
+    admission step (4 prefills of 512 tokens) and over the decode blocks
+    that follow, llama2-7b bf16, paged attention."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.engine import EngineConfig
+    from repro_torch.models import init_params
+
+    cfg = configs.get("llama2-7b")
+    params = init_params(cfg, 0, device=device, dtype=torch.bfloat16)
+    reqs = _requests(cfg.vocab_size, 4, 512, 33, 256, seed=4)
+    ec = EngineConfig(max_slots=4, max_len=512 + 64 + 16, chunk_size=256,
+                      decode_block=8, block_size=16, n_blocks=512,
+                      kv_dtype="bf16", attn_impl="paged")
+    from repro_torch.engine import Engine
+    eng = Engine(cfg, params, ec, device=device)
+    eng.warmup()
+    for r in reqs:
+        eng.submit(r)
+    windows = []
+    while not eng.done:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kinds = {}
+        for evt in prof.key_averages():
+            us = _self_device_us(evt)
+            if us > 0 and not evt.key.startswith("aten::"):
+                kinds[_kind(evt.key)] = kinds.get(_kind(evt.key), 0.0) + us
+        windows.append((eng.trace[-1].kind, wall, kinds))
+    for i, (kind, wall, kinds) in enumerate(windows):
+        busy = sum(kinds.values()) / 1e6
+        parts = ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in
+                          sorted(kinds.items(), key=lambda kv: -kv[1]))
+        log(f"[profile] step {i} ({'admission+' if i == 0 else ''}{kind}): "
+            f"wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
+            f"(idle share {max(0.0, 1 - busy / wall):.3f}); {parts}")
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma list of {PHASES + EXTRA_PHASES}")
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES + EXTRA_PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs on a CUDA device only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.paged_attention import build as kbuild
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}")
+    t_all = time.perf_counter()
+    kernels, summary = {}, {}
+    if "build" in phases:
+        res = kbuild.build(force=True)
+        log(f"[build] nvcc {res.path.name} in {res.seconds:.1f} s")
+        for line in res.log.splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
+    if "kernels" in phases:
+        phase_kernels(device, kernels)
+    if "engine" in phases:
+        phase_engine(device, summary)
+    if "parity" in phases:
+        phase_parity(device)
+    if "profile" in phases:
+        phase_profile(device)
+    log(f"[done] phases {phases} in {time.perf_counter() - t_all:.1f} s")
+
+    # launch counts come from the engine phase's run only: without it
+    # there is no count of this run to report
+    launches = summary.get("engine_bf16", {}).get("launches")
+    record = []
+    for name, line in (("paged_decode", 80), ("paged_prefill", 170)):
+        if name not in kernels:
+            continue
+        r = kernels[name]
+        record.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                      "paged_attention.cu",
+            "replaces": f"src/repro/kernels/paged_attention/"
+                        f"paged_attention.py:{line}",
+            "launches": launches[name] if launches else None,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"engine": summary}))
+    print(json.dumps({"kernels": record}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
