@@ -7,24 +7,37 @@
 Phases, in order (any failed check exits non-zero; no phase's failure is
 caught and ignored):
 
-1. build    — nvcc builds the paged attention kernels from
-              src/repro_torch/kernels/paged_attention/csrc for sm_90a.
-2. kernels  — paged decode and paged prefill against their plain PyTorch
-              versions on the card, bf16 and int8 KV, at the llama2-7b
-              (Hk=32, G=1) and qwen2-7b (Hk=4, G=7) head shapes, d=128,
-              bs=16: cursors at 0, mid-block and on block seams, a chunk
-              at start>0 with valid<C, tables that share prefix blocks.
-              Then each kernel's time, its plain version's, its bound and
-              a library yardstick at the main path's shapes.
+1. build    — nvcc builds both kernel libraries for sm_90a, together:
+              src/repro_torch/kernels/paged_attention/csrc (K1 decode, K2
+              prefill, K3 verify) and kernels/grouped_lora/csrc (K4).
+2. kernels  — every kernel against its plain PyTorch version on the card,
+              at the llama2-7b (Hk=32, G=1) and qwen2-7b (Hk=4, G=7) head
+              shapes, d=128, bs=16, bf16 and int8 KV: decode cursors at 0,
+              mid-block and on block seams; prefill chunks at start>0 with
+              valid<C over tables that share prefix blocks; verify with
+              Q in {1, 5, 256} at cursors on and off seams and a padded
+              last chunk near the table's end; grouped LoRA with mixed
+              ranks and holes (idx = -1) at T in {1, 5, 256}.  Then each
+              kernel's time, its plain version's, its bound and a library
+              yardstick at the main path's shapes.
 3. engine   — the main path: llama2-7b at full width and depth (random
               bf16 weights from a seed), paged attention, 8 requests of
               512 prompt + 64 new tokens through 4 slots, with a radix
-              prefix hit and a copy-on-write fork; the kernels' launch
-              counts are read from this run.  Then a short int8-KV pass.
+              prefix hit and a copy-on-write fork; then the same requests
+              with speculative decoding (spec_k=4, n-gram drafter) and
+              four LoRA tenants of ranks 8/16 plus one base-model request,
+              and again with bucketed admission (prefill_batch=4) and the
+              same tenants.  Each pass zeroes the launch counts before it
+              and reads them after it; between them the passes launch
+              K1-K4.  Then a short int8-KV pass.
 4. parity   — llama2-7b at full width with 4 layers and f32 weights:
               gather and paged attention give identical greedy tokens for
-              bf16 and int8 KV, and with f32 KV the engine's first token of
-              each request equals the argmax of the dense forward pass.
+              bf16 and int8 KV; with f32 KV the engine's first token of
+              each request equals the argmax of the dense forward pass;
+              speculative decoding at T=0 gives plain greedy's tokens,
+              bucketed admission gives unbucketed admission's, a
+              mixed-tenant batch gives each request's tokens served
+              alone, and gather equals paged with LoRA and speculation on.
 
 The last lines are the engine's JSON summary, the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -32,6 +45,7 @@ the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import subprocess
@@ -161,6 +175,184 @@ def prefill_bound(q, cache_k, start, valid, bs):
             else "operations")
 
 
+def verify_bound(q, cache_k, tables, pos, bs):
+    """Distinct (block, offset) pairs any query of a slot attends, read
+    once (blocks several tables share count once), plus q in and out."""
+    S, Q, Hk, G, d = q.shape
+    nb = tables.shape[1]
+    kv_bytes = cache_k.element_size()
+    need, pairs, blocks = {}, 0, 0
+    for row, p in zip(tables.tolist(), pos.tolist()):
+        last = min(p + Q - 1, nb * bs - 1)
+        blocks += last // bs + 1
+        for t in range(last // bs + 1):
+            n = bs if t < last // bs else last % bs + 1
+            need[row[t]] = max(need.get(row[t], 0), n)
+        pairs += sum(min(p + i, nb * bs - 1) + 1 for i in range(Q))
+    nbytes = (2 * q.numel() * q.element_size()
+              + sum(need.values()) * Hk * d * 2 * kv_bytes
+              + blocks * 4 + S * 4)
+    flops = 4 * pairs * Hk * G * d
+    return (max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3,
+            "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
+            else "operations")
+
+
+def lora_bound(x, A, B, idx):
+    """x in, the delta out, and the (padded) factors of each distinct
+    adapter the batch uses read once; holes read no factor."""
+    S, T, k = x.shape
+    _, _, R = A.shape
+    n = B.shape[2]
+    live = [i for i in idx.tolist() if i >= 0]
+    nbytes = (x.numel() * x.element_size() + S * T * n * x.element_size()
+              + len(set(live)) * (k * R + R * n) * A.element_size() + S * 4)
+    flops = 2 * T * (k * R + R * n) * len(live)
+    return (max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3,
+            "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
+            else "operations")
+
+
+def _time_verify(q, ck, cv, bt, pos, worst, what):
+    """K3 against its plain version at one shape, then its time, its
+    bound, its plain version's time and SDPA's with a mask over K/V
+    gathered once into contiguous (S, Hk, L, d) buffers outside the
+    timing."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
+
+    S, Q, Hk, G, d = q.shape
+    bs, nb = ck.shape[1], bt.shape[1]
+    err = _compare(ops.paged_verify(q, ck, cv, bt, pos),
+                   ops.paged_verify_ref(q, ck, cv, bt, pos), cv, what, worst)
+    L = int(pos.max()) + Q
+    kg = ck[bt.long()].reshape(S, nb * bs, Hk, d)[:, :L].transpose(1, 2)
+    vg = cv[bt.long()].reshape(S, nb * bs, Hk, d)[:, :L].transpose(1, 2)
+    kg, vg = kg.contiguous(), vg.contiguous()
+    qs = q.permute(0, 2, 3, 1, 4).reshape(S, Hk * G, Q, d)
+    q_pos = pos.long()[:, None] + torch.arange(Q, device=q.device)[None, :]
+    mask = (torch.arange(L, device=q.device)[None, None, :]
+            <= q_pos[:, :, None])[:, None]
+    lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
+    bound, by = verify_bound(q, ck, bt, pos, bs)
+    return dict(
+        ms=time_ms(lambda: ops.paged_verify(q, ck, cv, bt, pos)),
+        plain_ms=time_ms(lambda: ops.paged_verify_ref(q, ck, cv, bt, pos)),
+        bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
+        max_abs_err=err,
+        shape=f"S={S} Q={Q} Hk={Hk} G={G} d={d} bs={bs} nb={nb} "
+              f"pos={pos.tolist()} kv=bf16")
+
+
+def check_verify(device, gen, shapes, worst, results):
+    """K3 against its plain version, then timed at the main path's two
+    shapes: the speculative pass's (4 slots x 5 queries, llama2-7b heads,
+    cursors 540-552) and bucketed admission's (4 slots x a 256-row chunk,
+    the first chunk of a 512-token prompt at cursor 0 and the second at
+    cursor 256)."""
+    import torch
+    from repro_torch.kernels.paged_attention import ops
+
+    bs, d, nb, N = 16, 128, 37, 512
+    for arch, (Hk, G) in shapes.items():
+        for kv_name, kv_dtype in (("bf16", torch.bfloat16),
+                                  ("int8", torch.int8)):
+            for q_dtype in (torch.bfloat16, torch.float32):
+                ck, cv = _pool(N, bs, Hk, d, kv_dtype, gen, device)
+                # a fresh slot, both sides of a seam, mid-table, and a
+                # cursor whose last rows (a padded chunk) leave the table
+                pos = torch.tensor([0, 15, 16, 300, nb * bs - 3],
+                                   dtype=torch.int32, device=device)
+                bt = _tables(pos.numel(), nb, N, 2, gen, device)
+                for Q in (1, 5, 256):
+                    q = torch.randn((pos.numel(), Q, Hk, G, d), generator=gen,
+                                    device=device).to(q_dtype)
+                    out = ops.paged_verify(q, ck, cv, bt, pos)
+                    ref = ops.paged_verify_ref(q, ck, cv, bt, pos)
+                    _compare(out, ref, cv, f"paged_verify {arch} "
+                             f"kv={kv_name} q={str(q_dtype)[6:]} Q={Q}",
+                             worst)
+
+    Hk, G = shapes["llama2-7b"]
+    ck, cv = _pool(N, bs, Hk, d, torch.bfloat16, gen, device)
+    bt = _tables(4, nb, N, 16, gen, device)
+    timed = []
+    for Q, cursors in ((5, [540, 544, 548, 552]), (256, [0] * 4),
+                       (256, [256] * 4)):
+        pos = torch.tensor(cursors, dtype=torch.int32, device=device)
+        q = torch.randn((4, Q, Hk, G, d), generator=gen, device=device).to(
+            torch.bfloat16)
+        timed.append(_time_verify(q, ck, cv, bt, pos, worst,
+                                  f"paged_verify main-path shape Q={Q} "
+                                  f"pos={cursors[0]}"))
+    # the record's numbers are the speculative pass's shape; bucketed
+    # admission's two chunks ride along under "more_shapes"
+    results["paged_verify"] = dict(timed[0], more_shapes=timed[1:])
+
+
+def _lora_pool(P, k, n, ranks, R, gen, device):
+    """A bf16 adapter pool of P slots, rank ranks[p % len] padded to R."""
+    import torch
+    A = torch.zeros((P, k, R), device=device)
+    B = torch.zeros((P, R, n), device=device)
+    for p in range(P):
+        r = ranks[p % len(ranks)]
+        A[p, :, :r] = torch.randn((k, r), generator=gen,
+                                  device=device) * r ** -0.5
+        B[p, :r] = torch.randn((r, n), generator=gen, device=device) * 0.05
+    return A.bfloat16().contiguous(), B.bfloat16().contiguous()
+
+
+def check_grouped_lora(device, gen, worst, results):
+    """K4 against its plain version (the elementwise limit of
+    ``kernel_tolerance``: one bf16 ulp plus f32 summation slack for bf16
+    deltas, 1e-4 of max|delta| for f32 ones), then timed at the
+    speculative pass's shape: 4 slots x 5 rows, the q projection of
+    llama2-7b (4096 -> 4096), ranks 8/16 padded to 16, one base-model
+    slot."""
+    import torch
+    from repro_torch.kernels.grouped_lora import ops
+
+    R = 16
+    for k, n in ((4096, 4096), (3584, 512)):    # llama2 q/o, qwen2 k/v
+        A, B = _lora_pool(4, k, n, (8, 16), R, gen, device)
+        idx = torch.tensor([2, -1, 0, 2, 3], dtype=torch.int32,
+                           device=device)
+        for T in (1, 5, 256):
+            for x_dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((idx.numel(), T, k), generator=gen,
+                                device=device).to(x_dtype)
+                out = ops.grouped_lora(x, A, B, idx)
+                ref = ops.grouped_lora_ref(x, A, B, idx)
+                _compare(out, ref, ref, f"grouped_lora k={k} n={n} T={T} "
+                         f"x={str(x_dtype)[6:]}", worst)
+                check(not out[1].any(), "grouped_lora: a hole (idx=-1) "
+                      "got a non-zero delta")
+
+    k = n = 4096
+    A, B = _lora_pool(4, k, n, (8, 16), R, gen, device)
+    idx = torch.tensor([0, 1, 2, -1], dtype=torch.int32, device=device)
+    x = torch.randn((4, 5, k), generator=gen, device=device).to(
+        torch.bfloat16)
+    ref = ops.grouped_lora_ref(x, A, B, idx)
+    err = _compare(ops.grouped_lora(x, A, B, idx), ref, ref,
+                   "grouped_lora main-path shape", worst)
+    # library yardstick: two batched products on factors gathered once
+    # (holes pointed at zeroed factors) outside the timing
+    a = A[idx.long().clamp(min=0)] * (idx >= 0)[:, None, None]
+    b = B[idx.long().clamp(min=0)]
+    lib = lambda: torch.bmm(torch.bmm(x, a), b)
+    bound, by = lora_bound(x, A, B, idx)
+    results["grouped_lora"] = dict(
+        ms=time_ms(lambda: ops.grouped_lora(x, A, B, idx)),
+        plain_ms=time_ms(lambda: ops.grouped_lora_ref(x, A, B, idx)),
+        bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
+        max_abs_err=err,
+        shape=f"S=4 T=5 k={k} n={n} R={R} ranks=(8,16) idx={idx.tolist()} "
+              f"bf16")
+
+
 def phase_kernels(device, results):
     import torch
     import torch.nn.functional as F
@@ -260,12 +452,16 @@ def phase_kernels(device, results):
         max_abs_err=err,
         shape=f"C={C} start={start} valid={valid} Hk={Hk} G={G} d={d} "
               f"bs={bs} nb={nb} kv=bf16")
+    check_verify(device, gen, shapes, worst, results)
+    check_grouped_lora(device, gen, worst, results)
     log(f"[kernels] largest err/limit over every comparison: "
         f"{worst[0]:.3e}")
-    for name, r in results.items():
-        log(f"[kernels] {name} @ {r['shape']}: kernel_ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-            f"({r['bound_by']}) library_ms={r['library_ms']:.4f}")
+    for name, res in results.items():
+        for r in (res, *res.get("more_shapes", ())):
+            log(f"[kernels] {name} @ {r['shape']}: kernel_ms={r['ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} "
+                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                f"library_ms={r['library_ms']:.4f}")
 
 
 # ---------------------------------------------------------------------------
@@ -285,9 +481,47 @@ def _requests(vocab, n, prompt_len, max_new, shared, seed):
             for i in range(n)]
 
 
-def _serve(cfg, params, ec, reqs, device):
+#: every kernel of the port: (name, CUDA source, the TPU kernel it replaces)
+KERNELS = (
+    ("paged_decode", "src/repro_torch/kernels/paged_attention/csrc/"
+     "paged_attention.cu",
+     "src/repro/kernels/paged_attention/paged_attention.py:80"),
+    ("paged_prefill", "src/repro_torch/kernels/paged_attention/csrc/"
+     "paged_attention.cu",
+     "src/repro/kernels/paged_attention/paged_attention.py:170"),
+    ("paged_verify", "src/repro_torch/kernels/paged_attention/csrc/"
+     "paged_attention.cu",
+     "src/repro/kernels/paged_attention/paged_attention.py:266"),
+    ("grouped_lora", "src/repro_torch/kernels/grouped_lora/csrc/"
+     "grouped_lora.cu",
+     "src/repro/kernels/grouped_lora/grouped_lora.py:68"),
+)
+
+
+def _reset_launches() -> None:
+    from repro_torch.kernels.grouped_lora import ops as lora_ops
+    from repro_torch.kernels.paged_attention import ops
+    ops.reset_launch_counts()
+    lora_ops.reset_launch_counts()
+
+
+def _launches() -> dict:
+    from repro_torch.kernels.grouped_lora import ops as lora_ops
+    from repro_torch.kernels.paged_attention import ops
+    return {**ops.LAUNCHES, **lora_ops.LAUNCHES}
+
+
+def _with_tenants(reqs, tenants):
+    """The requests with LoRA tenants round-robin; the last one is served
+    by the base model."""
+    return [dataclasses.replace(r, adapter_id=(i % tenants
+                                               if i < len(reqs) - 1 else None))
+            for i, r in enumerate(reqs)]
+
+
+def _serve(cfg, params, ec, reqs, device, drafter=None):
     from repro_torch.engine import Engine
-    eng = Engine(cfg, params, ec, device=device)
+    eng = Engine(cfg, params, ec, device=device, drafter=drafter)
     eng.warmup()
     results = eng.run(reqs)
     return eng, results
@@ -309,7 +543,6 @@ def phase_engine(device, summary):
     import torch
     from repro_torch import configs
     from repro_torch.engine import EngineConfig
-    from repro_torch.kernels.paged_attention import ops
     from repro_torch.models import init_params
 
     cfg = configs.get("llama2-7b")
@@ -326,11 +559,11 @@ def phase_engine(device, summary):
                       chunk_size=256, decode_block=8, block_size=16,
                       n_blocks=512, kv_dtype="bf16", attn_impl="paged")
     torch.cuda.reset_peak_memory_stats(device)
-    ops.reset_launch_counts()                 # the main path starts here
+    _reset_launches()                         # the main path starts here
     t0 = time.perf_counter()
     eng, results = _serve(cfg, params, ec, reqs, device)
     wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)             # ... and ends here
+    launches = _launches()                    # ... and ends here
     _check_results(cfg, reqs, results, "engine bf16")
     check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
           f"main path did not launch both kernels: {launches}")
@@ -362,6 +595,68 @@ def phase_engine(device, summary):
     del eng
     torch.cuda.empty_cache()
 
+    # the same requests with four LoRA tenants (ranks 8/16) and one
+    # base-model request: with speculative decoding (K2 admits, K3
+    # verifies, K4 adds the deltas), then with bucketed admission (K3
+    # admits the groups, K1 decodes, K4 adds the deltas)
+    tenants = 4
+    for tag, extra, path in (
+            ("engine_spec_lora", dict(spec_k=4),
+             ("paged_prefill", "paged_verify", "grouped_lora")),
+            ("engine_bucketed_lora", dict(prefill_batch=4),
+             ("paged_verify", "paged_decode", "grouped_lora"))):
+        reqs_l = _with_tenants(reqs, tenants)
+        ec_l = dataclasses.replace(ec, lora_tenants=tenants,
+                                   lora_ranks=(8, 16), **extra)
+        _reset_launches()                     # this path starts here
+        t0 = time.perf_counter()
+        eng, results = _serve(cfg, params, ec_l, reqs_l, device)
+        wall = time.perf_counter() - t0
+        launches = _launches()                # ... and ends here
+        _check_results(cfg, reqs_l, results, tag)
+        check(all(launches[k] > 0 for k in path),
+              f"{tag} did not launch {path}: {launches}")
+        pool = eng.adapter_pool
+        check(pool.misses == tenants and pool.evictions == 0,
+              f"{tag}: adapter pool misses {pool.misses}, evictions "
+              f"{pool.evictions}")
+        ranks = {r for e in eng.trace for r in e.adapter_ranks}
+        check(ranks == {0, 8, 16}, f"{tag}: adapter ranks {ranks}")
+        kinds = {e.kind for e in eng.trace}
+        want = "spec_step" if "spec_k" in extra else "prefill_batch"
+        check(want in kinds, f"{tag}: no {want} event in the trace")
+        summary[tag] = dict(
+            ttft_p50_ms=float(np.median([r.ttft for r in results]) * 1e3),
+            tpot_p50_ms=float(np.median([r.tpot for r in results]) * 1e3),
+            tps=eng.aggregate_tps(), adapter_hit_rate=eng.adapter_hit_rate,
+            launches=launches, wall_s=wall)
+        if "spec_k" in extra:
+            summary[tag].update(spec_acceptance=eng.spec_acceptance,
+                                spec_tokens_per_step=eng.spec_tokens_per_step,
+                                spec_steps=eng.spec_steps)
+        else:
+            summary[tag].update(batched_chunks=sum(
+                1 for e in eng.trace if e.kind == "prefill_batch"))
+        r = summary[tag]
+        log(f"[engine] llama2-7b paged bf16 {tag}: 8 requests x "
+            f"({prompt_len} + {max_new}), {tenants} tenants + 1 base; "
+            f"TTFT p50 {r['ttft_p50_ms']:.2f} ms, TPOT p50 "
+            f"{r['tpot_p50_ms']:.3f} ms, TPS {r['tps']:.1f}, adapter hit "
+            f"rate {r['adapter_hit_rate']:.4f}"
+            + (f", acceptance {r['spec_acceptance']:.4f}, tokens/step "
+               f"{r['spec_tokens_per_step']:.4f} over {r['spec_steps']} "
+               f"steps" if "spec_k" in extra else
+               f", {r['batched_chunks']} batched chunks")
+            + f"; launches {launches}; wall {wall:.1f} s (warm-up included)")
+        del eng
+        torch.cuda.empty_cache()
+    total = {k: sum(summary[t]["launches"][k] for t in
+                    ("engine_bf16", "engine_spec_lora",
+                     "engine_bucketed_lora")) for k, _, _ in KERNELS}
+    check(all(v > 0 for v in total.values()),
+          f"the engine passes did not launch every kernel: {total}")
+    summary["launches_total"] = total
+
     # a short second pass with int8 KV
     reqs8 = _requests(cfg.vocab_size, 4, prompt_len, 16, 256, seed=2)
     ec8 = dataclasses.replace(ec, kv_dtype="int8", max_len=prompt_len + 32)
@@ -388,19 +683,47 @@ def _leaves(tree):
             yield v
 
 
-def _parity_tokens(cfg, params, reqs, kv, impl, device):
+def _parity_tokens(cfg, params, reqs, kv, impl, device, drafter=None,
+                   **extra):
     from repro_torch.engine import EngineConfig
     ec = EngineConfig(max_slots=4, max_len=128, chunk_size=64,
                       decode_block=4, block_size=16, kv_dtype=kv,
-                      attn_impl=impl)
-    eng, results = _serve(cfg, params, ec, reqs, device)
-    _check_results(cfg, reqs, results, f"parity {kv} {impl}")
+                      attn_impl=impl, **extra)
+    eng, results = _serve(cfg, params, ec, reqs, device, drafter)
+    _check_results(cfg, reqs, results, f"parity {kv} {impl} {extra}")
+    if drafter is not None:
+        drafter.acceptance = eng.spec_acceptance
     return [r.tokens for r in results]
 
 
+def _oracle_drafter(reqs, greedy, vocab):
+    """A drafter that proposes each request's plain greedy continuation,
+    with one wrong draft every third step: speculative steps then accept
+    several drafts, reject others and roll the cursor back, which random
+    weights and the n-gram drafter hardly ever do."""
+    from repro_torch.engine import Drafter
+
+    class Oracle(Drafter):
+        acceptance = None
+
+        def propose(self, tokens, k):
+            for r, g in zip(reqs, greedy):
+                n = len(r.prompt)
+                if list(tokens[:n]) == list(r.prompt):
+                    done = len(tokens) - n
+                    out = (list(g[done:done + k]) + [0] * k)[:k]
+                    if done % 3 == 2:
+                        out[-1] = (out[-1] + 1) % vocab
+                    return out
+            return [0] * k                  # the warm-up request
+    return Oracle()
+
+
 def phase_parity(device):
+    import numpy as np
     import torch
     from repro_torch import configs
+    from repro_torch.engine import Request
     from repro_torch.models import forward, init_params
 
     cfg = dataclasses.replace(configs.get("llama2-7b"), n_layers=4)
@@ -429,6 +752,55 @@ def phase_parity(device):
     log(f"[parity] kv=fp32: engine first tokens {firsts}, dense forward "
         f"argmax {first}")
     check(firsts == first, "engine first tokens differ from dense forward")
+
+    # the reference's invariants of the three features (its tests
+    # test_spec_decode.py and test_lora_serving.py).  The runs compared
+    # batch their rows differently (a verify pass, a batched chunk, one
+    # request alone), so they keep f32 KV: bf16 rounding of K/V could
+    # part two runs at a near-tie of the logits
+    def tokens(reqs_, impl="paged", drafter=None, **extra):
+        return _parity_tokens(cfg, params, reqs_, "fp32", impl, device,
+                              drafter, **extra)
+
+    greedy = tokens(reqs)
+    spec = tokens(reqs, spec_k=4)
+    log(f"[parity] spec_k=4 (n-gram drafter) at T=0 == greedy tokens: "
+        f"{spec == greedy}")
+    check(spec == greedy, "speculative decoding at T=0 differs from greedy")
+    oracle = _oracle_drafter(reqs, greedy, cfg.vocab_size)
+    spec = tokens(reqs, drafter=oracle, spec_k=4)
+    log(f"[parity] spec_k=4 (greedy-continuation drafter, acceptance "
+        f"{oracle.acceptance:.4f}) at T=0 == greedy tokens: {spec == greedy}")
+    check(spec == greedy and 0 < oracle.acceptance < 1,
+          "speculative decoding with accepted drafts differs from greedy")
+    bucketed = tokens(reqs, prefill_batch=4)
+    log(f"[parity] prefill_batch=4 == unbucketed tokens: "
+        f"{bucketed == greedy}")
+    check(bucketed == greedy, "bucketed admission differs from unbucketed")
+    lora = dict(lora_tenants=3, lora_ranks=(8, 16))
+    # distinct prompts here: the radix index is not keyed by tenant (as
+    # in the reference), so a shared prefix would reuse another tenant's
+    # K/V and a request served alone would differ by design
+    rng = np.random.default_rng(5)
+    plain = [Request(rid=i, max_new=16, prompt=rng.integers(
+        0, cfg.vocab_size, 100).tolist()) for i in range(6)]
+    treqs = _with_tenants(plain, 3)
+    nolora = tokens(plain)
+    mixed = tokens(treqs, **lora)
+    alone = [tokens([r], **lora)[0] for r in treqs]
+    log(f"[parity] mixed-tenant batch == each request alone: "
+        f"{mixed == alone}; base request == no-LoRA engine: "
+        f"{mixed[-1] == nolora[-1]}; tenant 0 differs from the base "
+        f"model: {mixed[0] != nolora[0]}")
+    check(mixed == alone, "a mixed-tenant batch differs from serving each "
+          "request alone")
+    check(mixed[-1] == nolora[-1], "the base-model request differs from a "
+          "LoRA-free engine")
+    check(mixed[0] != nolora[0], "tenant 0's adapter changed no token")
+    both = dict(lora, spec_k=4)
+    same = tokens(treqs, "gather", **both) == tokens(treqs, "paged", **both)
+    log(f"[parity] gather == paged with LoRA and spec_k=4: {same}")
+    check(same, "gather and paged tokens differ with LoRA and speculation")
     del params
     torch.cuda.empty_cache()
 
@@ -446,6 +818,10 @@ def _kind(name: str) -> str:
         return "paged_decode kernel"
     if "paged_prefill" in n:
         return "paged_prefill kernel"
+    if "paged_verify" in n:
+        return "paged_verify kernel"
+    if "grouped_lora" in n:
+        return "grouped_lora kernel"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "nvjet", "sm90_xmma",
                             "cublas")):
         return "matmul (cuBLAS)"
@@ -457,11 +833,14 @@ def _kind(name: str) -> str:
 def phase_profile(device):
     """Where the time goes on the main path: torch.profiler over one
     admission step (4 prefills of 512 tokens) and over the decode blocks
-    that follow, llama2-7b bf16, paged attention."""
+    that follow, llama2-7b bf16, paged attention; then the same with
+    three LoRA tenants and a base-model request (K4's four launches per
+    layer per step on top), and again with bucketed admission
+    (prefill_batch=4: K3 admits the group in batched chunks)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
-    from repro_torch.engine import EngineConfig
+    from repro_torch.engine import Engine, EngineConfig
     from repro_torch.models import init_params
 
     cfg = configs.get("llama2-7b")
@@ -470,34 +849,49 @@ def phase_profile(device):
     ec = EngineConfig(max_slots=4, max_len=512 + 64 + 16, chunk_size=256,
                       decode_block=8, block_size=16, n_blocks=512,
                       kv_dtype="bf16", attn_impl="paged")
-    from repro_torch.engine import Engine
-    eng = Engine(cfg, params, ec, device=device)
-    eng.warmup()
-    for r in reqs:
-        eng.submit(r)
-    windows = []
-    while not eng.done:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.step()
+    for tag, ec_t, reqs_t in (
+            ("plain", ec, reqs),
+            ("lora", dataclasses.replace(ec, lora_tenants=3,
+                                         lora_ranks=(8, 16)),
+             _with_tenants(reqs, 3)),
+            ("bucketed lora", dataclasses.replace(
+                ec, lora_tenants=3, lora_ranks=(8, 16), prefill_batch=4),
+             _with_tenants(reqs, 3))):
+        eng = Engine(cfg, params, ec_t, device=device)
+        eng.warmup()
+        for r in reqs_t:
+            eng.submit(r)
+        windows = []
+        while not eng.done:
+            n0 = len(eng.trace)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kinds = {}
-        for evt in prof.key_averages():
-            us = _self_device_us(evt)
-            if us > 0 and not evt.key.startswith("aten::"):
-                kinds[_kind(evt.key)] = kinds.get(_kind(evt.key), 0.0) + us
-        windows.append((eng.trace[-1].kind, wall, kinds))
-    for i, (kind, wall, kinds) in enumerate(windows):
-        busy = sum(kinds.values()) / 1e6
-        parts = ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in
-                          sorted(kinds.items(), key=lambda kv: -kv[1]))
-        log(f"[profile] step {i} ({'admission+' if i == 0 else ''}{kind}): "
-            f"wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
-            f"(idle share {max(0.0, 1 - busy / wall):.3f}); {parts}")
-    del eng, params
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kinds = {}
+            for evt in prof.key_averages():
+                us = _self_device_us(evt)
+                if us > 0 and not evt.key.startswith("aten::"):
+                    kinds[_kind(evt.key)] = kinds.get(_kind(evt.key),
+                                                      0.0) + us
+            events = [e.kind for e in eng.trace[n0:]]
+            kind = "+".join(f"{k}x{events.count(k)}"
+                            for k in dict.fromkeys(events))
+            windows.append((kind, wall, kinds))
+        for i, (kind, wall, kinds) in enumerate(windows):
+            busy = sum(kinds.values()) / 1e6
+            parts = ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in
+                              sorted(kinds.items(), key=lambda kv: -kv[1]))
+            log(f"[profile] {tag} step {i} "
+                f"({kind}): "
+                f"wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
+                f"(idle share {max(0.0, 1 - busy / wall):.3f}); {parts}")
+        del eng
+        torch.cuda.empty_cache()
+    del params
     torch.cuda.empty_cache()
 
 
@@ -518,7 +912,9 @@ def main() -> int:
               "runs on a CUDA device only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.paged_attention import build as kbuild
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.grouped_lora import ops as lora_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
@@ -529,11 +925,19 @@ def main() -> int:
     t_all = time.perf_counter()
     kernels, summary = {}, {}
     if "build" in phases:
-        res = kbuild.build(force=True)
-        log(f"[build] nvcc {res.path.name} in {res.seconds:.1f} s")
-        for line in res.log.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
+        # one nvcc per source, all started together
+        libs = ((paged_ops.SOURCE, paged_ops.LIBRARY_NAME),
+                (lora_ops.SOURCE, lora_ops.LIBRARY_NAME))
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+            builds = list(pool.map(
+                lambda lib: kbuild.build(*lib, force=True), libs))
+        log(f"[build] both libraries in {time.perf_counter() - t0:.1f} s")
+        for res in builds:
+            log(f"[build] nvcc {res.path.name} in {res.seconds:.1f} s")
+            for line in res.log.splitlines():
+                if "Used" in line or "spill" in line:
+                    log(f"[build] {line.strip()}")
     if "kernels" in phases:
         phase_kernels(device, kernels)
     if "engine" in phases:
@@ -544,24 +948,24 @@ def main() -> int:
         phase_profile(device)
     log(f"[done] phases {phases} in {time.perf_counter() - t_all:.1f} s")
 
-    # launch counts come from the engine phase's run only: without it
-    # there is no count of this run to report
-    launches = summary.get("engine_bf16", {}).get("launches")
+    # launch counts come from the engine phase's passes only (each zeroed
+    # before it and read after it): without them there is no count of
+    # this run to report
+    launches = summary.get("launches_total")
     record = []
-    for name, line in (("paged_decode", 80), ("paged_prefill", 170)):
+    for name, source, replaces in KERNELS:
         if name not in kernels:
             continue
         r = kernels[name]
         record.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/paged_attention/csrc/"
-                      "paged_attention.cu",
-            "replaces": f"src/repro/kernels/paged_attention/"
-                        f"paged_attention.py:{line}",
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
             "launches": launches[name] if launches else None,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"more_shapes": r["more_shapes"]} if "more_shapes" in r
+               else {}),
         })
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

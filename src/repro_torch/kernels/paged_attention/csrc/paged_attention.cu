@@ -1,10 +1,13 @@
-// Paged flash attention for Hopper (sm_90a): decode and chunked prefill.
+// Paged flash attention for Hopper (sm_90a): decode, chunked prefill and
+// speculative verify.
 //
 // Replaces the TPU Pallas kernels of the JAX package:
 //   paged_decode_kernel  <- kernels/paged_attention/paged_attention.py::paged_decode_fwd
 //                           (_decode_kernel)
 //   paged_prefill_kernel <- kernels/paged_attention/paged_attention.py::paged_prefill_fwd
 //                           (_prefill_kernel)
+//   paged_verify_kernel  <- kernels/paged_attention/paged_attention.py::paged_verify_fwd
+//                           (_verify_kernel)
 //
 // KV lives in one global block pool (N, bs, Hk, d) addressed through block
 // tables.  Both kernels read K/V block by block through the table with an
@@ -17,15 +20,17 @@
 // tensor cores become the limit; it must read sum_s (pos[s]+1)*Hk*d*2*kv_bytes
 // per layer.  Prefill at chunk C reuses each K/V element C*G times and is
 // closer to balanced, but this first version does its arithmetic in f32 on
-// the CUDA cores.  The design keeps everything simple and right: one thread
-// block per (slot, KV head) for decode and per (KV head, tile of 16 query
-// rows) for prefill; the block loops over its own KV blocks in order (the
+// the CUDA cores.  Verify is prefill per slot: Q = k+1 queries (or a whole
+// bucketed-admission chunk) at pos[s] .. pos[s]+Q-1 over the slot's table.
+// The design keeps everything simple and right: one thread block per (slot,
+// KV head) for decode and per (KV head, tile of 16 query rows[, slot]) for
+// prefill and verify; the block loops over its own KV blocks in order (the
 // TPU's sequential grid axis), carrying the running max, sum and f32
 // accumulator in shared memory.  wgmma, TMA, vectorised loads and split-KV
 // are left for later work.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
-// with ctypes (see ../build.py and ../ops.py).
+// with ctypes (see ../../build.py and ../ops.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -215,6 +220,31 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ ck,
                       key_end, scale);
 }
 
+// grid (Hk, ceil(Q*G / 16), S): a tile of 16 rows (i, g) of slot s and KV
+// head h; query i sits at pos[s] + i and attends keys k <= pos[s] + i.  The
+// tile stops at the last block its last row may attend, and never walks
+// past the table: padding rows of a bucketed chunk's tail can sit beyond
+// the table's nb*bs positions (they then attend every key of the table,
+// as the reference does, and their outputs are not used).
+template <typename QT, typename KT>
+__global__ void __launch_bounds__(kThreads)
+paged_verify_kernel(const QT* __restrict__ q, const KT* __restrict__ ck,
+                    const KT* __restrict__ cv, const int* __restrict__ block_tables,
+                    const int* __restrict__ pos, QT* __restrict__ out, int Q, int Hk, int G,
+                    int d, int bs, int nb, float scale) {
+  const int h = blockIdx.x;
+  const int row0 = blockIdx.y * kPrefillRows;
+  const int s = blockIdx.z;
+  const int n_rows = min(kPrefillRows, Q * G - row0);
+  const int p = pos[s];
+  const int last_qpos = p + (row0 + n_rows - 1) / G;
+  const int n_blk = min(nb, last_qpos / bs + 1);
+  const size_t slot_off = static_cast<size_t>(s) * Q * Hk * G * d;
+  attend_rows<QT, KT>(q + slot_off, ck, cv, block_tables + static_cast<size_t>(s) * nb,
+                      out + slot_off, row0, n_rows, G, Hk, h, d, bs, n_blk, p, 1, p + Q,
+                      scale);
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -250,6 +280,22 @@ int launch_prefill(const void* q, const void* ck, const void* cv, const void* ta
       static_cast<const QT*>(q), static_cast<const KT*>(ck), static_cast<const KT*>(cv),
       static_cast<const int*>(table), static_cast<QT*>(out), C, Hk, G, d, bs, nb, start, valid,
       scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT, typename KT>
+int launch_verify(const void* q, const void* ck, const void* cv, const void* bt,
+                  const void* pos, void* out, int S, int Q, int Hk, int G, int d, int bs,
+                  int nb, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(kPrefillRows, d, bs);
+  auto kernel = paged_verify_kernel<QT, KT>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (Q * G + kPrefillRows - 1) / kPrefillRows;
+  kernel<<<dim3(Hk, tiles, S), kThreads, smem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KT*>(ck), static_cast<const KT*>(cv),
+      static_cast<const int*>(bt), static_cast<const int*>(pos), static_cast<QT*>(out), Q, Hk,
+      G, d, bs, nb, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -289,6 +335,15 @@ int paged_prefill_launch(const void* q, const void* cache_k, const void* cache_v
   if (q_dtype < kF32 || q_dtype > kBF16 || kv_dtype < kF32 || kv_dtype > kI8) return kBadDType;
   PA_DISPATCH(launch_prefill, q, cache_k, cache_v, block_table, out, C, Hk, G, d, bs, nb, start,
               valid, scale, static_cast<cudaStream_t>(stream))
+}
+
+int paged_verify_launch(const void* q, const void* cache_k, const void* cache_v,
+                        const void* block_tables, const void* pos, void* out, int S, int Q,
+                        int Hk, int G, int d, int bs, int nb, int q_dtype, int kv_dtype,
+                        float scale, void* stream) {
+  if (q_dtype < kF32 || q_dtype > kBF16 || kv_dtype < kF32 || kv_dtype > kI8) return kBadDType;
+  PA_DISPATCH(launch_verify, q, cache_k, cache_v, block_tables, pos, out, S, Q, Hk, G, d, bs, nb,
+              scale, static_cast<cudaStream_t>(stream))
 }
 
 // Bytes of dynamic shared memory a launch asks for (the wrapper checks it

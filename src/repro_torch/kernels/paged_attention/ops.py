@@ -1,7 +1,7 @@
 """Public wrappers of the paged attention kernels.
 
-``paged_decode`` and ``paged_prefill`` take the signatures of the JAX
-package's ``kernels/paged_attention/ops.py``.  For tensors on a CUDA
+``paged_decode``, ``paged_prefill`` and ``paged_verify`` take the
+signatures of the JAX package's ``kernels/paged_attention/ops.py``.  For tensors on a CUDA
 device they launch the hand-written Hopper kernels of
 ``csrc/paged_attention.cu`` (built on first use, bound with ``ctypes``) on
 the current stream, or raise; nothing falls back.  For tensors on the CPU
@@ -13,15 +13,20 @@ that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
-from . import build as _build
-from .ref import paged_decode_ref, paged_prefill_ref
+from repro_torch.kernels import build as _build
+from .ref import paged_decode_ref, paged_prefill_ref, paged_verify_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+LIBRARY_NAME = "paged_attention"
 
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
-LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_prefill": 0}
+LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_prefill": 0,
+                            "paged_verify": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_DTYPES = (torch.float32, torch.bfloat16)
@@ -39,7 +44,7 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' shared library."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(_build.build().path))
+        lib = ctypes.CDLL(str(_build.build(SOURCE, LIBRARY_NAME).path))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.paged_decode_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
                                             I, I, ctypes.c_float, P]
@@ -47,6 +52,9 @@ def load_library() -> ctypes.CDLL:
         lib.paged_prefill_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, I,
                                              I, I, I, I, ctypes.c_float, P]
         lib.paged_prefill_launch.restype = I
+        lib.paged_verify_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
+                                            I, I, I, ctypes.c_float, P]
+        lib.paged_verify_launch.restype = I
         lib.paged_smem_bytes.argtypes = [I, I, I]
         lib.paged_smem_bytes.restype = ctypes.c_longlong
         lib.paged_prefill_rows.argtypes = []
@@ -164,5 +172,44 @@ def paged_prefill(q: torch.Tensor, cache_k: torch.Tensor,
     return out
 
 
+def paged_verify(q: torch.Tensor, cache_k: torch.Tensor,
+                 cache_v: torch.Tensor, block_tables: torch.Tensor,
+                 pos: torch.Tensor) -> torch.Tensor:
+    """Paged flash speculative verify: Q candidate tokens per slot.
+
+    q: (S, Q, Hk, G, d) — slot ``s``'s queries sit at absolute positions
+    ``pos[s] .. pos[s]+Q-1`` (the pending token plus k=Q-1 drafts, or a
+    bucketed-admission chunk, whose K/V were written before this call);
+    caches: (N, bs, Hk, d); tables: (S, max_bps) int32; pos: (S,) cursors.
+    """
+    if not q.is_cuda:
+        return paged_verify_ref(q, cache_k, cache_v, block_tables, pos)
+    if q.dim() != 5:
+        raise ValueError(f"q must be (S, Q, Hk, G, d), got {tuple(q.shape)}")
+    S, Q, Hk, G, d = q.shape
+    if not q.is_contiguous():
+        raise ValueError(f"q must be contiguous on {q.device}")
+    _check_pool(q.view(S * Q, Hk, G, d), cache_k, cache_v)
+    bs = cache_k.shape[1]
+    nb = block_tables.shape[-1]
+    _check_index("block_tables", block_tables, (S, nb), q.device)
+    _check_index("pos", pos, (S,), q.device)
+    out = torch.empty_like(q)
+    if S == 0 or Q == 0:
+        return out
+    lib = load_library()
+    _smem_check(lib, lib.paged_prefill_rows(), d, bs)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.paged_verify_launch(
+        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        S, Q, Hk, G, d, bs, nb, _DTYPE_CODES[q.dtype],
+        _DTYPE_CODES[cache_k.dtype], d ** -0.5, stream)
+    _raise_on(lib, err, "paged_verify")
+    LAUNCHES["paged_verify"] += 1
+    return out
+
+
 __all__ = ["LAUNCHES", "load_library", "paged_decode", "paged_decode_ref",
-           "paged_prefill", "paged_prefill_ref", "reset_launch_counts"]
+           "paged_prefill", "paged_prefill_ref", "paged_verify",
+           "paged_verify_ref", "reset_launch_counts"]

@@ -40,6 +40,30 @@ def paged_decode_ref(q, cache_k, cache_v, block_tables, pos):
     return torch.einsum("skgl,slkd->skgd", pr, pv).to(q.dtype)
 
 
+def paged_verify_ref(q, cache_k, cache_v, block_tables, pos):
+    """q: (S, Q, Hk, G, d); caches: (N, bs, Hk, d); tables: (S, nb);
+    pos: (S,).
+
+    Speculative verify semantics: slot ``s``'s query ``i`` sits at
+    absolute position ``pos[s] + i`` and attends keys ``[0, pos[s] + i]``
+    of its gathered virtual sequence (the candidate keys themselves
+    included: they were written before attention, like a prefill chunk's
+    own tokens)."""
+    S, Q, Hk, G, d = q.shape
+    pk = _gather_pages(cache_k, block_tables).float()     # (S, L, Hk, d)
+    pv = _gather_pages(cache_v, block_tables).float()
+    L = pk.shape[1]
+    sc = torch.einsum("sqkgd,slkd->sqkgl", q.float(), pk) * d ** -0.5
+    q_pos = (pos.to(q.device).long()[:, None]
+             + torch.arange(Q, device=q.device)[None, :])    # (S, Q)
+    k_pos = torch.arange(L, device=q.device)
+    live = k_pos[None, None, :] <= q_pos[:, :, None]        # (S, Q, L)
+    sc = torch.where(live[:, :, None, None, :], sc,
+                     torch.full((), NEG_INF, device=q.device))
+    pr = torch.softmax(sc, dim=-1)
+    return torch.einsum("sqkgl,slkd->sqkgd", pr, pv).to(q.dtype)
+
+
 def paged_prefill_ref(q, cache_k, cache_v, block_table, start, valid):
     """q: (C, Hk, G, d) chunk at absolute positions ``start + [0, C)``;
     keys ``[0, start + valid)`` of the gathered virtual sequence are live

@@ -1,15 +1,23 @@
 """Serving launcher of the port — continuous batching on one GPU.
 
     python -m repro_torch.launch.serve --arch llama2-7b --attn-impl paged
+    python -m repro_torch.launch.serve --arch llama2-7b --spec-k 4 \
+        --lora-tenants 4 --lora-ranks 8,16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
         --reduced --device cpu --requests 3 --max-slots 2 --prompt-len 16 \
-        --new-tokens 6 --chunk 8
+        --new-tokens 6 --chunk 8 --spec-k 2 --prefill-batch 2 \
+        --lora-tenants 2 --lora-ranks 4,8
 
 Mirrors the engine path of ``python -m repro.launch.serve``: random weights
 from a seeded generator, a synthetic request stream, warm-up outside the
 measured window, then the measured per-request TTFT/TPOT and the
-aggregate TPS.  It prints measured numbers only; the analytical twin's
-forecast needs the analytical half, which the port does not have yet.
+aggregate TPS.  ``--spec-k``, ``--prefill-batch`` and ``--lora-tenants``
+/ ``--lora-ranks`` / ``--lora-slots`` turn on speculative decoding
+(n-gram drafter), bucketed batched admission and multi-tenant LoRA (the
+fields ``repro.api.measure`` passes to the reference engine); tenants are
+assigned round-robin, and the last request uses the base model.  It
+prints measured numbers only; the analytical twin's forecast needs the
+analytical half, which the port does not have yet.
 """
 from __future__ import annotations
 
@@ -39,6 +47,16 @@ def main(argv=None) -> dict:
     p.add_argument("--chunk", type=int, default=0, help="chunked prefill size")
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--attn-impl", default="paged", choices=["gather", "paged"])
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="draft tokens verified per step (0 = off)")
+    p.add_argument("--prefill-batch", type=int, default=1,
+                   help="bucketed batched admission width (1 = off)")
+    p.add_argument("--lora-tenants", type=int, default=0,
+                   help="LoRA tenants served from the adapter pool (0 = off)")
+    p.add_argument("--lora-ranks", default="8",
+                   help="comma list; tenant t has rank ranks[t %% len]")
+    p.add_argument("--lora-slots", type=int, default=None,
+                   help="resident adapters (default: one per engine slot)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
@@ -52,11 +70,21 @@ def main(argv=None) -> dict:
                       chunk_size=args.chunk or args.prompt_len,
                       decode_block=args.decode_block,
                       kv_dtype=args.kv_dtype, temperature=args.temperature,
-                      attn_impl=args.attn_impl, seed=args.seed)
+                      attn_impl=args.attn_impl, seed=args.seed,
+                      spec_k=args.spec_k, prefill_batch=args.prefill_batch,
+                      lora_tenants=args.lora_tenants,
+                      lora_ranks=tuple(int(r) for r in
+                                       args.lora_ranks.split(",") if r),
+                      lora_slots=args.lora_slots)
     rng = np.random.default_rng(args.seed + 1)
     prompts = rng.integers(0, cfg.vocab_size, (args.requests, args.prompt_len))
+    # tenants round-robin; the last request is served by the base model
+    aids = [(i % args.lora_tenants if args.lora_tenants
+             and i < args.requests - 1 else None)
+            for i in range(args.requests)]
     reqs = [Request(rid=i, prompt=prompts[i].tolist(),
-                    max_new=args.new_tokens) for i in range(args.requests)]
+                    max_new=args.new_tokens, adapter_id=aids[i])
+            for i in range(args.requests)]
     eng = Engine(cfg, params, ec, device=device)
     eng.warmup()          # kernel build and allocator growth stay outside
     results = eng.run(reqs)
@@ -77,6 +105,11 @@ def main(argv=None) -> dict:
         "prefix_hit_rate": eng.prefix_hit_rate,
         "trace_events": len(eng.trace),
     }
+    if args.spec_k:
+        summary["spec_acceptance"] = eng.spec_acceptance
+        summary["spec_tokens_per_step"] = eng.spec_tokens_per_step
+    if args.lora_tenants:
+        summary["adapter_hit_rate"] = eng.adapter_hit_rate
     print(json.dumps(summary, indent=1))
     return summary
 

@@ -3,7 +3,7 @@ counterparts of the JAX package's ``models/attention.py`` for the dense
 decoders the port serves."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,8 +39,13 @@ def _mask(q_pos, k_pos, *, causal: bool):
     return m[None, None, None]
 
 
-def _project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor, positions):
-    """q (b,s,Hk,G,hd) and k, v (b,s,Hk,hd), RoPE applied to q and k."""
+def _project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor, positions,
+                 deltas: Optional[Tuple] = None):
+    """q (b,s,Hk,G,hd) and k, v (b,s,Hk,hd), RoPE applied to q and k.
+
+    ``deltas`` (dq (b,s,H,hd), dk, dv (b,s,Hk,hd)) are per-request
+    low-rank (LoRA) deltas, added before RoPE so a merged-weight run
+    (W + A@B) produces the same rotated q/k."""
     b, s, d = x.shape
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"].reshape(d, H * hd)).view(b, s, H, hd)
@@ -48,6 +53,11 @@ def _project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor, positions):
     v = (x @ p["wv"].reshape(d, Hk * hd)).view(b, s, Hk, hd)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if deltas is not None:
+        dq, dk, dv = deltas
+        q = q + dq.to(q.dtype)
+        k = k + dk.to(k.dtype)
+        v = v + dv.to(v.dtype)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q.reshape(b, s, Hk, H // Hk, hd), k, v

@@ -1,5 +1,6 @@
 """Tests that need the card: the CUDA kernels against their plain
-versions, and the engine's two attention impls against each other.
+versions, and the engine's two attention impls against each other (with
+speculative decoding and LoRA tenants too).
 
 They import neither JAX nor the JAX package, so they run on a GPU
 machine as they are:
@@ -9,12 +10,19 @@ machine as they are:
 Elsewhere they skip (a CUDA kernel has no CPU mode); ``chip_smoke.py``
 runs the same checks at the main path's shapes.
 """
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import configs
 from repro_torch.engine import Engine, EngineConfig, Request
+from repro_torch.kernels.grouped_lora import ops as lora_ops
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import kernel_tolerance
 from repro_torch.models import init_params
@@ -72,6 +80,88 @@ def test_kernels_match_plain_versions(cuda_device, kv, Hk, G):
     assert ops.LAUNCHES["paged_prefill"] == before["paged_prefill"] + 1
 
 
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("Hk,G", [(32, 1), (4, 7)])
+@pytest.mark.parametrize("Q", [1, 5, 19])
+def test_verify_kernel_matches_plain_version(cuda_device, kv, Hk, G, Q):
+    """Cursors at 0, on a seam and near the table's end (the padding rows
+    of the last slot run past it)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    N, bs, d, nb = 64, 16, 128, 6
+    if kv == torch.int8:
+        ck = torch.randint(-40, 41, (N, bs, Hk, d), generator=gen,
+                           device=cuda_device, dtype=torch.int8)
+    else:
+        ck = torch.randn((N, bs, Hk, d), generator=gen,
+                         device=cuda_device).to(kv)
+    cv = ck.flip(0).contiguous()
+    bt = torch.randperm(N, generator=gen, device=cuda_device)[:3 * nb]
+    bt = bt.reshape(3, nb).to(torch.int32).contiguous()
+    pos = torch.tensor([0, 32, nb * bs - 3], dtype=torch.int32,
+                       device=cuda_device)
+    q = torch.randn((3, Q, Hk, G, d), generator=gen,
+                    device=cuda_device).bfloat16()
+    before = ops.LAUNCHES["paged_verify"]
+    out = ops.paged_verify(q, ck, cv, bt, pos)
+    ref = ops.paged_verify_ref(q, ck, cv, bt, pos)
+    torch.cuda.synchronize()
+    _assert_within_tolerance(out, ref, cv)
+    assert ops.LAUNCHES["paged_verify"] == before + 1
+
+
+@pytest.mark.parametrize("T", [1, 5, 40])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_grouped_lora_kernel_matches_plain_version(cuda_device, T, x_dtype):
+    """Mixed ranks (4/8/16 padded to 16), a shared tenant and holes."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(2)
+    S, k, n, P, R = 5, 320, 300, 4, 16
+    A = torch.zeros((P, k, R), device=cuda_device)
+    B = torch.zeros((P, R, n), device=cuda_device)
+    for p, r in enumerate((4, 8, 16, 8)):
+        A[p, :, :r] = torch.randn((k, r), generator=gen,
+                                  device=cuda_device) * r ** -0.5
+        B[p, :r] = torch.randn((r, n), generator=gen,
+                               device=cuda_device) * 0.05
+    A, B = A.bfloat16().contiguous(), B.bfloat16().contiguous()
+    x = torch.randn((S, T, k), generator=gen,
+                    device=cuda_device).to(x_dtype)
+    idx = torch.tensor([2, -1, 0, 2, 3], dtype=torch.int32,
+                       device=cuda_device)
+    before = lora_ops.LAUNCHES["grouped_lora"]
+    out = lora_ops.grouped_lora(x, A, B, idx)
+    ref = lora_ops.grouped_lora_ref(x, A, B, idx)
+    torch.cuda.synchronize()
+    _assert_within_tolerance(out, ref, ref)
+    assert not out[1].any()
+    assert lora_ops.LAUNCHES["grouped_lora"] == before + 1
+
+
+def test_grouped_lora_kernel_faults_on_a_slot_past_the_pool(cuda_device):
+    """idx = P traps in the kernel, which the next synchronisation
+    raises as a device-side assert, as for torch's own indexing (the
+    plain version raises IndexError).  A child process runs it: the
+    trap ends that process's CUDA context."""
+    code = textwrap.dedent("""
+        import torch
+        from repro_torch.kernels.grouped_lora import ops
+        x = torch.ones((2, 1, 64), device="cuda")
+        A = torch.ones((3, 64, 8), device="cuda")
+        B = torch.ones((3, 8, 32), device="cuda")
+        idx = torch.tensor([0, 3], dtype=torch.int32, device="cuda")
+        ops.grouped_lora(x, A, B, idx)
+        torch.cuda.synchronize()
+        """)
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode != 0
+    assert "device-side assert" in proc.stderr, proc.stderr[-2000:]
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((2, 2, 1, 16), device=cuda_device, dtype=torch.float16)
     ck = torch.zeros((4, 4, 2, 16), device=cuda_device)
@@ -105,3 +195,25 @@ def test_gather_equals_paged_engine(cuda_device):
                  for i, p in enumerate(prompts)])]
     assert toks["gather", "bf16"] == toks["paged", "bf16"]
     assert toks["gather", "int8"] == toks["paged", "int8"]
+
+
+def test_gather_equals_paged_engine_with_spec_and_lora(cuda_device):
+    """Speculative verify (K3) and grouped LoRA (K4) on the paged path
+    give the gather path's greedy tokens with f32 weights, through a
+    bucketed admission too."""
+    cfg = configs.reduced(configs.get("qwen2-7b"))
+    params = init_params(cfg, 0, device=cuda_device, dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 19))
+    toks = {}
+    for impl in ("gather", "paged"):
+        eng = Engine(cfg, params, EngineConfig(
+            max_slots=2, max_len=40, chunk_size=8, decode_block=3,
+            block_size=8, attn_impl=impl, spec_k=3, prefill_batch=2,
+            lora_tenants=3, lora_ranks=(4, 8), lora_slots=2),
+            device=cuda_device)
+        toks[impl] = [r.tokens for r in eng.run(
+            [Request(rid=i, prompt=p.tolist(), max_new=6,
+                     adapter_id=[0, 1, 2, None][i])
+             for i, p in enumerate(prompts)])]
+    assert toks["gather"] == toks["paged"]

@@ -40,9 +40,13 @@ def test_port_modules_cover_the_slice():
                 "repro_torch.engine.sampling", "repro_torch.engine.block_pool",
                 "repro_torch.engine.kv_cache", "repro_torch.engine.decode_loop",
                 "repro_torch.engine.scheduler",
+                "repro_torch.engine.drafter",
+                "repro_torch.engine.adapter_pool",
+                "repro_torch.kernels.build",
                 "repro_torch.kernels.paged_attention.ref",
                 "repro_torch.kernels.paged_attention.ops",
-                "repro_torch.kernels.paged_attention.build",
+                "repro_torch.kernels.grouped_lora.ref",
+                "repro_torch.kernels.grouped_lora.ops",
                 "repro_torch.launch.serve"):
         assert mod in names
 
@@ -72,7 +76,7 @@ def test_importing_the_port_leaves_jax_out():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["n"] >= 15
+    assert res["n"] >= 22
     assert res["bad"] == []
 
 
@@ -126,6 +130,25 @@ def test_launcher_smoke_reduced_cpu():
     assert summary["requests"] == 3 and summary["device"] == "cpu"
     assert summary["tps"] > 0 and summary["ttft_p50_ms"] > 0
     assert out.stdout.count(" 6 toks ") == 3
+
+
+def test_launcher_features_reduced_cpu():
+    """Speculative decoding, bucketed admission and LoRA tenants through
+    the launcher: tenants round-robin, the last request on the base
+    model, and the summary carries each feature's measured rate."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen2-7b", "--reduced", "--device", "cpu", "--requests", "3",
+         "--max-slots", "2", "--prompt-len", "16", "--new-tokens", "6",
+         "--chunk", "8", "--spec-k", "2", "--prefill-batch", "2",
+         "--lora-tenants", "2", "--lora-ranks", "4,8", "--lora-slots", "2"],
+        env=_env(), cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout[out.stdout.index("{"):])
+    assert out.stdout.count(" 6 toks ") == 3
+    assert 0.0 <= summary["spec_acceptance"] <= 1.0
+    assert summary["spec_tokens_per_step"] >= 1.0
+    assert summary["adapter_hit_rate"] == 0.0      # two tenants, two misses
 
 
 def test_chip_smoke_refuses_without_gpu(gpu_less):
