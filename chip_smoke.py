@@ -7,9 +7,10 @@
 Phases, in order (any failed check exits non-zero; no phase's failure is
 caught and ignored):
 
-1. build    — nvcc builds both kernel libraries for sm_90a, together:
+1. build    — nvcc builds the three kernel libraries for sm_90a, together:
               src/repro_torch/kernels/paged_attention/csrc (K1 decode, K2
-              prefill, K3 verify) and kernels/grouped_lora/csrc (K4).
+              prefill, K3 verify), kernels/grouped_lora/csrc (K4) and
+              kernels/flash_attention/csrc (K6 forward and backward).
 2. kernels  — every kernel against its plain PyTorch version on the card,
               at the llama2-7b (Hk=32, G=1) and qwen2-7b (Hk=4, G=7) head
               shapes, d=128, bs=16, bf16 and int8 KV: decode cursors at 0,
@@ -17,9 +18,13 @@ caught and ignored):
               valid<C over tables that share prefix blocks; verify with
               Q in {1, 5, 256} at cursors on and off seams and a padded
               last chunk near the table's end; grouped LoRA with mixed
-              ranks and holes (idx = -1) at T in {1, 5, 256}.  Then each
-              kernel's time, its plain version's, its bound and a library
-              yardstick at the main path's shapes.
+              ranks and holes (idx = -1) at T in {1, 5, 256}; flash
+              attention forward and backward on the reference's eight
+              kernel cases (MHA, GQA, MQA, ragged s, a decode step with
+              q_offset, a window, non-causal, head_dim 256) in bf16 and
+              f32 and at the training shape.  Then each kernel's time,
+              its plain version's, its bound and a library yardstick at
+              the main path's shapes.
 3. engine   — the main path: llama2-7b at full width and depth (random
               bf16 weights from a seed), paged attention, 8 requests of
               512 prompt + 64 new tokens through 4 slots, with a radix
@@ -30,7 +35,14 @@ caught and ignored):
               same tenants.  Each pass zeroes the launch counts before it
               and reads them after it; between them the passes launch
               K1-K4.  Then a short int8-KV pass.
-4. parity   — llama2-7b at full width with 4 layers and f32 weights:
+4. train    — the trainer: granite-3-2b at full width and depth (40
+              layers, random bf16 weights from seed 0), flash attention,
+              per-layer remat, AdamW, 4 x 2048 synthetic tokens, 4 steps;
+              per step its loss, grad norm, time, tokens/s, train_mfu,
+              peak memory and K6 launches.  Then at 4 layers, full width,
+              a run checkpointed after step 1 and resumed equals an
+              uninterrupted one bit for bit.
+5. parity   — llama2-7b at full width with 4 layers and f32 weights:
               gather and paged attention give identical greedy tokens for
               bf16 and int8 KV; with f32 KV the engine's first token of
               each request equals the argmax of the dense forward pass;
@@ -38,9 +50,16 @@ caught and ignored):
               bucketed admission gives unbucketed admission's, a
               mixed-tenant batch gives each request's tokens served
               alone, and gather equals paged with LoRA and speculation on.
+              granite-3-2b at 4 layers, full width, f32 weights: three
+              training steps (two microbatches each) through the flash
+              kernels equal three through eager attention.
 
-The last lines are the engine's JSON summary, the kernels' JSON record,
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+``--phases profile`` (run only when named) profiles engine steps and one
+training step of the train phase's configuration.
+
+The last lines are the train and engine JSON summaries, the kernels' JSON
+record, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -54,7 +73,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "engine", "parity")
+PHASES = ("build", "kernels", "engine", "train", "parity")
 EXTRA_PHASES = ("profile",)     # run only when named
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
@@ -353,6 +372,129 @@ def check_grouped_lora(device, gen, worst, results):
               f"bf16")
 
 
+#: the reference's flash attention kernel cases (tests/test_kernels.py):
+#: (b, s, L, H, Hk, d, causal, window, q_offset)
+FA_CASES = (
+    (1, 128, 128, 4, 4, 64, True, None, 0),      # MHA
+    (2, 256, 256, 8, 2, 128, True, None, 0),     # GQA 4:1
+    (1, 256, 256, 4, 1, 64, True, None, 0),      # MQA
+    (1, 100, 100, 4, 2, 64, True, None, 0),      # unaligned seq
+    (1, 1, 384, 4, 2, 64, True, None, 383),      # decode step w/ offset
+    (2, 192, 192, 4, 4, 64, True, 64, 0),        # local window
+    (1, 64, 64, 4, 4, 128, False, None, 0),      # bidirectional
+    (1, 128, 128, 2, 2, 256, True, None, 0),     # big head_dim
+)
+#: the train phase's attention: granite-3-2b at 4 x 2048, causal, bf16
+FA_MAIN = (4, 2048, 2048, 32, 8, 64, True, None, 0)
+
+
+def attention_pairs(s, L, causal, window, q_offset) -> int:
+    """Live (query, key) pairs of one (batch, head)."""
+    import numpy as np
+    qp = q_offset + np.arange(s)
+    hi = np.minimum(L, qp + 1) if causal else np.full(s, L)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros(s, int)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def flash_bound(case, elem, backward):
+    """Forward: q, k, v read once, o and the f32 log-sum-exp written once;
+    4*b*H*d flops per live pair (QK^T and PV).  Backward: q, k, v, o, dO
+    and the log-sum-exp read, dq, dk, dv written; 2.5x the forward's
+    flops (QK^T again, dO V^T, dV, dQ, dK)."""
+    b, s, L, H, Hk, d, causal, window, q_offset = case
+    q_el, kv_el, lse = b * s * H * d, b * L * Hk * d, b * H * s * 4
+    flops = 4 * b * H * d * attention_pairs(s, L, causal, window, q_offset)
+    if backward:
+        flops *= 2.5
+        nbytes = elem * (3 * q_el + 2 * kv_el) + lse + elem * (q_el + 2 * kv_el)
+    else:
+        nbytes = elem * (2 * q_el + 2 * kv_el) + lse
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_flash(device, gen, worst, results):
+    """K6 forward against its plain version (``kernel_tolerance``) and its
+    backward's dq, dk, dv against autograd through the plain version,
+    with one random upstream gradient, as relative norms
+    ||kernel - plain|| / ||plain||: at most 1e-5 in f32 (the same f32
+    arithmetic summed in another order) and 2e-2 in bf16 (the kernel's
+    D = rowsum(dO*O) reads the bf16-rounded output where autograd uses
+    the f32 one, and every gradient rounds once to bf16).  Then both
+    timed at the train phase's shape, beside the plain version and SDPA
+    (``is_causal``, ``enable_gqa``; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+
+    limit = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+    def one(case, dtype, what):
+        b, s, L, H, Hk, d, causal, window, q_offset = case
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        mk = lambda *shape: torch.randn(shape, generator=gen,
+                                        device=device).to(dtype)
+        q, k, v, do = mk(b, s, H, d), mk(b, L, Hk, d), mk(b, L, Hk, d), \
+            mk(b, s, H, d)
+        o, lse = ops.flash_fwd(q, k, v, **kw)
+        grads = ops.flash_bwd(q, k, v, o, lse, do, **kw)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        ref = ops.attention_ref(*leaves, **kw)
+        ref_grads = torch.autograd.grad(ref, leaves, do)
+        err = _compare(o, ref.detach(), v, f"flash_fwd {what}", worst)
+        rel = [float((a.float() - r.float()).norm() / r.float().norm())
+               for a, r in zip(grads, ref_grads)]
+        grad_err = max(float((a.float() - r.float()).abs().max())
+                       for a, r in zip(grads, ref_grads))
+        log(f"[kernels] flash_bwd {what} dq/dk/dv rel err "
+            f"{rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} (limit "
+            f"{limit[dtype]:.0e}) max_abs_err={grad_err:.3e}")
+        check(max(rel) <= limit[dtype], f"flash_bwd {what}: relative "
+              f"error {max(rel):.3e} above {limit[dtype]:.0e}")
+        return (q, k, v, do, o, lse), err, grad_err
+
+    for case in FA_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            one(case, dtype, f"{case} {str(dtype)[6:]}")
+    (q, k, v, do, o, lse), err, grad_err = one(FA_MAIN, torch.bfloat16,
+                                               "main-path shape")
+    b, s, L, H, Hk, d = FA_MAIN[:6]
+    shape = f"b={b} s={s} L={L} H={H} Hk={Hk} d={d} causal bf16"
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref = ops.attention_ref(*leaves)
+    plain_bwd = lambda: torch.autograd.grad(ref, leaves, do, retain_graph=True)
+    # SDPA takes (b, H, s, d); the transposes are made once, outside timing
+    ql, kl, vl, dol = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    sdpa = lambda *a: F.scaled_dot_product_attention(*a, is_causal=True,
+                                                     enable_gqa=True)
+    lib_leaves = [t.clone().requires_grad_() for t in (ql, kl, vl)]
+    lib_out = sdpa(*lib_leaves)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, lib_leaves, dol,
+                                          retain_graph=True)
+    lib_fwd_bwd = lambda: torch.autograd.grad(sdpa(*lib_leaves), lib_leaves,
+                                              dol)
+    bound, by = flash_bound(FA_MAIN, 2, backward=False)
+    results["flash_fwd"] = dict(
+        ms=time_ms(lambda: ops.flash_fwd(q, k, v)),
+        plain_ms=time_ms(lambda: ops.attention_ref(q, k, v)),
+        bound_ms=bound, bound_by=by,
+        library_ms=time_ms(lambda: sdpa(ql, kl, vl)),
+        max_abs_err=err, shape=shape)
+    bound, by = flash_bound(FA_MAIN, 2, backward=True)
+    results["flash_bwd"] = dict(
+        ms=time_ms(lambda: ops.flash_bwd(q, k, v, o, lse, do)),
+        plain_ms=time_ms(plain_bwd), bound_ms=bound, bound_by=by,
+        library_ms=time_ms(lib_bwd), max_abs_err=grad_err,
+        shape=shape + " (backward alone; plain and library: autograd "
+        "backward of a kept graph)")
+    log(f"[kernels] SDPA forward+backward at {shape}: "
+        f"{time_ms(lib_fwd_bwd):.4f} ms")
+    del ref, lib_out
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(device, results):
     import torch
     import torch.nn.functional as F
@@ -454,6 +596,7 @@ def phase_kernels(device, results):
               f"bs={bs} nb={nb} kv=bf16")
     check_verify(device, gen, shapes, worst, results)
     check_grouped_lora(device, gen, worst, results)
+    check_flash(device, gen, worst, results)
     log(f"[kernels] largest err/limit over every comparison: "
         f"{worst[0]:.3e}")
     for name, res in results.items():
@@ -495,20 +638,34 @@ KERNELS = (
     ("grouped_lora", "src/repro_torch/kernels/grouped_lora/csrc/"
      "grouped_lora.cu",
      "src/repro/kernels/grouped_lora/grouped_lora.py:68"),
+    ("flash_fwd", "src/repro_torch/kernels/flash_attention/csrc/"
+     "flash_attention.cu",
+     "src/repro/kernels/flash_attention/flash_attention.py:92"),
+    # the reference has no backward kernel: its custom VJP recomputes
+    # through the oracle (the plain version) with jax.vjp
+    ("flash_bwd", "src/repro_torch/kernels/flash_attention/csrc/"
+     "flash_attention.cu",
+     "src/repro/kernels/flash_attention/ops.py:33"),
 )
+#: the kernels the engine passes launch (the train phase launches K6)
+ENGINE_KERNELS = ("paged_decode", "paged_prefill", "paged_verify",
+                  "grouped_lora")
+
+
+def _kernel_ops():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.grouped_lora import ops as lora_ops
+    from repro_torch.kernels.paged_attention import ops
+    return ops, lora_ops, fa_ops
 
 
 def _reset_launches() -> None:
-    from repro_torch.kernels.grouped_lora import ops as lora_ops
-    from repro_torch.kernels.paged_attention import ops
-    ops.reset_launch_counts()
-    lora_ops.reset_launch_counts()
+    for mod in _kernel_ops():
+        mod.reset_launch_counts()
 
 
 def _launches() -> dict:
-    from repro_torch.kernels.grouped_lora import ops as lora_ops
-    from repro_torch.kernels.paged_attention import ops
-    return {**ops.LAUNCHES, **lora_ops.LAUNCHES}
+    return {k: n for mod in _kernel_ops() for k, n in mod.LAUNCHES.items()}
 
 
 def _with_tenants(reqs, tenants):
@@ -652,7 +809,7 @@ def phase_engine(device, summary):
         torch.cuda.empty_cache()
     total = {k: sum(summary[t]["launches"][k] for t in
                     ("engine_bf16", "engine_spec_lora",
-                     "engine_bucketed_lora")) for k, _, _ in KERNELS}
+                     "engine_bucketed_lora")) for k in ENGINE_KERNELS}
     check(all(v > 0 for v in total.values()),
           f"the engine passes did not launch every kernel: {total}")
     summary["launches_total"] = total
@@ -672,6 +829,142 @@ def phase_engine(device, summary):
         f"TPOT p50 {summary['engine_int8']['tpot_p50_ms']:.3f} ms, "
         f"TPS {summary['engine_int8']['tps']:.1f}")
     del eng, params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the trainer
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
+
+
+def train_flops(cfg, batch, seq) -> float:
+    """Model FLOPs of one training step: 6*N per token, plus attention's
+    forward and backward (3 x 4*b*H*hd per live causal pair and layer).
+    Remat's recompute is not counted: it is not the model's work."""
+    pairs = attention_pairs(seq, seq, True, cfg.local_window or None, 0)
+    return (6 * cfg.param_count() * batch * seq
+            + 12 * batch * cfg.n_heads * cfg.head_dim * pairs * cfg.n_layers)
+
+
+def _trainer(cfg, ckpt_dir, total, ckpt_every, device, seed=0, **kw):
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import Trainer, TrainerConfig
+    data = SyntheticTokens(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed),
+                           device=device)
+    opt = AdamW(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    tc = TrainerConfig(total_steps=total, ckpt_every=ckpt_every,
+                       ckpt_dir=ckpt_dir, log_every=1)
+    return Trainer(cfg, opt, data, tc, use_flash=True, device=device, **kw)
+
+
+def phase_train(device, summary):
+    """granite-3-2b at full width and depth through ``Trainer.run`` with
+    flash attention; then the resume check at 4 layers, full width."""
+    import math
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = configs.get(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    marks = []
+
+    def mark(step):
+        """The trainer's per-step hook, called before each step: the peak
+        memory and launch counts up to here, then a fresh peak."""
+        marks.append((torch.cuda.max_memory_allocated(device), _launches()))
+        torch.cuda.reset_peak_memory_stats(device)
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        # no checkpoint in this run: one is 25 GB of disk (params, mu, nu);
+        # the resume check below writes them at 4 layers
+        trainer = _trainer(cfg, ckpt, TRAIN_STEPS, TRAIN_STEPS + 1, device,
+                           failure_injector=mark)
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launches()                     # the main path starts here
+        t0 = time.perf_counter()
+        params, opt_state, steps = trainer.run(seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()                # ... and ends here
+    marks.append((torch.cuda.max_memory_allocated(device), launches))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[train] {TRAIN_ARCH} params {n_params / 1e9:.4f} B, {cfg.n_layers} "
+        f"layers, d={cfg.d_model}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens per "
+        f"step, flash attention, remat, AdamW; {flops / 1e12:.2f} TFLOP "
+        f"per step (model); init + {TRAIN_STEPS} steps in {wall:.1f} s")
+    check(len(steps) == TRAIN_STEPS, f"train: {len(steps)} steps logged")
+    for e, (peak, after), (_, before) in zip(steps, marks[1:], marks[:-1]):
+        e["tokens_per_s"] = tokens / e["step_s"]
+        e["train_mfu"] = flops / (e["step_s"] * BF16_FLOPS_PER_S)
+        e["peak_mem_gb"] = peak / 1e9
+        e["launches"] = {k: after[k] - before[k]
+                         for k in ("flash_fwd", "flash_bwd")}
+        log(f"[train] step {e['step']}: loss {e['loss']:.5f} grad_norm "
+            f"{e['grad_norm']:.5f} step {e['step_s'] * 1e3:.1f} ms, "
+            f"{e['tokens_per_s']:.1f} tokens/s, train_mfu "
+            f"{e['train_mfu']:.4f}, peak memory {e['peak_mem_gb']:.2f} GB, "
+            f"K6 launches {e['launches']}")
+    check(all(math.isfinite(e["loss"]) and math.isfinite(e["grad_norm"])
+              for e in steps), "train: a loss or grad norm is not finite")
+    check(steps[-1]["loss"] < steps[0]["loss"],
+          f"train: loss did not fall ({steps[0]['loss']} -> "
+          f"{steps[-1]['loss']})")
+    want = {"flash_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd": cfg.n_layers * TRAIN_STEPS}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"train: K6 launches {got}, expected {want} (the "
+          f"forward twice per layer and step under remat)")
+    steady = steps[1:]
+    summary["train"] = dict(
+        arch=TRAIN_ARCH, params=n_params, steps=TRAIN_STEPS,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, step_flops=flops,
+        loss=[e["loss"] for e in steps],
+        grad_norm=[e["grad_norm"] for e in steps],
+        step_ms=[e["step_s"] * 1e3 for e in steps],
+        tokens_per_s=sum(e["tokens_per_s"] for e in steady) / len(steady),
+        train_mfu=sum(e["train_mfu"] for e in steady) / len(steady),
+        peak_mem_gb=max(e["peak_mem_gb"] for e in steps),
+        launches=got, wall_s=wall)
+    log(f"[train] steps 1-{TRAIN_STEPS - 1}: {summary['train']['tokens_per_s']:.1f} "
+        f"tokens/s, train_mfu {summary['train']['train_mfu']:.4f}; peak "
+        f"memory {summary['train']['peak_mem_gb']:.2f} GB; launches {got}")
+    del trainer, params, opt_state
+    torch.cuda.empty_cache()
+
+    # resume: checkpoint after step 1, a new Trainer resumes from it, and
+    # its params after step 3 equal an uninterrupted run's bit for bit
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as a, \
+            tempfile.TemporaryDirectory() as b:
+        _trainer(cfg4, a, 2, 2, device, seed=1).run(seed=0)
+        resumed, rstate, rlog = _trainer(cfg4, a, 4, 2, device,
+                                         seed=1).run(seed=0)
+        straight, sstate, slog = _trainer(cfg4, b, 4, 100, device,
+                                          seed=1).run(seed=0)
+        torch.cuda.synchronize()
+        check(rlog[0]["step"] == 2, f"resume started at step "
+              f"{rlog[0]['step']}, not 2")
+        same = all(torch.equal(x, y) for x, y in zip(
+            [*tree_leaves(resumed), *tree_leaves(rstate.mu),
+             *tree_leaves(rstate.nu), rstate.count],
+            [*tree_leaves(straight), *tree_leaves(sstate.mu),
+             *tree_leaves(sstate.nu), sstate.count]))
+    wall = time.perf_counter() - t0
+    log(f"[train] resume at 4 layers, full width: checkpoint after step 1, "
+        f"resumed params and moments after step 3 == uninterrupted: {same} "
+        f"(losses {[round(e['loss'], 5) for e in rlog]} / "
+        f"{[round(e['loss'], 5) for e in slog[2:]]}); {wall:.1f} s")
+    check(same, "resumed training differs from an uninterrupted run")
+    summary["train"]["resume_s"] = wall
+    del resumed, rstate, straight, sstate
     torch.cuda.empty_cache()
 
 
@@ -803,6 +1096,58 @@ def phase_parity(device):
     check(same, "gather and paged tokens differ with LoRA and speculation")
     del params
     torch.cuda.empty_cache()
+    _train_parity(device)
+
+
+def _train_parity(device):
+    """granite-3-2b at 4 layers, full width, f32 weights, f32 matmuls
+    (``allow_tf32`` is off, set in ``main``): three training steps of two
+    microbatches through the flash kernels against three through eager
+    attention from the same weights and batches.  Losses agree to 1e-5
+    relative and params to 1e-4 relative norm: both sides compute in
+    f32, the kernel's sums run in another order, and AdamW's first steps
+    turn small gradient differences into parameter differences of the
+    order of lr * (relative gradient error)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import make_train_step
+
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=4)
+    data = SyntheticTokens(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=2),
+                           device=device)
+    runs = {}
+    for use_flash in (True, False):
+        params = init_params(cfg, 0, device=device, dtype=torch.float32)
+        opt = AdamW(lr=3e-4, warmup_steps=1, total_steps=3)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, microbatches=2, use_flash=use_flash)
+        losses = []
+        for i in range(3):
+            params, state, m = step(params, state, data.batch(i))
+            losses.append(float(m["loss"]))
+        runs[use_flash] = (losses, params)
+        del state
+    (lf, pf), (le, pe) = runs[True], runs[False]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lf, le))
+    with torch.no_grad():
+        num = sum(float((a - b).double().square().sum())
+                  for a, b in zip(tree_leaves(pf), tree_leaves(pe)))
+        den = sum(float(b.double().square().sum()) for b in tree_leaves(pe))
+    param_rel = (num / den) ** 0.5
+    log(f"[parity] {TRAIN_ARCH} x4 layers f32, {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"3 steps x 2 microbatches: flash losses {lf}, eager {le} (largest "
+        f"relative difference {loss_rel:.3e}); params relative difference "
+        f"{param_rel:.3e}")
+    check(loss_rel <= 1e-5, f"flash and eager training losses differ by "
+          f"{loss_rel:.3e} (relative)")
+    check(param_rel <= 1e-4, f"flash and eager training params differ by "
+          f"{param_rel:.3e} (relative norm)")
+    del runs, pf, pe
+    torch.cuda.empty_cache()
 
 
 def _self_device_us(evt) -> float:
@@ -822,6 +1167,10 @@ def _kind(name: str) -> str:
         return "paged_verify kernel"
     if "grouped_lora" in n:
         return "grouped_lora kernel"
+    if "flash_fwd" in n:
+        return "flash_fwd kernel"
+    if "flash_bwd" in n:
+        return "flash_bwd kernels"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "nvjet", "sm90_xmma",
                             "cublas")):
         return "matmul (cuBLAS)"
@@ -871,12 +1220,7 @@ def phase_profile(device):
                 eng.step()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            kinds = {}
-            for evt in prof.key_averages():
-                us = _self_device_us(evt)
-                if us > 0 and not evt.key.startswith("aten::"):
-                    kinds[_kind(evt.key)] = kinds.get(_kind(evt.key),
-                                                      0.0) + us
+            kinds, _ = _device_kinds(prof)
             events = [e.kind for e in eng.trace[n0:]]
             kind = "+".join(f"{k}x{events.count(k)}"
                             for k in dict.fromkeys(events))
@@ -892,6 +1236,67 @@ def phase_profile(device):
         del eng
         torch.cuda.empty_cache()
     del params
+    torch.cuda.empty_cache()
+    _profile_train(device)
+
+
+def _device_kinds(prof):
+    """Device time by kind (us) from a profile, over the device-side
+    events only (kernels, copies), each counted once: a CPU op's own
+    device time would count again a kernel launched outside any aten op
+    (K1-K6 through ctypes) under its enclosing autograd node.  Also the
+    kernel time inside the ``optimizer`` range."""
+    from torch.autograd import DeviceType
+    kinds, optimizer = {}, 0.0
+    for evt in prof.key_averages():
+        on_device = evt.device_type == DeviceType.CUDA
+        if evt.key == "optimizer" and not on_device:
+            optimizer += float(evt.device_time_total)
+        if not on_device or evt.is_user_annotation:
+            continue
+        us = _self_device_us(evt)
+        if us > 0:
+            kinds[_kind(evt.key)] = kinds.get(_kind(evt.key), 0.0) + us
+    check(bool(kinds), "profile: the trace holds no device events")
+    return kinds, optimizer
+
+
+def _profile_train(device):
+    """One profiled training step of the train phase's configuration
+    (granite-3-2b, full depth, 4 x 2048, flash attention, remat), after an
+    unprofiled one: device busy and idle share, K6, cuBLAS, elementwise
+    and the optimizer (the kernels inside ``make_train_step``'s
+    ``optimizer`` range, a part of the elementwise time)."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+
+    cfg = configs.get(TRAIN_ARCH)
+    with tempfile.TemporaryDirectory() as ckpt:
+        trainer = _trainer(cfg, ckpt, TRAIN_STEPS, TRAIN_STEPS + 1, device)
+        params, state = trainer.init_state(0)
+        params, state, _ = trainer.step_fn(params, state,
+                                           trainer.data.batch(0))
+        batch = trainer.data.batch(1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, state, m = trainer.step_fn(params, state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kinds, optimizer = _device_kinds(prof)
+    busy = sum(kinds.values()) / 1e6
+    parts = ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in
+                      sorted(kinds.items(), key=lambda kv: -kv[1]))
+    log(f"[profile] train step ({TRAIN_ARCH}, {cfg.n_layers} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, flash, remat): wall {wall * 1e3:.2f} "
+        f"ms, device busy {busy * 1e3:.2f} ms (idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}); {parts}; optimizer range "
+        f"{optimizer / 1e3:.2f} ms of device time")
+    del trainer, params, state
     torch.cuda.empty_cache()
 
 
@@ -913,8 +1318,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.grouped_lora import ops as lora_ops
-    from repro_torch.kernels.paged_attention import ops as paged_ops
+    paged_ops, lora_ops, fa_ops = _kernel_ops()
 
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
@@ -923,16 +1327,17 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
     t_all = time.perf_counter()
-    kernels, summary = {}, {}
+    kernels, summary, trained = {}, {}, {}
     if "build" in phases:
         # one nvcc per source, all started together
-        libs = ((paged_ops.SOURCE, paged_ops.LIBRARY_NAME),
-                (lora_ops.SOURCE, lora_ops.LIBRARY_NAME))
+        libs = [(mod.SOURCE, mod.LIBRARY_NAME)
+                for mod in (paged_ops, lora_ops, fa_ops)]
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
             builds = list(pool.map(
                 lambda lib: kbuild.build(*lib, force=True), libs))
-        log(f"[build] both libraries in {time.perf_counter() - t0:.1f} s")
+        log(f"[build] {len(libs)} libraries in "
+            f"{time.perf_counter() - t0:.1f} s")
         for res in builds:
             log(f"[build] nvcc {res.path.name} in {res.seconds:.1f} s")
             for line in res.log.splitlines():
@@ -942,16 +1347,19 @@ def main() -> int:
         phase_kernels(device, kernels)
     if "engine" in phases:
         phase_engine(device, summary)
+    if "train" in phases:
+        phase_train(device, trained)
     if "parity" in phases:
         phase_parity(device)
     if "profile" in phases:
         phase_profile(device)
     log(f"[done] phases {phases} in {time.perf_counter() - t_all:.1f} s")
 
-    # launch counts come from the engine phase's passes only (each zeroed
-    # before it and read after it): without them there is no count of
-    # this run to report
-    launches = summary.get("launches_total")
+    # launch counts come from the main path's passes only (each zeroed
+    # before it and read after it): K1-K4 from the engine phase, K6 from
+    # the train phase; without a phase there is no count of it to report
+    launches = {**summary.get("launches_total", {}),
+                **trained.get("train", {}).get("launches", {})}
     record = []
     for name, source, replaces in KERNELS:
         if name not in kernels:
@@ -960,7 +1368,7 @@ def main() -> int:
         record.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[name] if launches else None,
+            "launches": launches.get(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -971,6 +1379,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"train": trained.get("train")}))
     print(json.dumps({"engine": summary}))
     print(json.dumps({"kernels": record}))
     print(smi)

@@ -63,3 +63,21 @@ def params_to_numpy(tree: Dict) -> Dict:
     return {k: (params_to_numpy(v) if isinstance(v, dict)
                 else tensor_to_numpy(v))
             for k, v in tree.items()}
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """An optimizer state ``(count, mu, nu)`` of numpy arrays (the JAX
+    package's ``AdamWState`` converted leaf by leaf, or any 3-sequence)
+    -> the port's ``AdamWState`` of tensors on ``device``, bit for bit."""
+    from repro_torch.optim.adamw import AdamWState
+    count, mu, nu = state
+    return AdamWState(count=tensor_from_numpy(np.asarray(count), device),
+                      mu=params_from_numpy(mu, device),
+                      nu=params_from_numpy(nu, device))
+
+
+def opt_state_to_numpy(state):
+    """Inverse of :func:`opt_state_from_numpy`: ``(count, mu, nu)`` as
+    numpy arrays, in the field order of both packages' ``AdamWState``."""
+    count, mu, nu = state
+    return (tensor_to_numpy(count), params_to_numpy(mu), params_to_numpy(nu))

@@ -1,7 +1,8 @@
 """Architecture config registry of the port: ``--arch <id>`` resolution.
 
 The port serves the dense GQA decoders the engine's main path runs:
-Llama-2-7B (the paper's study model) and Qwen2-7B (GQA with QKV bias).
+Llama-2-7B (the paper's study model) and Qwen2-7B (GQA with QKV bias),
+and trains Granite-3.0-2B (the training launcher's example).
 """
 from __future__ import annotations
 
@@ -28,9 +29,18 @@ QWEN2_7B = ArchConfig(
     d_ff=18944, vocab_size=152064, head_dim=128, qkv_bias=True,
 )
 
+# Granite-3.0-2B [hf:ibm-granite/granite-3.0-2b-base]: dense, GQA kv=8,
+# tied embeddings (the training launcher's example)
+GRANITE_3_2B = ArchConfig(
+    name="granite-3-2b", family="dense",
+    n_layers=40, d_model=2048, n_heads=32, n_kv_heads=8,
+    d_ff=8192, vocab_size=49155, head_dim=64, tie_embeddings=True,
+)
+
 ARCHS = {
     "llama2-7b": LLAMA2_7B,
     "qwen2-7b": QWEN2_7B,
+    "granite-3-2b": GRANITE_3_2B,
 }
 
 
@@ -78,4 +88,4 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
 
 
 __all__ = ["ArchConfig", "MLAConfig", "ARCHS", "DEFAULT_KV_BLOCK_SIZE",
-           "LLAMA2_7B", "QWEN2_7B", "get", "reduced"]
+           "GRANITE_3_2B", "LLAMA2_7B", "QWEN2_7B", "get", "reduced"]

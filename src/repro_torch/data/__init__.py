@@ -1,0 +1,4 @@
+"""Deterministic synthetic token data."""
+from .pipeline import DataConfig, SyntheticTokens
+
+__all__ = ["DataConfig", "SyntheticTokens"]

@@ -1,6 +1,7 @@
 """Tests that need the card: the CUDA kernels against their plain
-versions, and the engine's two attention impls against each other (with
-speculative decoding and LoRA tenants too).
+versions, the engine's two attention impls against each other (with
+speculative decoding and LoRA tenants too), and a training step through
+the flash attention kernels against the eager one.
 
 They import neither JAX nor the JAX package, so they run on a GPU
 machine as they are:
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.engine import Engine, EngineConfig, Request
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.grouped_lora import ops as lora_ops
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import kernel_tolerance
@@ -217,3 +219,87 @@ def test_gather_equals_paged_engine_with_spec_and_lora(cuda_device):
                      adapter_id=[0, 1, 2, None][i])
              for i, p in enumerate(prompts)])]
     assert toks["gather"] == toks["paged"]
+
+
+#: (b, s, L, H, Hk, d, causal, window, q_offset): GQA, ragged s, a decode
+#: step, a window, non-causal, head_dim 256 (the reference's FA_CASES)
+FA_GPU_CASES = [(2, 256, 256, 8, 2, 128, True, None, 0),
+                (1, 100, 100, 4, 2, 64, True, None, 0),
+                (1, 1, 384, 4, 2, 64, True, None, 383),
+                (2, 192, 192, 4, 4, 64, True, 64, 0),
+                (1, 64, 64, 4, 4, 128, False, None, 0),
+                (1, 128, 128, 2, 2, 256, True, None, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_GPU_CASES,
+                         ids=[str(c) for c in FA_GPU_CASES])
+def test_flash_attention_kernels_match_plain_version(cuda_device, case,
+                                                     dtype):
+    """Forward within ``kernel_tolerance``; dq, dk, dv within a relative
+    norm of 1e-5 in f32 (the same f32 arithmetic in another order) and
+    2e-2 in bf16 (the kernel's D = rowsum(dO*O) reads the bf16-rounded
+    output, and its gradients round once to bf16)."""
+    b, s, L, H, Hk, d, causal, window, q_offset = case
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    mk = lambda *shape: torch.randn(shape, generator=gen,
+                                    device=cuda_device).to(dtype)
+    q, k, v = mk(b, s, H, d), mk(b, L, Hk, d), mk(b, L, Hk, d)
+    g = mk(b, s, H, d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = dict(fa_ops.LAUNCHES)
+    qk = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.flash_attention(*qk, **kw)
+    grads = torch.autograd.grad(out, qk, g)
+    assert fa_ops.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert fa_ops.LAUNCHES["flash_bwd"] == before["flash_bwd"] + 1
+    qr = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = fa_ops.attention_ref(*qr, **kw)
+    ref_grads = torch.autograd.grad(ref, qr, g)
+    torch.cuda.synchronize()
+    _assert_within_tolerance(out.detach(), ref.detach(), v)
+    limit = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, r in zip(grads, ref_grads):
+        rel = float((a.float() - r.float()).norm() / r.float().norm())
+        assert rel <= limit, rel
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernels_do_not_take(
+        cuda_device):
+    q = torch.zeros((1, 8, 4, 64), device=cuda_device)
+    k = torch.zeros((1, 8, 2, 64), device=cuda_device)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        fa_ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q, k.transpose(1, 2).contiguous()
+                               .transpose(1, 2), k)
+    with pytest.raises(ValueError, match="d <= 256"):
+        big = torch.zeros((1, 8, 2, 512), device=cuda_device)
+        fa_ops.flash_attention(torch.zeros((1, 8, 4, 512),
+                                           device=cuda_device), big, big)
+
+
+def test_flash_training_step_equals_eager(cuda_device):
+    """Reduced granite-3-2b, f32 weights, remat on: the loss and every
+    gradient through the flash attention kernels equal the eager path's
+    to f32 rounding."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import make_loss_fn
+    cfg = configs.reduced(configs.get("granite-3-2b"))
+    params = init_params(cfg, 0, device=cuda_device, dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 65))).to(
+        cuda_device)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:],
+             "mask": torch.ones((2, 64), device=cuda_device)}
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    out = {}
+    for use_flash in (False, True):
+        loss, _ = make_loss_fn(cfg, use_flash=use_flash)(params, batch)
+        out[use_flash] = (loss.detach(), torch.autograd.grad(loss, leaves))
+    assert abs(float(out[True][0]) - float(out[False][0])) <= \
+        1e-5 * abs(float(out[False][0]))
+    for a, r in zip(out[True][1], out[False][1]):
+        rel = float((a - r).norm() / r.norm().clamp(min=1e-30))
+        assert rel <= 1e-4, rel

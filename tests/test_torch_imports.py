@@ -47,7 +47,11 @@ def test_port_modules_cover_the_slice():
                 "repro_torch.kernels.paged_attention.ops",
                 "repro_torch.kernels.grouped_lora.ref",
                 "repro_torch.kernels.grouped_lora.ops",
-                "repro_torch.launch.serve"):
+                "repro_torch.kernels.flash_attention.ref",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+                "repro_torch.checkpoint.manager", "repro_torch.runtime.train",
+                "repro_torch.launch.serve", "repro_torch.launch.train"):
         assert mod in names
 
 

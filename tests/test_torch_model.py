@@ -16,7 +16,7 @@ from repro_torch import bridge, configs
 from repro_torch.models import forward
 from repro_torch.models import layers
 
-ARCHS = ["llama2-7b", "qwen2-7b"]
+ARCHS = ["llama2-7b", "qwen2-7b", "granite-3-2b"]
 #: f32: both sides run the same f32 arithmetic in another order;
 #: bf16: the two frameworks round intermediates at other places, so the
 #: logits (|logit| < 1 here) may differ by a few bf16 ulps (2**-8 each)
@@ -116,7 +116,14 @@ def test_silu_gelu_match_reference():
 
 
 def test_blockwise_length_is_refused():
-    cfg = configs.reduced(configs.get("llama2-7b"), n_layers=1)
-    params = layers.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        forward(cfg, params, torch.zeros((1, 4096), dtype=torch.long))
+    """Sequences of ``BLOCKWISE_THRESHOLD`` tokens and more are no longer
+    refused: they take the blockwise path, as in the reference, and the
+    logits match the reference's."""
+    from repro_torch.models.attention import BLOCKWISE_THRESHOLD
+    jcfg, jtree, ttree = _weights("llama2-7b", "f32")
+    toks = np.random.default_rng(3).integers(0, jcfg.vocab_size,
+                                             (1, BLOCKWISE_THRESHOLD))
+    ref, _ = jax_forward(jcfg, jtree, jnp.asarray(toks, jnp.int32))
+    got, _ = forward(configs.reduced(configs.get("llama2-7b")), ttree,
+                     torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL["f32"])
