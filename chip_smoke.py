@@ -7,10 +7,11 @@
 Phases, in order (any failed check exits non-zero; no phase's failure is
 caught and ignored):
 
-1. build    — nvcc builds the three kernel libraries for sm_90a, together:
+1. build    — nvcc builds the four kernel libraries for sm_90a, together:
               src/repro_torch/kernels/paged_attention/csrc (K1 decode, K2
-              prefill, K3 verify), kernels/grouped_lora/csrc (K4) and
-              kernels/flash_attention/csrc (K6 forward and backward).
+              prefill, K3 verify), kernels/grouped_lora/csrc (K4),
+              kernels/flash_attention/csrc (K6 forward and backward) and
+              kernels/quant_matmul/csrc (K5).
 2. kernels  — every kernel against its plain PyTorch version on the card,
               at the llama2-7b (Hk=32, G=1) and qwen2-7b (Hk=4, G=7) head
               shapes, d=128, bs=16, bf16 and int8 KV: decode cursors at 0,
@@ -22,9 +23,11 @@ caught and ignored):
               attention forward and backward on the reference's eight
               kernel cases (MHA, GQA, MQA, ragged s, a decode step with
               q_offset, a window, non-causal, head_dim 256) in bf16 and
-              f32 and at the training shape.  Then each kernel's time,
-              its plain version's, its bound and a library yardstick at
-              the main path's shapes.
+              f32 and at the training shape; the int4 dequant-matmul at
+              every llama2-7b linear shape at m = 4 and 256, one int8
+              case and a ragged one (m=5, n=200, g=64) in f32 and bf16.
+              Then each kernel's time, its plain version's, its bound
+              and a library yardstick at the main path's shapes.
 3. engine   — the main path: llama2-7b at full width and depth (random
               bf16 weights from a seed), paged attention, 8 requests of
               512 prompt + 64 new tokens through 4 slots, with a radix
@@ -53,13 +56,27 @@ caught and ignored):
               granite-3-2b at 4 layers, full width, f32 weights: three
               training steps (two microbatches each) through the flash
               kernels equal three through eager attention.
+6. quant    — K5's main path: llama2-7b at full width and depth, random
+              bf16 weights from seed 0; quantize_tree on the card (exactly
+              embed and lm_head, as in the reference), its storage bytes
+              against LIFE's int4 formula, lm_head quantized on the card
+              == on the CPU bit for bit; quant_dense through K5 on lm_head
+              and all 32 layers' seven projections at m = 4 and 256 (450
+              launches), each held to the plain version; each shape's
+              time beside LIFE's price of the int4 linear on nvidia-h100.
+7. measure  — repro_torch.api.measure on llama2-7b at full width and
+              depth (paged, 4 slots, 8 requests of 512 + 64, chunk 256, a
+              shared 256-token prefix; K1 and K2 launch), against
+              api.forecast of the same scenario for nvidia-h100, declared
+              and replaying the measured trace: TTFT, TPOT and TPS with
+              each relative error.
 
 ``--phases profile`` (run only when named) profiles engine steps and one
 training step of the train phase's configuration.
 
-The last lines are the train and engine JSON summaries, the kernels' JSON
-record, the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+The last lines are the quant/measure, train and engine JSON summaries,
+the kernels' JSON record, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -73,12 +90,14 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "engine", "train", "parity")
+PHASES = ("build", "kernels", "engine", "train", "parity", "quant",
+          "measure")
 EXTRA_PHASES = ("profile",)     # run only when named
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12          # f32 on the CUDA cores (no tensor cores)
 
 
 def log(msg: str) -> None:
@@ -144,16 +163,18 @@ def _tables(S, nb, N, shared, gen, device):
     return torch.stack(rows).contiguous()
 
 
-def _compare(out, ref, cache_v, what, worst):
+def _compare(out, ref, cache_v, what, worst, quiet=False):
     """Hold a kernel's output to its plain version elementwise, within
     ``kernel_tolerance`` (stated in its docstring); returns max|err| and
-    keeps the largest err/limit ratio seen in ``worst``."""
+    keeps the largest err/limit ratio seen in ``worst`` (``quiet`` logs
+    nothing unless the check fails)."""
     from repro_torch.kernels.paged_attention.ref import kernel_tolerance
     diff = (out.float() - ref.float()).abs()
     ratio = float((diff / kernel_tolerance(ref, cache_v)).max())
     err = float(diff.max())
     worst[0] = max(worst[0], ratio)
-    log(f"[kernels] {what} max_abs_err={err:.3e} err/limit={ratio:.3e}")
+    if not quiet:
+        log(f"[kernels] {what} max_abs_err={err:.3e} err/limit={ratio:.3e}")
     check(ratio <= 1.0, f"{what}: |kernel - plain| exceeds the limit "
           f"({ratio:.3f} of it)")
     return err
@@ -495,6 +516,97 @@ def check_flash(device, gen, worst, results):
     torch.cuda.empty_cache()
 
 
+#: llama2-7b's linear shapes (k, n): wq/wk/wv/wo, gate/up, down, lm_head
+QMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+#: a layer's seven projections, as (group, name) in the param tree; each
+#: is quantized on its 2-D view: wq/wk/wv (d, heads, hd) as (d, heads*hd),
+#: wo (H, hd, d) as (H*hd, d)
+LAYER_PROJECTIONS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                     ("attn", "wo"), ("mlp", "gate"), ("mlp", "up"),
+                     ("mlp", "down"))
+
+
+def qmm_bound(x, q):
+    """x read once, w_q (one byte per value), scale and zero (bf16) read
+    once, y written once; 2*m*k*n flops of the product at the peak rate
+    of x's type (bf16 tensor cores, or f32 on the CUDA cores)."""
+    m, k = x.shape
+    n = q.w_q.shape[1]
+    elem = x.element_size()
+    nbytes = (m * k * elem + q.w_q.numel() + 2 * q.scales.numel() * 2
+              + m * n * elem)
+    peak = BF16_FLOPS_PER_S if elem == 2 else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * k * n / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _time_qmm(x, q, worst, what):
+    """K5 against its plain version at one shape (``kernel_tolerance``
+    with ref as its scale: one bf16 ulp plus 1e-3 of the mean magnitude
+    for bf16 outputs, 1e-4 of max|y| for f32 ones), then its time, its
+    bound, the plain version's time and ``torch.matmul`` on the weight
+    dequantized once to x's dtype outside the timing (the GEMM the int4
+    path exists to beat at decode; the port never calls it for K5)."""
+    import torch
+    from repro_torch.kernels.quant_matmul import ops
+    from repro_torch.quant import dequantize_weight
+    args = (x, q.w_q, q.scales, q.zeros)
+    g = q.group_size
+    out = ops.quant_matmul(*args, group_size=g)
+    ref = ops.quant_matmul_ref(*args, g)
+    err = _compare(out, ref, ref, what, worst)
+    w = dequantize_weight(q, x.dtype)
+    bound, by = qmm_bound(x, q)
+    res = dict(
+        ms=time_ms(lambda: ops.quant_matmul(*args, group_size=g)),
+        plain_ms=time_ms(lambda: ops.quant_matmul_ref(*args, g)),
+        bound_ms=bound, bound_by=by,
+        library_ms=time_ms(lambda: torch.matmul(x, w)),
+        max_abs_err=err,
+        shape=f"m={x.shape[0]} k={x.shape[1]} n={q.w_q.shape[1]} "
+              f"g={g} int{q.bits} x={str(x.dtype)[6:]}")
+    del w
+    return res
+
+
+def check_quant_matmul(device, gen, worst, results):
+    """K5 at every llama2-7b linear shape at m = 4 (decode) and m = 256
+    (a prefill chunk), bf16 x, int4, g = 128; one int8 case; a ragged case
+    (m = 5, n = 200, g = 64) in f32 and bf16.  Weights are normal (std
+    0.02) and quantized on the card by the port's ``quantize_weight``.
+    The record's numbers are lm_head at decode; the rest ride along under
+    "more_shapes"."""
+    import torch
+    from repro_torch.quant import quantize_weight
+
+    def weight(k, n):
+        return torch.randn((k, n), generator=gen, device=device) * 0.02
+
+    def act(m, k, dtype):
+        return torch.randn((m, k), generator=gen, device=device).to(dtype)
+
+    timed = []
+    for k, n in QMM_SHAPES:
+        q = quantize_weight(weight(k, n), group_size=128, bits=4)
+        for m in (4, 256):
+            timed.append(_time_qmm(act(m, k, torch.bfloat16), q, worst,
+                                   f"quant_matmul k={k} n={n} m={m} int4 bf16"))
+        del q
+    q = quantize_weight(weight(4096, 4096), group_size=128, bits=8)
+    timed.append(_time_qmm(act(4, 4096, torch.bfloat16), q, worst,
+                           "quant_matmul k=4096 n=4096 m=4 int8 bf16"))
+    q = quantize_weight(weight(1024, 200), group_size=64, bits=4)
+    for dtype in (torch.float32, torch.bfloat16):
+        timed.append(_time_qmm(act(5, 1024, dtype), q, worst,
+                               f"quant_matmul ragged m=5 k=1024 n=200 g=64 "
+                               f"{str(dtype)[6:]}"))
+    main = next(r for r in timed if r["shape"].startswith("m=4 k=4096 n=32000"))
+    results["quant_matmul"] = dict(
+        main, more_shapes=[r for r in timed if r is not main])
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(device, results):
     import torch
     import torch.nn.functional as F
@@ -597,6 +709,7 @@ def phase_kernels(device, results):
     check_verify(device, gen, shapes, worst, results)
     check_grouped_lora(device, gen, worst, results)
     check_flash(device, gen, worst, results)
+    check_quant_matmul(device, gen, worst, results)
     log(f"[kernels] largest err/limit over every comparison: "
         f"{worst[0]:.3e}")
     for name, res in results.items():
@@ -646,6 +759,9 @@ KERNELS = (
     ("flash_bwd", "src/repro_torch/kernels/flash_attention/csrc/"
      "flash_attention.cu",
      "src/repro/kernels/flash_attention/ops.py:33"),
+    ("quant_matmul", "src/repro_torch/kernels/quant_matmul/csrc/"
+     "quant_matmul.cu",
+     "src/repro/kernels/quant_matmul/quant_matmul.py:45"),
 )
 #: the kernels the engine passes launch (the train phase launches K6)
 ENGINE_KERNELS = ("paged_decode", "paged_prefill", "paged_verify",
@@ -656,7 +772,8 @@ def _kernel_ops():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.grouped_lora import ops as lora_ops
     from repro_torch.kernels.paged_attention import ops
-    return ops, lora_ops, fa_ops
+    from repro_torch.kernels.quant_matmul import ops as qmm_ops
+    return ops, lora_ops, fa_ops, qmm_ops
 
 
 def _reset_launches() -> None:
@@ -1300,6 +1417,200 @@ def _profile_train(device):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase: quantized weights (K5's main path)
+# ---------------------------------------------------------------------------
+
+def _quantized_paths(tree, prefix=""):
+    from repro_torch.quant import QuantizedTensor
+    out = []
+    for key, leaf in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(leaf, dict):
+            out += _quantized_paths(leaf, path + ".")
+        elif isinstance(leaf, QuantizedTensor):
+            out.append(path)
+    return out
+
+
+def _life_linear(m, k, n):
+    """LIFE's price of one int4 linear (bf16 activations, g = 128) on the
+    H100 spec: ``core.operators.linear`` priced by ``core.forecast``."""
+    from repro_torch.core import StatsDB, hardware
+    from repro_torch.core import operators as F
+    from repro_torch.core.forecast import Forecaster
+    db = StatsDB()
+    F.linear(db, m, k, n, dtype_w="int4", group_size=128)
+    return Forecaster(hardware.get("nvidia-h100")).phase(db.totals())
+
+
+def phase_quant(device, summary):
+    """llama2-7b at full width and depth, random bf16 weights from seed 0:
+    ``quantize_tree`` on the card (it quantizes exactly ``embed`` and
+    ``lm_head``, as the reference's does), its storage bytes against
+    LIFE's ``dtypes`` formula, ``lm_head`` quantized on the card against
+    the CPU bit for bit; then ``quant_dense`` through K5 on ``lm_head``
+    and on all 32 layers' seven projections (``quantize_weight`` on their
+    2-D views) at m = 4 and m = 256, each call held to the plain version,
+    450 K5 launches; then each shape's time beside LIFE's price of the
+    same int4 linear on ``nvidia-h100``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import dtypes
+    from repro_torch.kernels.quant_matmul import ops as qmm
+    from repro_torch.models import init_params
+    from repro_torch.quant import (quant_dense, quantize_tree,
+                                   quantize_weight, tree_storage_bytes)
+
+    cfg = configs.get("llama2-7b")
+    g = 128
+    params = init_params(cfg, 0, device=device, dtype=torch.bfloat16)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    act = lambda m, k: torch.randn((m, k), generator=gen,
+                                   device=device).to(torch.bfloat16)
+    worst = [0.0]
+
+    def held(x, q, what):
+        y = quant_dense(x, q)
+        ref = qmm.quant_matmul_ref(x, q.w_q, q.scales, q.zeros, q.group_size)
+        _compare(y, ref, ref, what, worst, quiet=True)
+
+    t0 = time.perf_counter()
+    qmm.reset_launch_counts()                  # the main path starts here
+    qtree = quantize_tree(params, group_size=g, bits=4)
+    quantized = sorted(_quantized_paths(qtree))
+    check(quantized == ["embed", "lm_head"],
+          f"quantize_tree quantized {quantized}, not embed and lm_head")
+    rest = sum(t.numel() * t.element_size() for t in _leaves(params)) - sum(
+        params[k].numel() * 2 for k in quantized)
+    analytical = sum(dtypes.get("int4").storage_bytes(params[k].numel(), g)
+                     for k in quantized) + rest
+    real = tree_storage_bytes(qtree)
+    log(f"[quant] quantize_tree on llama2-7b: quantized {quantized}; "
+        f"tree_storage_bytes {real} == LIFE int4 storage + bf16 rest "
+        f"{analytical:.0f}: {real == analytical}")
+    check(real == analytical, f"tree_storage_bytes {real} != {analytical}")
+    lm = qtree["lm_head"]
+    cpu = quantize_weight(params["lm_head"].cpu(), group_size=g, bits=4)
+    same = (torch.equal(cpu.w_q, lm.w_q.cpu())
+            and torch.equal(cpu.scales.view(torch.int16),
+                            lm.scales.cpu().view(torch.int16))
+            and torch.equal(cpu.zeros.view(torch.int16),
+                            lm.zeros.cpu().view(torch.int16)))
+    log(f"[quant] lm_head quantized on the card == on the CPU bit for bit: "
+        f"{same}")
+    check(same, "lm_head quantized on the card differs from the CPU")
+    del cpu
+    for m in (4, 256):
+        held(act(m, cfg.d_model), lm, f"quant lm_head m={m}")
+    samples = {}
+    for layer in range(cfg.n_layers):
+        for group, name in LAYER_PROJECTIONS:
+            w = params["layers"][group][name][layer]
+            w = (w.reshape(-1, w.shape[-1]) if name == "wo"
+                 else w.reshape(w.shape[0], -1))
+            k, n = w.shape
+            q = quantize_weight(w, group_size=g, bits=4)
+            for m in (4, 256):
+                held(act(m, k), q, f"quant layer {layer} {name} m={m}")
+            if layer == 0:
+                samples[(k, n)] = q
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(qmm.LAUNCHES)              # ... and ends here
+    want = 2 + cfg.n_layers * len(LAYER_PROJECTIONS) * 2
+    log(f"[quant] K5 launches {launches['quant_matmul']} (expected {want}); "
+        f"every call within kernel_tolerance of the plain version (largest "
+        f"err/limit {worst[0]:.3e}); {wall:.1f} s")
+    check(launches["quant_matmul"] == want,
+          f"quant: K5 launched {launches['quant_matmul']} times, not {want}")
+    samples[(cfg.d_model, cfg.vocab_size)] = lm
+    rows = []
+    for (k, n), q in samples.items():
+        for m in (4, 256):
+            x = act(m, k)
+            ms = time_ms(lambda: quant_dense(x, q))
+            life = _life_linear(m, k, n)
+            rows.append(dict(m=m, k=k, n=n, ms=ms,
+                             life_ms=life.latency * 1e3,
+                             life_bound=life.bound,
+                             life_t_compute_ms=life.t_compute * 1e3,
+                             life_t_memory_ms=life.t_memory * 1e3))
+            log(f"[quant] int4 linear m={m} k={k} n={n}: K5 {ms:.4f} ms; "
+                f"LIFE on nvidia-h100 {life.latency * 1e3:.4f} ms "
+                f"({life.bound}-bound: t_c {life.t_compute * 1e3:.4f}, t_m "
+                f"{life.t_memory * 1e3:.4f}, dispatch "
+                f"{life.t_dispatch * 1e3:.4f} ms); measured/LIFE "
+                f"{ms / (life.latency * 1e3):.2f}")
+    summary["quant"] = dict(launches=launches, quantized=quantized,
+                            storage_bytes=real, worst_err_over_limit=worst[0],
+                            wall_s=wall, linears=rows)
+    del params, qtree, samples, lm
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase: api.measure on the card against api.forecast for the H100 spec
+# ---------------------------------------------------------------------------
+
+def phase_measure(device, summary):
+    """``repro_torch.api.measure`` on llama2-7b at full width and depth
+    (bf16-bf16, paged attention, 4 slots, 8 requests of 512 + 64 tokens,
+    chunk 256, decode block 8, a shared 256-token prefix); K1 and K2 must
+    launch.  Then ``api.forecast`` of the same scenario for
+    ``nvidia-h100``, declared and replaying the measured trace, and each
+    metric's relative error (findings, not gates)."""
+    import math
+
+    import torch
+    from repro_torch import api
+
+    scn = api.Scenario(model="llama2-7b", variant="bf16-bf16", batch=4,
+                       n_requests=8, prompt_len=512, gen_len=64, chunk=256,
+                       decode_block=8, attn_impl="paged",
+                       shared_prefix_len=256, seed=0)
+    _reset_launches()                         # the main path starts here
+    t0 = time.perf_counter()
+    measured = api.measure(scn, device=device)
+    wall = time.perf_counter() - t0
+    launches = _launches()                    # ... and ends here
+    check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
+          f"measure did not launch K1 and K2: {launches}")
+    ex = measured.extras
+    check(ex["mode"] == "engine" and ex["requests"] == 8
+          and ex["tokens"] == 8 * 64, f"measure extras {ex}")
+    check(all(map(math.isfinite, (measured.ttft_s, measured.tpot_s,
+                                  measured.tps))), "measure: a metric is "
+          "not finite")
+    declared = api.forecast(scn, "nvidia-h100")
+    replay = api.forecast(scn, "nvidia-h100", trace=measured.trace)
+    out = dict(measured=dict(ttft_ms=measured.ttft_s * 1e3,
+                             tpot_ms=measured.tpot_s * 1e3,
+                             tps=measured.tps, hardware=measured.hardware,
+                             prefix_hit_rate=ex["prefix_hit_rate"],
+                             wall_s=ex["wall_s"]),
+               launches={k: launches[k] for k in ENGINE_KERNELS},
+               wall_s=wall)
+    for tag, fc in (("declared", declared), ("trace_replay", replay)):
+        d = api.compare(fc, measured)
+        out[tag] = {name: dict(forecast=m.forecast, measured=m.measured,
+                               rel_err=m.rel_err)
+                    for name, m in (("ttft_s", d.ttft), ("tpot_s", d.tpot),
+                                    ("tps", d.tps))}
+        log(f"[measure] llama2-7b {tag} forecast on nvidia-h100 vs measured "
+            f"on {measured.hardware}: "
+            + "; ".join(f"{n} {v['forecast']:.6g} vs {v['measured']:.6g} "
+                        f"(rel err {v['rel_err']:+.4f})"
+                        for n, v in out[tag].items()))
+    log(f"[measure] launches {out['launches']}; prefix hit rate "
+        f"{ex['prefix_hit_rate']:.4f}; measured window {ex['wall_s']:.2f} s, "
+        f"measure() {wall:.1f} s")
+    summary["measure"] = out
+    del measured
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -1318,7 +1629,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build as kbuild
-    paged_ops, lora_ops, fa_ops = _kernel_ops()
+    kernel_ops = _kernel_ops()
 
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1327,11 +1638,10 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
     t_all = time.perf_counter()
-    kernels, summary, trained = {}, {}, {}
+    kernels, summary, trained, quant_measure = {}, {}, {}, {}
     if "build" in phases:
         # one nvcc per source, all started together
-        libs = [(mod.SOURCE, mod.LIBRARY_NAME)
-                for mod in (paged_ops, lora_ops, fa_ops)]
+        libs = [(mod.SOURCE, mod.LIBRARY_NAME) for mod in kernel_ops]
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
             builds = list(pool.map(
@@ -1351,15 +1661,21 @@ def main() -> int:
         phase_train(device, trained)
     if "parity" in phases:
         phase_parity(device)
+    if "quant" in phases:
+        phase_quant(device, quant_measure)
+    if "measure" in phases:
+        phase_measure(device, quant_measure)
     if "profile" in phases:
         phase_profile(device)
     log(f"[done] phases {phases} in {time.perf_counter() - t_all:.1f} s")
 
     # launch counts come from the main path's passes only (each zeroed
     # before it and read after it): K1-K4 from the engine phase, K6 from
-    # the train phase; without a phase there is no count of it to report
+    # the train phase, K5 from the quant phase; without a phase there is
+    # no count of it to report
     launches = {**summary.get("launches_total", {}),
-                **trained.get("train", {}).get("launches", {})}
+                **trained.get("train", {}).get("launches", {}),
+                **quant_measure.get("quant", {}).get("launches", {})}
     record = []
     for name, source, replaces in KERNELS:
         if name not in kernels:
@@ -1379,6 +1695,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"quant": quant_measure.get("quant"),
+                      "measure": quant_measure.get("measure")}))
     print(json.dumps({"train": trained.get("train")}))
     print(json.dumps({"engine": summary}))
     print(json.dumps({"kernels": record}))

@@ -1,9 +1,11 @@
-"""PyTorch/CUDA port of the LIFE reproduction's measured half.
+"""PyTorch/CUDA port of the LIFE reproduction.
 
 The JAX package ``repro`` stays the reference; this package runs the
-continuous-batching serving engine on an NVIDIA H100 with hand-written
-Hopper kernels for paged attention.  It imports ``torch`` and numpy only,
-never ``jax`` and nothing of ``repro``.
+continuous-batching serving engine, the trainer and quantized linears on
+an NVIDIA H100 with hand-written Hopper kernels, and carries a copy of
+LIFE's analytical half (``configs``, ``core``, ``traffic``, ``api``) so
+that forecasts for the card sit beside measurements on it.  It imports
+``torch`` and numpy only, never ``jax`` and nothing of ``repro``.
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``: on a
 host without a GPU they raise unless the caller passes ``device="cpu"``

@@ -81,3 +81,45 @@ def opt_state_to_numpy(state):
     numpy arrays, in the field order of both packages' ``AdamWState``."""
     count, mu, nu = state
     return (tensor_to_numpy(count), params_to_numpy(mu), params_to_numpy(nu))
+
+
+def quantized_from_numpy(q, device="cuda"):
+    """A quantized weight given as a mapping of numpy arrays and ints
+    (``w_q`` int8, ``scales``/``zeros`` bf16, ``group_size``, ``bits``:
+    the JAX package's ``QuantizedTensor`` fields) -> the port's
+    ``QuantizedTensor`` on ``device``, bit for bit."""
+    from repro_torch.quant import QuantizedTensor
+    return QuantizedTensor(
+        w_q=tensor_from_numpy(q["w_q"], device),
+        scales=tensor_from_numpy(q["scales"], device),
+        zeros=tensor_from_numpy(q["zeros"], device),
+        group_size=int(q["group_size"]), bits=int(q["bits"]))
+
+
+def quantized_to_numpy(q) -> Dict:
+    """Inverse of :func:`quantized_from_numpy`: the fields as numpy
+    arrays (bf16 as ml_dtypes' bfloat16) and ints."""
+    return {"w_q": tensor_to_numpy(q.w_q),
+            "scales": tensor_to_numpy(q.scales),
+            "zeros": tensor_to_numpy(q.zeros),
+            "group_size": q.group_size, "bits": q.bits}
+
+
+def adapters_from_numpy(tree, device="cuda"):
+    """A LoRA adapter tree (nested dicts whose leaves are ``None`` or
+    ``{"A": ..., "B": ...}`` numpy arrays, as ``init_adapters_for_tree``
+    builds on either side) -> the same tree of tensors on ``device``."""
+    if tree is None:
+        return None
+    if not isinstance(tree, dict):
+        return tensor_from_numpy(tree, device)
+    return {k: adapters_from_numpy(v, device) for k, v in tree.items()}
+
+
+def adapters_to_numpy(tree):
+    """Inverse of :func:`adapters_from_numpy` (bit for bit)."""
+    if tree is None:
+        return None
+    if not isinstance(tree, dict):
+        return tensor_to_numpy(tree)
+    return {k: adapters_to_numpy(v) for k, v in tree.items()}

@@ -1,10 +1,13 @@
 """Architecture configuration schema for the PyTorch port.
 
-A copy of ``ArchConfig`` (and the ``MLAConfig`` it refers to) from the JAX
-package's ``configs/base.py``: the port keeps its own copy so that it
-imports nothing of the JAX package.  Field names, defaults and derived
-quantities are identical, so a config built on either side describes the
-same model.
+A copy of ``ArchConfig`` (and the ``MLAConfig`` it refers to), ``Variant``
+and ``PAPER_VARIANTS`` from the JAX package's ``configs/base.py``: the port
+keeps its own copy so that it imports nothing of the JAX package.  Field
+names, defaults and derived quantities are identical, so a config built
+on either side describes the same model.
+
+``Variant`` captures the paper's §3.2/§3.3 software+model optimization
+settings (Table 3 rows are instances of it).
 """
 from __future__ import annotations
 
@@ -153,3 +156,41 @@ class ArchConfig:
             per_attn = (self.mla.kv_lora_rank + self.mla.qk_rope_head_dim) * kv_dtype_bytes
         n_attn = sum(1 for k in self.block_kinds() if k == "attn")
         return n_attn * per_attn
+
+
+@dataclasses.dataclass(frozen=True)
+class Variant:
+    """Software/model-optimization operating point (paper Table 3)."""
+    name: str = "bf16-bf16"
+    dtype_act: str = "bf16"
+    dtype_w: str = "bf16"
+    kv_dtype: str = "bf16"
+    fused: bool = False                 # operator fusion (§3.2.1)
+    group_size: int = 128               # weight-quant group size
+    lora_rank: Optional[int] = None     # LoRA adapter rank
+    lora_inline: bool = False           # dynamic per-GEMM merge vs one-time
+    use_mla: bool = False               # MHA→MLA conversion (§3.3.2)
+    actfn_algo: str = "pwl"             # pwl | poly
+    actfn_table_size: int = 256
+    pad_to: int = 1                     # decode BMM padding tile (§3.2.2)
+    chunk_size: Optional[int] = None    # chunked prefill (§3.3.4)
+
+
+# Paper Table 3: Llama2-7B variants studied.
+PAPER_VARIANTS = {
+    "bf16-bf16": Variant(name="bf16-bf16"),
+    "bf16-int4": Variant(name="bf16-int4", dtype_w="int4"),
+    "bf16-int4-fused": Variant(name="bf16-int4-fused", dtype_w="int4", fused=True),
+    "bf16-int4-kv4": Variant(name="bf16-int4-kv4", dtype_w="int4",
+                             kv_dtype="int4", fused=True),
+    "bf16-int4-kv8": Variant(name="bf16-int4-kv8", dtype_w="int4",
+                             kv_dtype="int8", fused=True),
+    "bf16-int4-mla": Variant(name="bf16-int4-mla", dtype_w="int4",
+                             fused=True, use_mla=True),
+    "bf16-int4-lora": Variant(name="bf16-int4-lora", dtype_w="int4",
+                              fused=True, lora_rank=64, lora_inline=True),
+    "quarot-w4a4kv4": Variant(name="quarot-w4a4kv4", dtype_act="int8",
+                              dtype_w="int4", kv_dtype="int4", fused=True),
+    "fp16-fp16": Variant(name="fp16-fp16", dtype_act="fp16", dtype_w="fp16",
+                         kv_dtype="fp16"),
+}

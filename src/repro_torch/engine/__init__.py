@@ -18,6 +18,8 @@ Subsystem layout (each module the counterpart of the JAX package's):
                    block-pool and adapter backpressure, bucketed groups,
                    speculative steps, mid-flight completion, per-request
                    metrics, trace emission
+    forecast_twin — replays the scheduler trace through the analytical
+                   WorkloadModel / Forecaster (a copy of the reference's)
 """
 from .adapter_pool import (LORA_FACTORS, AdapterPool, AdapterPoolExhausted,
                            AdapterStore)
@@ -29,6 +31,9 @@ from .kv_cache import BlockPagedKVCache, engine_supported
 from .sampling import KV_DTYPES, kv_torch_dtype, sample, to_kv
 from .scheduler import (Engine, EngineConfig, Request, RequestResult,
                         TraceEvent)
+from .forecast_twin import (AUTO, ForecastTwin, RequestForecast,
+                            TraceForecast, cold_trace, despeculate_trace,
+                            replay_trace)
 
 __all__ = [
     "LORA_FACTORS", "AdapterPool", "AdapterPoolExhausted", "AdapterStore",
@@ -37,5 +42,6 @@ __all__ = [
     "DraftModelDrafter", "Drafter", "NgramDrafter", "make_drafter",
     "BlockPagedKVCache", "engine_supported", "KV_DTYPES", "kv_torch_dtype",
     "sample", "to_kv", "Engine", "EngineConfig", "Request", "RequestResult",
-    "TraceEvent",
+    "TraceEvent", "AUTO", "ForecastTwin", "RequestForecast", "TraceForecast",
+    "cold_trace", "despeculate_trace", "replay_trace",
 ]

@@ -7,7 +7,10 @@
 the backward kernels of ``csrc/flash_attention.cu`` (built on first use,
 bound with ``ctypes``, on the current stream).  For CUDA tensors it
 launches them or raises; nothing falls back.  For tensors on the CPU it
-computes the plain version of ``ref.py``, and autograd runs through it.
+computes the plain version of ``ref.py`` as the JAX package's function
+does on the CPU: the forward is the oracle's output with every row that
+sees no key set to 0 (what the kernels write), and the backward is the
+oracle's VJP (the reference's ``_fa_bwd``).
 
 ``LAUNCHES`` counts kernel launches: ``flash_fwd`` one per forward launch
 (under per-layer remat the forward runs twice per layer and step),
@@ -22,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build as _build
-from .ref import attention_ref
+from .ref import attention_ref, live_rows
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 LIBRARY_NAME = "flash_attention"
@@ -170,6 +173,28 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class _FlashAttentionPlain(torch.autograd.Function):
+    """The CPU path: forward = the oracle with dead rows zeroed (the
+    kernels' output), backward = the oracle's VJP (the reference's
+    ``_fa_bwd``, which recomputes through ``attention_ref``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        o = attention_ref(q, k, v, **ctx.mask)
+        live = live_rows(q.shape[1], k.shape[1], device=q.device, **ctx.mask)
+        return torch.where(live[None, :, None, None], o, o.new_zeros(()))
+
+    @staticmethod
+    def backward(ctx, do):
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = attention_ref(*leaves, **ctx.mask)
+            grads = torch.autograd.grad(out, leaves, do)
+        return (*grads, None, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0, block_q: int = 128,
@@ -184,8 +209,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"block sizes must be >= 1, got {block_q}, "
                          f"{block_k}")
     if not q.is_cuda:
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
+        return _FlashAttentionPlain.apply(q, k, v, causal, window, q_offset)
     return _FlashAttention.apply(q, k, v, causal, window, q_offset)
 
 

@@ -10,8 +10,10 @@ CUDA kernels to it on the card.
 One difference from the kernel: a row with no live key (possible only
 with a window, or with ``q_offset`` past the keys) gets a softmax over
 -1e30 everywhere here, i.e. the mean of v, where the kernel (like the TPU
-kernel) writes 0.  No training shape has such a row: causal attention at
-``q_offset >= 0`` always keeps the diagonal.
+kernel) writes 0.  ``flash_attention``'s CPU path therefore zeroes those
+rows of the oracle's output (:func:`live_rows`), as the JAX package's
+``flash_attention`` does on the CPU by running its kernel; its backward
+stays the oracle's, as the reference's custom VJP is.
 """
 from __future__ import annotations
 
@@ -44,3 +46,15 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgsl,blkd->bskgd", probs, v.float())
     return out.reshape(b, s, H, d).to(q.dtype)
+
+
+def live_rows(s: int, L: int, *, causal: bool = True,
+              window: Optional[int] = None, q_offset: int = 0,
+              device=None) -> torch.Tensor:
+    """(s,) bool: which query rows see at least one key under the mask of
+    :func:`attention_ref` (a row sees keys ``[lo, hi)``)."""
+    q_pos = q_offset + torch.arange(s, device=device)
+    hi = torch.clamp(q_pos + 1, max=L) if causal else torch.full_like(q_pos, L)
+    lo = (torch.clamp(q_pos - window + 1, min=0) if window is not None
+          else torch.zeros_like(q_pos))
+    return lo < hi

@@ -28,7 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.engine import Engine, EngineConfig, Request
+from repro_torch.configs import Variant
+from repro_torch.core import hardware
+from repro_torch.engine import Engine, EngineConfig, ForecastTwin, Request
 from repro_torch.models import init_params
 
 
@@ -59,6 +61,8 @@ def main(argv=None) -> dict:
                    help="resident adapters (default: one per engine slot)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--hw", default="nvidia-h100",
+                   help="hardware the LIFE twin forecasts the schedule for")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -89,10 +93,19 @@ def main(argv=None) -> dict:
     eng.warmup()          # kernel build and allocator growth stay outside
     results = eng.run(reqs)
 
+    # LIFE twin: replay the schedule the engine just executed, on the target
+    spec = hardware.get(args.hw)
+    variant = Variant(kv_dtype=args.kv_dtype, fused=True)
+    fcst = ForecastTwin(full_cfg, spec, variant, em=0.8).replay(eng.trace)
+    print(f"[LIFE twin → {spec.name}] {full_cfg.name}: "
+          f"forecast TPS={fcst.tps:.1f}  mean TTFT={fcst.mean_ttft*1e3:.1f}ms"
+          f"  mean TPOT={fcst.mean_tpot*1e3:.2f}ms  (em=0.8, same trace)")
     for r in results:
+        f = fcst.requests.get(r.rid)
         print(f"  req {r.rid}: {len(r.tokens)} toks  "
               f"ttft={r.ttft * 1e3:8.2f}ms  tpot={r.tpot * 1e3:7.3f}ms  "
-              f"cached={r.cached_tokens}")
+              f"cached={r.cached_tokens}  | forecast ttft="
+              f"{f.ttft * 1e3:6.2f}ms tpot={f.tpot * 1e3:5.2f}ms")
     summary = {
         "mode": "engine", "arch": cfg.name, "attn_impl": args.attn_impl,
         "kv_dtype": args.kv_dtype, "requests": args.requests,
@@ -104,6 +117,10 @@ def main(argv=None) -> dict:
         "tps": eng.aggregate_tps(),
         "prefix_hit_rate": eng.prefix_hit_rate,
         "trace_events": len(eng.trace),
+        "forecast_hw": spec.name,
+        "forecast_tps": fcst.tps,
+        "forecast_ttft_mean_ms": fcst.mean_ttft * 1e3,
+        "forecast_tpot_mean_ms": fcst.mean_tpot * 1e3,
     }
     if args.spec_k:
         summary["spec_acceptance"] = eng.spec_acceptance

@@ -11,10 +11,11 @@ fault-tolerant ``Trainer`` with its checkpoint cadence, and the
 reference's JSON summary.  ``--use-flash`` runs attention through the
 flash attention kernels (the reference's ``Trainer`` takes ``use_flash``
 but its launcher never sets it); ``--device`` picks the device (the
-default is the card; entry points never fall back to the CPU).  It prints
-no LIFE forecast line, since the analytical half is not ported (ROADMAP
-queue 1, item 17), and has no ``--multi-pod``: multi-device training is
-item 15.
+default is the card; entry points never fall back to the CPU).  Before
+training it prints the reference's ``[LIFE]`` line, the analytical
+forward pass of one step, here for the card the port runs on
+(``nvidia-h100``), and it has no ``--multi-pod``: multi-device training
+is ROADMAP queue 1, item 15.
 """
 from __future__ import annotations
 
@@ -25,6 +26,10 @@ import tempfile
 import time
 
 from repro_torch import configs, resolve_device
+from repro_torch.configs import Variant
+from repro_torch.core import hardware
+from repro_torch.core.forecast import Forecaster
+from repro_torch.core.workload import WorkloadModel
 from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.optim import AdamW
 from repro_torch.optim.adamw import tree_leaves
@@ -62,6 +67,13 @@ def main(argv=None) -> dict:
         if args.n_layers:
             overrides["n_layers"] = args.n_layers
         cfg = configs.reduced(cfg, **overrides)
+
+    # LIFE forecast before training (the paper's feature, first-class)
+    wm = WorkloadModel(cfg, Variant())
+    fc = Forecaster(hardware.get("nvidia-h100"))
+    fwd = fc.phase(wm.prefill(args.batch, args.seq).totals("prefill"))
+    print(f"[LIFE] fwd/step: t_c={fwd.t_compute:.3e}s t_m={fwd.t_memory:.3e}s "
+          f"bound={fwd.bound} (1 chip, fwd-only, nvidia-h100)")
 
     opt = AdamW(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
                 total_steps=args.steps)

@@ -98,25 +98,34 @@ def test_bf16_forward_matches_reference():
                                atol=1e-3)
 
 
-def test_fully_masked_row_is_a_known_difference():
+def test_fully_masked_row_matches_reference():
     """A row with no live key (window 64, queries past the keys): the
-    reference kernel, like the port's CUDA kernel, writes 0 there, while
-    both oracles, and so the port's CPU path, give the mean of v.  No
-    training shape has such a row; this records the difference and holds
-    the port's plain version to the reference's oracle."""
+    reference's ``flash_attention`` (its kernel in interpret mode) writes
+    0 there, as the port's CUDA kernel does, while both oracles give the
+    mean of v.  The port's CPU path equals the reference's function:
+    forward 0 on those rows, and gradients equal to the reference's
+    custom VJP (the oracle's VJP) at f32 rounding."""
     case = (1, 4, 384, 4, 2, 64, True, 64, 1000)
-    q, k, v, _ = _inputs(case, seed=3)
+    q, k, v, g = _inputs(case, seed=3)
     jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
-    kernel = np.asarray(jax_flash(jq, jk, jv, block_q=64, block_k=64,
-                                  **_kw(case)))
+    fn = lambda q_, k_, v_: jax_flash(q_, k_, v_, block_q=64, block_k=64,
+                                      **_kw(case))
+    kernel, vjp = jax.vjp(fn, jq, jk, jv)
+    ref_grads = [np.asarray(x) for x in vjp(jnp.asarray(g))]
     oracle = np.asarray(jax_ref(jq, jk, jv, **_kw(case)))
-    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
-                          **_kw(case)).numpy()
-    assert np.all(kernel == 0.0)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, **_kw(case))
+    assert np.all(np.asarray(kernel) == 0.0)
+    assert np.all(out.detach().numpy() == 0.0)
     mean_v = np.repeat(v.mean(axis=1), 2, axis=1)          # (b, H, d)
     np.testing.assert_allclose(oracle, np.broadcast_to(
         mean_v[:, None], oracle.shape), **TOL)
-    np.testing.assert_allclose(got, oracle, **TOL)
+    np.testing.assert_allclose(attention_ref(tq, tk, tv, **_kw(case))
+                               .detach().numpy(), oracle, **TOL)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    assert float(got[2].abs().max()) > 0        # the oracle's VJP, not 0
+    for name, a, b in zip("qkv", got, ref_grads):
+        np.testing.assert_allclose(a.numpy(), b, err_msg=f"d{name}", **TOL)
 
 
 def test_wrapper_refuses_what_the_kernels_do_not_take():

@@ -303,3 +303,67 @@ def test_flash_training_step_equals_eager(cuda_device):
     for a, r in zip(out[True][1], out[False][1]):
         rel = float((a - r).norm() / r.norm().clamp(min=1e-30))
         assert rel <= 1e-4, rel
+
+
+#: (m, k, n, group_size, bits, x dtype): decode and a prefill chunk at a
+#: llama2-7b projection, int8, a ragged n with g=64, one k row group
+QMM_GPU_CASES = [(4, 4096, 4096, 128, 4, torch.bfloat16),
+                 (256, 4096, 1024, 128, 4, torch.bfloat16),
+                 (4, 1024, 512, 128, 8, torch.bfloat16),
+                 (5, 1024, 200, 64, 4, torch.float32),
+                 (5, 1024, 200, 64, 4, torch.bfloat16),
+                 (17, 128, 33, 128, 4, torch.float32)]
+
+
+@pytest.mark.parametrize("case", QMM_GPU_CASES,
+                         ids=[str(c[:5]) + str(c[5])[6:] for c in QMM_GPU_CASES])
+def test_quant_matmul_kernel_matches_plain_version(cuda_device, case):
+    """K5 against its plain version; tolerance ``kernel_tolerance`` with
+    the output as its scale: one bf16 ulp plus 1e-3 of the mean magnitude
+    for bf16 outputs, 1e-4 of max|y| for f32 ones (both sides accumulate
+    in f32 from the same dequantized weights, in other orders)."""
+    from repro_torch.kernels.quant_matmul import ops as qmm
+    from repro_torch.quant import quant_dense, quantize_weight
+    m, k, n, g, bits, dtype = case
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    w = torch.randn((k, n), generator=gen, device=cuda_device) * 0.02
+    q = quantize_weight(w, group_size=g, bits=bits)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
+    before = qmm.LAUNCHES["quant_matmul"]
+    out = quant_dense(x, q)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["quant_matmul"] == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    ref = qmm.quant_matmul_ref(x, q.w_q, q.scales, q.zeros, g)
+    _assert_within_tolerance(out, ref, ref)
+
+
+def test_quant_matmul_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    from repro_torch.kernels.quant_matmul import ops as qmm
+    from repro_torch.quant import quantize_weight
+    q = quantize_weight(torch.randn((256, 64), device=cuda_device))
+    x = torch.zeros((4, 256), device=cuda_device)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        qmm.quant_matmul(x.half(), q.w_q, q.scales, q.zeros)
+    with pytest.raises(TypeError, match="int8"):
+        qmm.quant_matmul(x, q.w_q.int(), q.scales, q.zeros)
+    with pytest.raises(ValueError, match="contiguous"):
+        qmm.quant_matmul(torch.zeros((256, 4), device=cuda_device).t(),
+                         q.w_q, q.scales, q.zeros)
+    with pytest.raises(ValueError, match="does not divide"):
+        qmm.quant_matmul(x, q.w_q, q.scales, q.zeros, group_size=100)
+
+
+def test_quantize_on_the_card_equals_the_cpu(cuda_device):
+    from repro_torch.quant import quantize_weight
+    w = torch.randn((1024, 300), generator=torch.Generator().manual_seed(3))
+    for bits in (4, 8):
+        a = quantize_weight(w.to(cuda_device), group_size=64, bits=bits)
+        b = quantize_weight(w, group_size=64, bits=bits)
+        assert torch.equal(a.w_q.cpu(), b.w_q)
+        assert torch.equal(a.scales.cpu().view(torch.int16),
+                           b.scales.view(torch.int16))
+        assert torch.equal(a.zeros.cpu().view(torch.int16),
+                           b.zeros.view(torch.int16))

@@ -51,7 +51,19 @@ def test_port_modules_cover_the_slice():
                 "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.optim.adamw", "repro_torch.data.pipeline",
                 "repro_torch.checkpoint.manager", "repro_torch.runtime.train",
-                "repro_torch.launch.serve", "repro_torch.launch.train"):
+                "repro_torch.launch.serve", "repro_torch.launch.train",
+                "repro_torch.kernels.quant_matmul.ref",
+                "repro_torch.kernels.quant_matmul.ops",
+                "repro_torch.quant.weights", "repro_torch.lora.adapters",
+                "repro_torch.core.dtypes", "repro_torch.core.stats",
+                "repro_torch.core.operators", "repro_torch.core.derived",
+                "repro_torch.core.workload", "repro_torch.core.forecast",
+                "repro_torch.core.hardware", "repro_torch.core.distributed",
+                "repro_torch.traffic.arrivals", "repro_torch.traffic.feed",
+                "repro_torch.traffic.simulate", "repro_torch.traffic.slo",
+                "repro_torch.engine.forecast_twin",
+                "repro_torch.api.scenario", "repro_torch.api.report",
+                "repro_torch.api.run", "repro_torch.__main__"):
         assert mod in names
 
 
