@@ -24,7 +24,7 @@ caught and ignored):
               kernel cases (MHA, GQA, MQA, ragged s, a decode step with
               q_offset, a window, non-causal, head_dim 256) in bf16 and
               f32 and at the training shape; the int4 dequant-matmul at
-              every llama2-7b linear shape at m = 4 and 256, one int8
+              every llama2-7b linear shape at m = 4, 64 and 256, one int8
               case and a ragged one (m=5, n=200, g=64) in f32 and bf16.
               Then each kernel's time, its plain version's, its bound
               and a library yardstick at the main path's shapes.
@@ -131,6 +131,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call from torch.profiler: the kernels'
+    own durations summed, without the host's launch gaps that
+    :func:`time_ms` includes when a call's host work outlasts its
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_self_device_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +272,13 @@ def lora_bound(x, A, B, idx):
             else "operations")
 
 
+def _body_of(counts, before) -> str:
+    """The one body whose launch count rose since ``before``."""
+    rose = [b for b, n in counts.items() if n != before[b]]
+    check(len(rose) == 1, f"expected one body launch, got {rose}")
+    return rose[0]
+
+
 def _time_verify(q, ck, cv, bt, pos, worst, what):
     """K3 against its plain version at one shape, then its time, its
     bound, its plain version's time and SDPA's with a mask over K/V
@@ -264,8 +290,10 @@ def _time_verify(q, ck, cv, bt, pos, worst, what):
 
     S, Q, Hk, G, d = q.shape
     bs, nb = ck.shape[1], bt.shape[1]
+    before = dict(ops.BODY_LAUNCHES)
     err = _compare(ops.paged_verify(q, ck, cv, bt, pos),
                    ops.paged_verify_ref(q, ck, cv, bt, pos), cv, what, worst)
+    body = _body_of(ops.BODY_LAUNCHES, before)
     L = int(pos.max()) + Q
     kg = ck[bt.long()].reshape(S, nb * bs, Hk, d)[:, :L].transpose(1, 2)
     vg = cv[bt.long()].reshape(S, nb * bs, Hk, d)[:, :L].transpose(1, 2)
@@ -278,9 +306,10 @@ def _time_verify(q, ck, cv, bt, pos, worst, what):
     bound, by = verify_bound(q, ck, bt, pos, bs)
     return dict(
         ms=time_ms(lambda: ops.paged_verify(q, ck, cv, bt, pos)),
+        device_ms=device_ms(lambda: ops.paged_verify(q, ck, cv, bt, pos)),
         plain_ms=time_ms(lambda: ops.paged_verify_ref(q, ck, cv, bt, pos)),
         bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
-        max_abs_err=err,
+        max_abs_err=err, body=body,
         shape=f"S={S} Q={Q} Hk={Hk} G={G} d={d} bs={bs} nb={nb} "
               f"pos={pos.tolist()} kv=bf16")
 
@@ -326,6 +355,9 @@ def check_verify(device, gen, shapes, worst, results):
         timed.append(_time_verify(q, ck, cv, bt, pos, worst,
                                   f"paged_verify main-path shape Q={Q} "
                                   f"pos={cursors[0]}"))
+    check(all(t["body"] == "mma" for t in timed),
+          f"a bf16 paged_verify main-path shape left the mma body: "
+          f"{[t['body'] for t in timed]}")
     # the record's numbers are the speculative pass's shape; bucketed
     # admission's two chunks ride along under "more_shapes"
     results["paged_verify"] = dict(timed[0], more_shapes=timed[1:])
@@ -518,6 +550,8 @@ def check_flash(device, gen, worst, results):
 
 #: llama2-7b's linear shapes (k, n): wq/wk/wv/wo, gate/up, down, lm_head
 QMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+#: K5's timed rows: decode of 4 slots, a 64-row chunk, a 256-row chunk
+QMM_ROWS = (4, 64, 256)
 #: a layer's seven projections, as (group, name) in the param tree; each
 #: is quantized on its 2-D view: wq/wk/wv (d, heads, hd) as (d, heads*hd),
 #: wo (H, hd, d) as (H*hd, d)
@@ -553,17 +587,20 @@ def _time_qmm(x, q, worst, what):
     from repro_torch.quant import dequantize_weight
     args = (x, q.w_q, q.scales, q.zeros)
     g = q.group_size
+    before = dict(ops.BODY_LAUNCHES)
     out = ops.quant_matmul(*args, group_size=g)
+    body = _body_of(ops.BODY_LAUNCHES, before)
     ref = ops.quant_matmul_ref(*args, g)
-    err = _compare(out, ref, ref, what, worst)
+    err = _compare(out, ref, ref, f"{what} ({body})", worst)
     w = dequantize_weight(q, x.dtype)
     bound, by = qmm_bound(x, q)
     res = dict(
         ms=time_ms(lambda: ops.quant_matmul(*args, group_size=g)),
+        device_ms=device_ms(lambda: ops.quant_matmul(*args, group_size=g)),
         plain_ms=time_ms(lambda: ops.quant_matmul_ref(*args, g)),
         bound_ms=bound, bound_by=by,
         library_ms=time_ms(lambda: torch.matmul(x, w)),
-        max_abs_err=err,
+        max_abs_err=err, body=body,
         shape=f"m={x.shape[0]} k={x.shape[1]} n={q.w_q.shape[1]} "
               f"g={g} int{q.bits} x={str(x.dtype)[6:]}")
     del w
@@ -571,13 +608,16 @@ def _time_qmm(x, q, worst, what):
 
 
 def check_quant_matmul(device, gen, worst, results):
-    """K5 at every llama2-7b linear shape at m = 4 (decode) and m = 256
-    (a prefill chunk), bf16 x, int4, g = 128; one int8 case; a ragged case
-    (m = 5, n = 200, g = 64) in f32 and bf16.  Weights are normal (std
-    0.02) and quantized on the card by the port's ``quantize_weight``.
-    The record's numbers are lm_head at decode; the rest ride along under
-    "more_shapes"."""
+    """K5 at every llama2-7b linear shape at m = 4 (decode: the splitk
+    body), m = 64 and m = 256 (prefill chunks: the wgmma body), bf16 x,
+    int4, g = 128; one int8 case; a ragged case (m = 5, n = 200, g = 64)
+    in f32 and bf16.  Weights are normal (std 0.02) and quantized on the
+    card by the port's ``quantize_weight``.  The record's numbers are
+    lm_head at decode; the rest ride along under "more_shapes".  Then
+    both bodies, each forced, at m = 8 ... 128 on 4096 x 4096 and
+    lm_head: the measurement behind WGMMA_MIN_ROWS."""
     import torch
+    from repro_torch.kernels.quant_matmul import ops
     from repro_torch.quant import quantize_weight
 
     def weight(k, n):
@@ -589,7 +629,7 @@ def check_quant_matmul(device, gen, worst, results):
     timed = []
     for k, n in QMM_SHAPES:
         q = quantize_weight(weight(k, n), group_size=128, bits=4)
-        for m in (4, 256):
+        for m in QMM_ROWS:
             timed.append(_time_qmm(act(m, k, torch.bfloat16), q, worst,
                                    f"quant_matmul k={k} n={n} m={m} int4 bf16"))
         del q
@@ -601,7 +641,29 @@ def check_quant_matmul(device, gen, worst, results):
         timed.append(_time_qmm(act(5, 1024, dtype), q, worst,
                                f"quant_matmul ragged m=5 k=1024 n=200 g=64 "
                                f"{str(dtype)[6:]}"))
+    for r in timed[:len(QMM_SHAPES) * len(QMM_ROWS)]:
+        m, _, n = (int(f.split("=")[1]) for f in r["shape"].split()[:3])
+        want = ops.qmm_body(torch.bfloat16, m, n, 128)
+        check(r["body"] == want, f"quant_matmul {r['shape']} ran on "
+              f"{r['body']}, not {want}")
     main = next(r for r in timed if r["shape"].startswith("m=4 k=4096 n=32000"))
+    threshold = ops.WGMMA_MIN_ROWS
+    try:
+        for k, n in ((4096, 4096), (4096, 32000)):
+            q = quantize_weight(weight(k, n), group_size=128, bits=4)
+            for m in (8, 16, 32, 64, 128):
+                x = act(m, k, torch.bfloat16)
+                ms = {}
+                for body, rows in (("splitk", 1 << 30), ("wgmma", 1)):
+                    ops.WGMMA_MIN_ROWS = rows
+                    ms[body] = device_ms(lambda: ops.quant_matmul(
+                        x, q.w_q, q.scales, q.zeros, group_size=128))
+                log(f"[kernels] quant_matmul threshold k={k} n={n} m={m}: "
+                    f"device ms splitk {ms['splitk']:.4f}, wgmma "
+                    f"{ms['wgmma']:.4f}")
+            del q
+    finally:
+        ops.WGMMA_MIN_ROWS = threshold
     results["quant_matmul"] = dict(
         main, more_shapes=[r for r in timed if r is not main])
     torch.cuda.empty_cache()
@@ -714,7 +776,11 @@ def phase_kernels(device, results):
         f"{worst[0]:.3e}")
     for name, res in results.items():
         for r in (res, *res.get("more_shapes", ())):
-            log(f"[kernels] {name} @ {r['shape']}: kernel_ms={r['ms']:.4f} "
+            body = f" ({r['body']})" if "body" in r else ""
+            dev = (f" device_ms={r['device_ms']:.4f}" if "device_ms" in r
+                   else "")
+            log(f"[kernels] {name}{body} @ {r['shape']}: "
+                f"kernel_ms={r['ms']:.4f}{dev} "
                 f"plain_ms={r['plain_ms']:.4f} "
                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
                 f"library_ms={r['library_ms']:.4f}")
@@ -887,9 +953,13 @@ def phase_engine(device, summary):
         eng, results = _serve(cfg, params, ec_l, reqs_l, device)
         wall = time.perf_counter() - t0
         launches = _launches()                # ... and ends here
+        bodies = dict(_kernel_ops()[0].BODY_LAUNCHES)
         _check_results(cfg, reqs_l, results, tag)
         check(all(launches[k] > 0 for k in path),
               f"{tag} did not launch {path}: {launches}")
+        check(bodies == {"mma": launches["paged_verify"], "rows": 0},
+              f"{tag}: a bf16 paged_verify call left the mma body: "
+              f"{bodies} of {launches['paged_verify']}")
         pool = eng.adapter_pool
         check(pool.misses == tenants and pool.evictions == 0,
               f"{tag}: adapter pool misses {pool.misses}, evictions "
@@ -903,7 +973,7 @@ def phase_engine(device, summary):
             ttft_p50_ms=float(np.median([r.ttft for r in results]) * 1e3),
             tpot_p50_ms=float(np.median([r.tpot for r in results]) * 1e3),
             tps=eng.aggregate_tps(), adapter_hit_rate=eng.adapter_hit_rate,
-            launches=launches, wall_s=wall)
+            launches=launches, verify_bodies=bodies, wall_s=wall)
         if "spec_k" in extra:
             summary[tag].update(spec_acceptance=eng.spec_acceptance,
                                 spec_tokens_per_step=eng.spec_tokens_per_step,
@@ -921,7 +991,8 @@ def phase_engine(device, summary):
                f"{r['spec_tokens_per_step']:.4f} over {r['spec_steps']} "
                f"steps" if "spec_k" in extra else
                f", {r['batched_chunks']} batched chunks")
-            + f"; launches {launches}; wall {wall:.1f} s (warm-up included)")
+            + f"; launches {launches}, paged_verify by body {bodies}; wall "
+            f"{wall:.1f} s (warm-up included)")
         del eng
         torch.cuda.empty_cache()
     total = {k: sum(summary[t]["launches"][k] for t in
@@ -930,13 +1001,20 @@ def phase_engine(device, summary):
     check(all(v > 0 for v in total.values()),
           f"the engine passes did not launch every kernel: {total}")
     summary["launches_total"] = total
+    summary["verify_bodies_total"] = {
+        b: sum(summary[t]["verify_bodies"][b] for t in
+               ("engine_spec_lora", "engine_bucketed_lora"))
+        for b in summary["engine_spec_lora"]["verify_bodies"]}
 
     # a short second pass with int8 KV
     reqs8 = _requests(cfg.vocab_size, 4, prompt_len, 16, 256, seed=2)
     ec8 = dataclasses.replace(ec, kv_dtype="int8", max_len=prompt_len + 32)
+    _reset_launches()
     eng, results = _serve(cfg, params, ec8, reqs8, device)
     _check_results(cfg, reqs8, results, "engine int8")
     check(eng.state["cache_k"].dtype == torch.int8, "int8 pool dtype")
+    check(_kernel_ops()[0].BODY_LAUNCHES["rows"] == 0,
+          "engine int8: a bf16 paged_verify call left the mma body")
     summary["engine_int8"] = dict(
         ttft_p50_ms=float(np.median([r.ttft for r in results]) * 1e3),
         tpot_p50_ms=float(np.median([r.tpot for r in results]) * 1e3),
@@ -1301,7 +1379,8 @@ def phase_profile(device):
     admission step (4 prefills of 512 tokens) and over the decode blocks
     that follow, llama2-7b bf16, paged attention; then the same with
     three LoRA tenants and a base-model request (K4's four launches per
-    layer per step on top), and again with bucketed admission
+    layer per step on top), with speculative decoding (spec_k=4: K3
+    verifies each step's candidates), and again with bucketed admission
     (prefill_batch=4: K3 admits the group in batched chunks)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1319,6 +1398,9 @@ def phase_profile(device):
             ("plain", ec, reqs),
             ("lora", dataclasses.replace(ec, lora_tenants=3,
                                          lora_ranks=(8, 16)),
+             _with_tenants(reqs, 3)),
+            ("spec lora", dataclasses.replace(
+                ec, lora_tenants=3, lora_ranks=(8, 16), spec_k=4),
              _with_tenants(reqs, 3)),
             ("bucketed lora", dataclasses.replace(
                 ec, lora_tenants=3, lora_ranks=(8, 16), prefill_batch=4),
@@ -1519,12 +1601,20 @@ def phase_quant(device, summary):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(qmm.LAUNCHES)              # ... and ends here
+    bodies = dict(qmm.BODY_LAUNCHES)
     want = 2 + cfg.n_layers * len(LAYER_PROJECTIONS) * 2
+    want_bodies = {b: 0 for b in bodies}
+    for m in (4, 256):        # every llama2-7b width is a multiple of 16
+        want_bodies[qmm.qmm_body(torch.bfloat16, m, cfg.d_model, g)] += \
+            want // 2
     log(f"[quant] K5 launches {launches['quant_matmul']} (expected {want}); "
         f"every call within kernel_tolerance of the plain version (largest "
         f"err/limit {worst[0]:.3e}); {wall:.1f} s")
     check(launches["quant_matmul"] == want,
           f"quant: K5 launched {launches['quant_matmul']} times, not {want}")
+    log(f"[quant] K5 launches by body {bodies} (expected {want_bodies})")
+    check(bodies == want_bodies, f"quant: K5 bodies {bodies}, not "
+          f"{want_bodies}")
     samples[(cfg.d_model, cfg.vocab_size)] = lm
     rows = []
     for (k, n), q in samples.items():
@@ -1543,7 +1633,8 @@ def phase_quant(device, summary):
                 f"{life.t_memory * 1e3:.4f}, dispatch "
                 f"{life.t_dispatch * 1e3:.4f} ms); measured/LIFE "
                 f"{ms / (life.latency * 1e3):.2f}")
-    summary["quant"] = dict(launches=launches, quantized=quantized,
+    summary["quant"] = dict(launches=launches, bodies=bodies,
+                            quantized=quantized,
                             storage_bytes=real, worst_err_over_limit=worst[0],
                             wall_s=wall, linears=rows)
     del params, qtree, samples, lm
@@ -1676,6 +1767,8 @@ def main() -> int:
     launches = {**summary.get("launches_total", {}),
                 **trained.get("train", {}).get("launches", {}),
                 **quant_measure.get("quant", {}).get("launches", {})}
+    bodies = {"paged_verify": summary.get("verify_bodies_total"),
+              "quant_matmul": quant_measure.get("quant", {}).get("bodies")}
     record = []
     for name, source, replaces in KERNELS:
         if name not in kernels:
@@ -1688,6 +1781,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"body_launches": bodies[name]} if bodies.get(name)
+               else {}),
             **({"more_shapes": r["more_shapes"]} if "more_shapes" in r
                else {}),
         })

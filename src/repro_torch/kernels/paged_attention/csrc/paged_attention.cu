@@ -6,28 +6,46 @@
 //                           (_decode_kernel)
 //   paged_prefill_kernel <- kernels/paged_attention/paged_attention.py::paged_prefill_fwd
 //                           (_prefill_kernel)
-//   paged_verify_kernel  <- kernels/paged_attention/paged_attention.py::paged_verify_fwd
-//                           (_verify_kernel)
+//   paged_verify_mma_kernel, <- kernels/paged_attention/paged_attention.py::paged_verify_fwd
+//   paged_verify_kernel         (_verify_kernel)
 //
 // KV lives in one global block pool (N, bs, Hk, d) addressed through block
-// tables.  Both kernels read K/V block by block through the table with an
+// tables.  Every kernel reads K/V block by block through the table with an
 // online softmax, so no page buffer is ever written to device memory, and
-// skip every block past the keys a row may attend.  int8 KV is dequantized
+// skips every block past the keys a row may attend.  int8 KV is dequantized
 // by a plain cast while it is staged into shared memory.
 //
 // What bounds them on the card: bytes.  Decode does 4 flops per K/V element
 // it reads (G rows), far below the ~295 flop/byte the H100 needs before its
 // tensor cores become the limit; it must read sum_s (pos[s]+1)*Hk*d*2*kv_bytes
-// per layer.  Prefill at chunk C reuses each K/V element C*G times and is
-// closer to balanced, but this first version does its arithmetic in f32 on
-// the CUDA cores.  Verify is prefill per slot: Q = k+1 queries (or a whole
+// per layer.  Verify is prefill per slot: Q = k+1 queries (or a whole
 // bucketed-admission chunk) at pos[s] .. pos[s]+Q-1 over the slot's table.
-// The design keeps everything simple and right: one thread block per (slot,
-// KV head) for decode and per (KV head, tile of 16 query rows[, slot]) for
-// prefill and verify; the block loops over its own KV blocks in order (the
-// TPU's sequential grid axis), carrying the running max, sum and f32
-// accumulator in shared memory.  wgmma, TMA, vectorised loads and split-KV
-// are left for later work.
+// At llama2-7b's main-path shapes it is bound by bytes too: 0.0071 ms for
+// the speculative pass's 4 slots x 5 queries at cursors 540-552, 0.0063 and
+// 0.0113 ms for bucketed admission's 4 x 256-row chunks at cursors 0 and 256
+// (each distinct K/V byte once at 3.35 TB/s).
+//
+// Two bodies:
+// * attend_rows (K1 decode, K2 prefill, and K3 for f32 q or f32 KV or a
+//   head dim the tensor-core body does not take): one thread block per
+//   (slot, KV head) for decode and per (KV head, tile of 16 query rows[,
+//   slot]) for prefill and verify; the block loops over its KV blocks in
+//   order (the TPU's sequential grid axis), carrying the running max, sum
+//   and f32 accumulator in shared memory, all arithmetic f32 on the CUDA
+//   cores.  f32 q stays exact in f32 there.
+// * paged_verify_mma_kernel (K3 for bf16 q with bf16 or int8 KV, d a
+//   multiple of 16 up to 128; see its section below): FlashAttention-2 on
+//   mma.sync, 64-key tiles by cp.async, double-buffered, P.V as P_hi.V +
+//   P_lo.V so that every comparison stays inside kernel_tolerance; the
+//   chunk path puts 64 rows in a block (four warps sharing each tile), the
+//   speculative verify (Q*G <= 16) splits each tile's keys over the four
+//   warps.  mma.sync and not wgmma: the work is bound by bytes, and P stays
+//   in registers between the two products, as FA2 needs.
+//
+// Not yet: TMA (and multicast of a shared prefix across a slot's blocks), a
+// persistent grid, split-KV across blocks (the speculative verify runs one
+// block per (slot, head): 128 blocks at S = 4, Hk = 32), and tensor cores
+// in K1 and K2.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (see ../../build.py and ../ops.py).
@@ -245,6 +263,345 @@ paged_verify_kernel(const QT* __restrict__ q, const KT* __restrict__ ck,
                       scale);
 }
 
+// ---------------------------------------------------------------------------
+// K3 on the tensor cores: paged_verify_mma_kernel
+// ---------------------------------------------------------------------------
+//
+// FlashAttention-2 on mma.sync.m16n8k16 (bf16 in, f32 accumulate) for bf16
+// q with bf16 or int8 KV and d a multiple of 16 up to 128.  Each warp owns
+// 16 of the slot's Q*G rows (R = c*G + g), its q fragments in registers for
+// the whole loop.  KV comes in tiles of 64 keys read through the slot's
+// table (any bs), staged by cp.async and double-buffered; int8 K and V land
+// raw and are converted to bf16 in shared memory (exact).  S = Q.K^T and the
+// online softmax stay in f32 registers; P.V runs as two MMAs, on P_hi =
+// bf16(P) and P_lo = bf16(P - P_hi), so P keeps ~16 bits: a single bf16 P
+// moves the output by several times kernel_tolerance (see
+// tests/test_torch_kernel_numerics.py).  Every product of bf16 operands is
+// exact in f32, so the rest differs from the plain version by f32 sum order.
+//
+// KS = 1 (the chunk path): four warps own 64 rows and share each tile.
+// KS = 4 (Q*G <= 16, the speculative verify): one 16-row tile, the four
+// warps take keys [16w, 16w + 16) of each tile and merge their (m, l, acc)
+// in shared memory in warp order at the end (deterministic).
+constexpr int kTileKeys = 64;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;       // 0 source bytes: zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(n));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Dynamic shared memory of paged_verify_mma_kernel.  bf16 KV: two stages
+// of K and V tiles, rows padded to d + 8 (16 bytes) so that fragment reads
+// hit distinct banks.  int8 KV: two stages of raw K and V tiles, then one
+// bf16 K and V tile converted from them.  KS = 4 reuses it to merge.
+size_t verify_mma_smem(int d, bool int8_kv) {
+  const size_t tile = static_cast<size_t>(kTileKeys) * (d + 8) * 2;
+  const size_t merge = 4 * 16 * static_cast<size_t>(d + 2) * sizeof(float);
+  const size_t main =
+      int8_kv ? 2 * 2 * static_cast<size_t>(kTileKeys) * d + 2 * tile : 2 * 2 * tile;
+  return main > merge ? main : merge;
+}
+
+// grid (Hk, ceil(Q*G / (64 / KS)), S), 128 threads
+template <int D, int KS, typename KT>
+__global__ void __launch_bounds__(kThreads)
+paged_verify_mma_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
+                        const KT* __restrict__ cv, const int* __restrict__ block_tables,
+                        const int* __restrict__ pos, __nv_bfloat16* __restrict__ out, int Q,
+                        int Hk, int G, int bs, int nb, float scale) {
+  constexpr int RW = 4 / KS;               // row warps
+  constexpr int KW = kTileKeys / KS;       // keys of a tile per warp
+  constexpr int NT = KW / 8;               // n8 tiles of S
+  constexpr int DK = D / 16;               // k16 steps of Q.K^T
+  constexpr int DN = D / 8;                // n8 tiles of the output
+  constexpr int LD = D + 8;                // bf16 per staged row
+  constexpr int CH = D / 8;                // 16-byte bf16 chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int h = blockIdx.x, s = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rt = warp % RW, ks = warp / RW;
+  const int QG = Q * G;
+  const int row_base = blockIdx.y * 16 * RW;
+  const int p = pos[s];
+  const int* table = block_tables + static_cast<size_t>(s) * nb;
+  const int L = nb * bs;
+  // every warp walks the same tiles: up to the block's last row's limit,
+  // never past the table (padding rows past it attend the whole table)
+  const int last_row = min(QG, row_base + 16 * RW) - 1;
+  const int n_keys = min(p + last_row / G + 1, L);
+  const int n_tiles = (n_keys + kTileKeys - 1) / kTileKeys;
+  const size_t slot_off = static_cast<size_t>(s) * Q * Hk * G * D;
+
+  // this thread's two rows, their positions, and their q fragments
+  const int r_lo = row_base + 16 * rt + lane / 4, r_hi = r_lo + 8;
+  const int qpos_lo = p + r_lo / G, qpos_hi = p + r_hi / G;
+  auto q_row = [&](int R) -> const __nv_bfloat16* {
+    const int c = R / G, g = R - c * G;
+    return q + slot_off + (static_cast<size_t>(c * Hk + h) * G + g) * D;
+  };
+  const __nv_bfloat16* q_lo = r_lo < QG ? q_row(r_lo) : nullptr;
+  const __nv_bfloat16* q_hi = r_hi < QG ? q_row(r_hi) : nullptr;
+  auto ld2 = [](const __nv_bfloat16* row, int col) -> uint32_t {
+    return row ? *reinterpret_cast<const uint32_t*>(row + col) : 0u;
+  };
+  uint32_t qa[DK][4];
+#pragma unroll
+  for (int kk = 0; kk < DK; ++kk) {
+    const int col = kk * 16 + 2 * (lane % 4);
+    qa[kk][0] = ld2(q_lo, col);
+    qa[kk][1] = ld2(q_hi, col);
+    qa[kk][2] = ld2(q_lo, col + 8);
+    qa[kk][3] = ld2(q_hi, col + 8);
+  }
+
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+  float acc[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+
+  // staging: key t of tile j sits at position j*64 + t, block table[pos/bs]
+  constexpr bool kInt8 = sizeof(KT) == 1;
+  constexpr size_t kTileBf16 = static_cast<size_t>(kTileKeys) * LD;   // elements
+  constexpr size_t kRaw = static_cast<size_t>(kTileKeys) * D;         // int8 bytes
+  auto stage_ptr = [&](int stage, int which) -> unsigned char* {
+    if constexpr (kInt8) return smem_raw + (stage * 2 + which) * kRaw;
+    return smem_raw + (stage * 2 + which) * kTileBf16 * 2;
+  };
+  __nv_bfloat16* conv = reinterpret_cast<__nv_bfloat16*>(smem_raw + 4 * kRaw);  // int8 only
+  auto load_tile = [&](int j, int stage) {
+    constexpr int per_row = kInt8 ? D / 16 : CH;     // 16-byte chunks per key row
+    for (int c = tid; c < 2 * kTileKeys * per_row; c += kThreads) {
+      const int which = c / (kTileKeys * per_row);
+      const int e = c - which * kTileKeys * per_row;
+      const int t = e / per_row, part = e - t * per_row;
+      const int kp = j * kTileKeys + t;
+      const bool ok = kp < n_keys;
+      const KT* base = which ? cv : ck;
+      const KT* src = base;
+      if (ok)
+        src = base + ((static_cast<size_t>(table[kp / bs]) * bs + kp % bs) * Hk + h) * D +
+              part * (16 / sizeof(KT));
+      unsigned char* dst = stage_ptr(stage, which);
+      if constexpr (kInt8)
+        cp_async16(dst + t * D + part * 16, src, ok);
+      else
+        cp_async16(dst + (t * LD + part * 8) * 2, src, ok);
+    }
+  };
+
+  load_tile(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j & 1;
+    if (j + 1 < n_tiles) {
+      load_tile(j + 1, stage ^ 1);
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    const __nv_bfloat16* Ks;
+    const __nv_bfloat16* Vs;
+    if constexpr (kInt8) {
+      // raw int8 -> bf16 (exact), 8 values per step
+      for (int e = tid; e < 2 * kTileKeys * CH; e += kThreads) {
+        const int which = e / (kTileKeys * CH);
+        const int f = e - which * kTileKeys * CH;
+        const int t = f / CH, part = f - t * CH;
+        const uint2 raw =
+            *reinterpret_cast<const uint2*>(stage_ptr(stage, which) + t * D + part * 8);
+        const uint32_t w[2] = {raw.x, raw.y};
+        uint32_t o[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t word = w[i / 2];
+          const int b = (i % 2) * 2;
+          o[i] = pack_bf16(static_cast<float>(static_cast<int8_t>((word >> (8 * b)) & 0xffu)),
+                           static_cast<float>(static_cast<int8_t>((word >> (8 * b + 8)) & 0xffu)));
+        }
+        *reinterpret_cast<uint4*>(conv + which * kTileBf16 + t * LD + part * 8) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+      }
+      __syncthreads();
+      Ks = conv;
+      Vs = conv + kTileBf16;
+    } else {
+      Ks = reinterpret_cast<const __nv_bfloat16*>(stage_ptr(stage, 0));
+      Vs = reinterpret_cast<const __nv_bfloat16*>(stage_ptr(stage, 1));
+    }
+
+    // S = Q.K^T over this warp's KW keys of the tile
+    const int key0 = ks * KW;
+    float sc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+      const __nv_bfloat16* krow = Ks + (key0 + nt * 8 + lane / 4) * LD + 2 * (lane % 4);
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
+        mma_bf16(sc[nt], qa[kk], b0, b1);
+      }
+    }
+    // mask (k <= q_pos of the row, k inside the table), scale, online softmax
+    const int kbase = j * kTileKeys + key0 + 2 * (lane % 4);
+    float mx_lo = kNegInf, mx_hi = kNegInf;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kp = kbase + nt * 8 + (i & 1);
+        const bool live = kp <= (i < 2 ? qpos_lo : qpos_hi) && kp < L;
+        sc[nt][i] = live ? sc[nt][i] * scale : kNegInf;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(sc[nt][0], sc[nt][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sc[nt][2], sc[nt][3]));
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float al_lo = expf(m_lo - mn_lo), al_hi = expf(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kp = kbase + nt * 8 + (i & 1);
+        const bool live = kp <= (i < 2 ? qpos_lo : qpos_hi) && kp < L;
+        const float pr = live ? expf(sc[nt][i] - (i < 2 ? mn_lo : mn_hi)) : 0.f;
+        sc[nt][i] = pr;
+        if (i < 2) ps_lo += pr; else ps_hi += pr;
+      }
+    }
+    l_lo = l_lo * al_lo + ps_lo;        // this thread's columns; the quad adds at the end
+    l_hi = l_hi * al_hi + ps_hi;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      acc[dn][0] *= al_lo;
+      acc[dn][1] *= al_lo;
+      acc[dn][2] *= al_hi;
+      acc[dn][3] *= al_hi;
+    }
+    // acc += P_hi.V + P_lo.V, one k16 step per 16 keys
+#pragma unroll
+    for (int kt = 0; kt < KW / 16; ++kt) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* pv = sc[2 * kt + i / 2] + 2 * (i % 2);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(pv[0], pv[1]);
+        ah[i] = *reinterpret_cast<const uint32_t*>(&hi);
+        al[i] = pack_bf16(pv[0] - __low2float(hi), pv[1] - __high2float(hi));
+      }
+      // V fragments by ldmatrix.trans: matrices (keys 0-7 | 8-15) x (d tile dn | dn+1)
+      const int mat = lane / 8;
+      const __nv_bfloat16* vrow =
+          Vs + (key0 + kt * 16 + (lane % 8) + (mat & 1) * 8) * LD + (mat >> 1) * 8;
+#pragma unroll
+      for (int dn = 0; dn < DN; dn += 2) {
+        uint32_t b[4];
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+            : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+            : "r"(smem_u32(vrow + dn * 8)));
+        mma_bf16(acc[dn], ah, b[0], b[1]);
+        mma_bf16(acc[dn], al, b[0], b[1]);
+        mma_bf16(acc[dn + 1], ah, b[2], b[3]);
+        mma_bf16(acc[dn + 1], al, b[2], b[3]);
+      }
+    }
+    __syncthreads();                    // the stage is free for tile j + 2
+  }
+
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o);
+  }
+  auto out_row = [&](int R) -> __nv_bfloat16* {
+    const int c = R / G, g = R - c * G;
+    return out + slot_off + (static_cast<size_t>(c * Hk + h) * G + g) * D;
+  };
+  if constexpr (KS == 1) {
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      const int col = dn * 8 + 2 * (lane % 4);
+      if (r_lo < QG)
+        *reinterpret_cast<__nv_bfloat162*>(out_row(r_lo) + col) = __floats2bfloat162_rn(
+            acc[dn][0] / fmaxf(l_lo, 1e-30f), acc[dn][1] / fmaxf(l_lo, 1e-30f));
+      if (r_hi < QG)
+        *reinterpret_cast<__nv_bfloat162*>(out_row(r_hi) + col) = __floats2bfloat162_rn(
+            acc[dn][2] / fmaxf(l_hi, 1e-30f), acc[dn][3] / fmaxf(l_hi, 1e-30f));
+    }
+  } else {
+    // the four key splits meet in shared memory (the loop ended on a
+    // barrier, so the stages are free) and merge in warp order
+    float* mbuf = reinterpret_cast<float*>(smem_raw);   // [4][16] max
+    float* lbuf = mbuf + 4 * 16;                        // [4][16] sum
+    float* abuf = lbuf + 4 * 16;                        // [4][16][D] acc
+    const int lr = lane / 4;
+    if (lane % 4 == 0) {
+      mbuf[warp * 16 + lr] = m_lo;
+      mbuf[warp * 16 + lr + 8] = m_hi;
+      lbuf[warp * 16 + lr] = l_lo;
+      lbuf[warp * 16 + lr + 8] = l_hi;
+    }
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      const int col = dn * 8 + 2 * (lane % 4);
+      float* a = abuf + (warp * 16 + lr) * D + col;
+      a[0] = acc[dn][0];
+      a[1] = acc[dn][1];
+      a[8 * D] = acc[dn][2];
+      a[8 * D + 1] = acc[dn][3];
+    }
+    __syncthreads();
+    for (int e = tid; e < 16 * D; e += kThreads) {
+      const int r = e / D, col = e - r * D;
+      const int R = row_base + r;
+      if (R >= QG) continue;
+      float mx = kNegInf;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) mx = fmaxf(mx, mbuf[w * 16 + r]);
+      float l = 0.f, a = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float f = expf(mbuf[w * 16 + r] - mx);
+        l += lbuf[w * 16 + r] * f;
+        a += abuf[(w * 16 + r) * D + col] * f;
+      }
+      out_row(R)[col] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -299,6 +656,56 @@ int launch_verify(const void* q, const void* ck, const void* cv, const void* bt,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, int KS, typename KT>
+int launch_verify_mma(const void* q, const void* ck, const void* cv, const void* bt,
+                      const void* pos, void* out, int S, int Q, int Hk, int G, int bs, int nb,
+                      float scale, cudaStream_t stream) {
+  const size_t smem = verify_mma_smem(D, sizeof(KT) == 1);
+  auto kernel = paged_verify_mma_kernel<D, KS, KT>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = 16 * (4 / KS);
+  const int tiles = (Q * G + rows - 1) / rows;
+  kernel<<<dim3(Hk, tiles, S), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(ck),
+      static_cast<const KT*>(cv), static_cast<const int*>(bt), static_cast<const int*>(pos),
+      static_cast<__nv_bfloat16*>(out), Q, Hk, G, bs, nb, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, typename KT>
+int verify_mma_ks(int key_splits, const void* q, const void* ck, const void* cv,
+                  const void* bt, const void* pos, void* out, int S, int Q, int Hk, int G,
+                  int bs, int nb, float scale, cudaStream_t st) {
+  if (key_splits == 4)
+    return launch_verify_mma<D, 4, KT>(q, ck, cv, bt, pos, out, S, Q, Hk, G, bs, nb, scale, st);
+  if (key_splits == 1)
+    return launch_verify_mma<D, 1, KT>(q, ck, cv, bt, pos, out, S, Q, Hk, G, bs, nb, scale, st);
+  return -1;
+}
+
+template <typename KT>
+int verify_mma_d(int d, int key_splits, const void* q, const void* ck, const void* cv,
+                 const void* bt, const void* pos, void* out, int S, int Q, int Hk, int G, int bs,
+                 int nb, float scale, cudaStream_t st) {
+#define PA_MMA_D(DD)                                                                        \
+  case DD:                                                                                  \
+    return verify_mma_ks<DD, KT>(key_splits, q, ck, cv, bt, pos, out, S, Q, Hk, G, bs, nb, \
+                                 scale, st);
+  switch (d) {
+    PA_MMA_D(16)
+    PA_MMA_D(32)
+    PA_MMA_D(48)
+    PA_MMA_D(64)
+    PA_MMA_D(80)
+    PA_MMA_D(96)
+    PA_MMA_D(112)
+    PA_MMA_D(128)
+    default: return -1;
+  }
+#undef PA_MMA_D
+}
+
 constexpr int kBadDType = -1;
 
 }  // namespace
@@ -346,6 +753,28 @@ int paged_verify_launch(const void* q, const void* cache_k, const void* cache_v,
               scale, static_cast<cudaStream_t>(stream))
 }
 
+// The tensor-core verify body: bf16 q and output, bf16 (1) or int8 (2) KV,
+// d a multiple of 16 up to 128, key_splits 1 (four 16-row warps per block)
+// or 4 (one 16-row tile, the keys split four ways).  Returns the
+// cudaError_t of the launch, or -1 for arguments it does not take.
+int paged_verify_mma_launch(const void* q, const void* cache_k, const void* cache_v,
+                            const void* block_tables, const void* pos, void* out, int S, int Q,
+                            int Hk, int G, int d, int bs, int nb, int kv_dtype, int key_splits,
+                            float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kv_dtype == kBF16)
+    return verify_mma_d<__nv_bfloat16>(d, key_splits, q, cache_k, cache_v, block_tables, pos,
+                                       out, S, Q, Hk, G, bs, nb, scale, st);
+  if (kv_dtype == kI8)
+    return verify_mma_d<int8_t>(d, key_splits, q, cache_k, cache_v, block_tables, pos, out, S,
+                                Q, Hk, G, bs, nb, scale, st);
+  return kBadDType;
+}
+
+long long paged_verify_mma_smem_bytes(int d, int kv_dtype) {
+  return static_cast<long long>(verify_mma_smem(d, kv_dtype == kI8));
+}
+
 // Bytes of dynamic shared memory a launch asks for (the wrapper checks it
 // against the card's 227 KB per block before launching).
 long long paged_smem_bytes(int rows, int d, int bs) {
@@ -355,7 +784,7 @@ long long paged_smem_bytes(int rows, int d, int bs) {
 int paged_prefill_rows() { return kPrefillRows; }
 
 const char* paged_error_string(int code) {
-  if (code == kBadDType) return "unsupported (q, kv) dtype pair";
+  if (code == kBadDType) return "unsupported (q, kv) dtype pair, head dim or key split";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -7,14 +7,20 @@ device they launch the hand-written Hopper kernels of
 the current stream, or raise; nothing falls back.  For tensors on the CPU
 they compute the plain versions of ``ref.py``.
 
+``paged_verify`` has two bodies (:func:`verify_body`): bf16 q with bf16 or
+int8 KV and a head dim that is a multiple of 16 up to 128 runs on the
+tensor cores (``mma``, ``paged_verify_mma_kernel``); any other (q, KV,
+d) keeps the body K1 and K2 share (``rows``, ``attend_rows`` in f32).
+
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels; ``BODY_LAUNCHES`` counts
+``paged_verify``'s by body.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,6 +33,8 @@ LIBRARY_NAME = "paged_attention"
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_prefill": 0,
                             "paged_verify": 0}
+#: paged_verify's launches by body
+BODY_LAUNCHES: Dict[str, int] = {"mma": 0, "rows": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_DTYPES = (torch.float32, torch.bfloat16)
@@ -36,8 +44,25 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BODY_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def verify_body(q_dtype: torch.dtype, kv_dtype: torch.dtype, d: int,
+                rows: int) -> Tuple[str, int]:
+    """paged_verify's body for a call, and its key splits.
+
+    ``("mma", ks)`` for bf16 q with bf16 or int8 KV and d a multiple of
+    16 up to 128: ``ks = 4`` when a slot's ``rows = Q * G`` fit one
+    16-row warp tile (the four warps then split the keys), else 1 (four
+    16-row warps per block).  ``("rows", 1)`` for anything else: f32 q
+    must stay exact in f32, which a bf16 tensor-core path would not be.
+    """
+    if (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
+            and d % 16 == 0 and 16 <= d <= 128):
+        return "mma", 4 if rows <= 16 else 1
+    return "rows", 1
 
 
 def load_library() -> ctypes.CDLL:
@@ -55,6 +80,12 @@ def load_library() -> ctypes.CDLL:
         lib.paged_verify_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
                                             I, I, I, ctypes.c_float, P]
         lib.paged_verify_launch.restype = I
+        lib.paged_verify_mma_launch.argtypes = [P, P, P, P, P, P, I, I, I, I,
+                                                I, I, I, I, I, ctypes.c_float,
+                                                P]
+        lib.paged_verify_mma_launch.restype = I
+        lib.paged_verify_mma_smem_bytes.argtypes = [I, I]
+        lib.paged_verify_mma_smem_bytes.restype = ctypes.c_longlong
         lib.paged_smem_bytes.argtypes = [I, I, I]
         lib.paged_smem_bytes.restype = ctypes.c_longlong
         lib.paged_prefill_rows.argtypes = []
@@ -98,8 +129,10 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"{lib.paged_error_string(err).decode()}")
 
 
-def _smem_check(lib: ctypes.CDLL, rows: int, d: int, bs: int) -> None:
-    need = lib.paged_smem_bytes(rows, d, bs)
+def _smem_check(lib: ctypes.CDLL, rows: int, d: int, bs: int,
+                need: Optional[int] = None) -> None:
+    if need is None:
+        need = lib.paged_smem_bytes(rows, d, bs)
     if need > _SMEM_LIMIT:
         raise ValueError(f"paged attention needs {need} B of shared memory "
                          f"(rows={rows}, d={d}, bs={bs}); a block has "
@@ -198,18 +231,32 @@ def paged_verify(q: torch.Tensor, cache_k: torch.Tensor,
     if S == 0 or Q == 0:
         return out
     lib = load_library()
-    _smem_check(lib, lib.paged_prefill_rows(), d, bs)
+    body, key_splits = verify_body(q.dtype, cache_k.dtype, d, Q * G)
+    kv_code = _DTYPE_CODES[cache_k.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.paged_verify_launch(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        S, Q, Hk, G, d, bs, nb, _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[cache_k.dtype], d ** -0.5, stream)
-    _raise_on(lib, err, "paged_verify")
+    ptrs = (q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            block_tables.data_ptr(), pos.data_ptr(), out.data_ptr())
+    if body == "mma":
+        for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
+            if t.data_ptr() % 16:         # the body's 16-byte copies
+                raise ValueError(f"{name} must start on a 16-byte boundary")
+        _smem_check(lib, Q * G, d, bs,
+                    lib.paged_verify_mma_smem_bytes(d, kv_code))
+        err = lib.paged_verify_mma_launch(
+            *ptrs, S, Q, Hk, G, d, bs, nb, kv_code, key_splits, d ** -0.5,
+            stream)
+    else:
+        _smem_check(lib, lib.paged_prefill_rows(), d, bs)
+        err = lib.paged_verify_launch(
+            *ptrs, S, Q, Hk, G, d, bs, nb, _DTYPE_CODES[q.dtype], kv_code,
+            d ** -0.5, stream)
+    _raise_on(lib, err, f"paged_verify ({body})")
     LAUNCHES["paged_verify"] += 1
+    BODY_LAUNCHES[body] += 1
     return out
 
 
-__all__ = ["LAUNCHES", "load_library", "paged_decode", "paged_decode_ref",
+__all__ = ["BODY_LAUNCHES", "LAUNCHES", "load_library", "paged_decode",
+           "paged_decode_ref",
            "paged_prefill", "paged_prefill_ref", "paged_verify",
-           "paged_verify_ref", "reset_launch_counts"]
+           "paged_verify_ref", "reset_launch_counts", "verify_body"]

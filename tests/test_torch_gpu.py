@@ -112,6 +112,62 @@ def test_verify_kernel_matches_plain_version(cuda_device, kv, Hk, G, Q):
     assert ops.LAUNCHES["paged_verify"] == before + 1
 
 
+def _verify_case(device, kv, Hk, G, Q, d, pos, nb=6, seed=4):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    N, bs = 128, 16
+    if kv == torch.int8:
+        ck = torch.randint(-40, 41, (N, bs, Hk, d), generator=gen,
+                           device=device, dtype=torch.int8)
+    else:
+        ck = torch.randn((N, bs, Hk, d), generator=gen, device=device).to(kv)
+    cv = ck.flip(0).contiguous()
+    S = len(pos)
+    bt = torch.randperm(N, generator=gen, device=device)[:S * nb]
+    bt = bt.reshape(S, nb).to(torch.int32).contiguous()
+    pos = torch.tensor(pos, dtype=torch.int32, device=device)
+    q = torch.randn((S, Q, Hk, G, d), generator=gen, device=device)
+    return q, ck, cv, bt, pos
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("Hk,G", [(4, 1), (2, 7)])
+@pytest.mark.parametrize("Q", [1, 5, 256])
+def test_verify_mma_body_matches_plain_version(cuda_device, Q, Hk, G, kv,
+                                               d):
+    """The tensor-core body (bf16 q): one 16-row tile with the keys split
+    four ways when Q*G <= 16, 64-row blocks otherwise; cursors at 0, on a
+    seam, mid-table and where a chunk's padding rows run past the table.
+    Tolerance ``kernel_tolerance``, as every comparison of the kernels."""
+    nb = 20
+    q, ck, cv, bt, pos = _verify_case(cuda_device, kv, Hk, G, Q, d,
+                                      [0, 16, 37, nb * 16 - 3], nb=nb)
+    q = q.bfloat16()
+    assert ops.verify_body(q.dtype, kv, d, Q * G)[0] == "mma"
+    before = dict(ops.BODY_LAUNCHES)
+    out = ops.paged_verify(q, ck, cv, bt, pos)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES == dict(before, mma=before["mma"] + 1)
+    _assert_within_tolerance(out, ops.paged_verify_ref(q, ck, cv, bt, pos),
+                             cv)
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
+def test_verify_f32_q_keeps_the_rows_body(cuda_device, kv):
+    """f32 q stays exact in f32: it takes attend_rows, not the bf16
+    tensor-core body."""
+    q, ck, cv, bt, pos = _verify_case(cuda_device, kv, 4, 7, 5, 128,
+                                      [3, 40])
+    assert ops.verify_body(q.dtype, kv, 128, 35) == ("rows", 1)
+    before = dict(ops.BODY_LAUNCHES)
+    out = ops.paged_verify(q, ck, cv, bt, pos)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES == dict(before, rows=before["rows"] + 1)
+    _assert_within_tolerance(out, ops.paged_verify_ref(q, ck, cv, bt, pos),
+                             cv)
+
+
 @pytest.mark.parametrize("T", [1, 5, 40])
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 def test_grouped_lora_kernel_matches_plain_version(cuda_device, T, x_dtype):
@@ -337,6 +393,64 @@ def test_quant_matmul_kernel_matches_plain_version(cuda_device, case):
     assert out.dtype == dtype and out.shape == (m, n)
     ref = qmm.quant_matmul_ref(x, q.w_q, q.scales, q.zeros, g)
     _assert_within_tolerance(out, ref, ref)
+
+
+#: (m, k, n, group_size, bits, x dtype) through the wrapper's own rule:
+#: m on both sides of WGMMA_MIN_ROWS, a ragged n at g = 64, int8, f32 x
+QMM_BODY_CASES = ([(m, 1024, 384, 128, 4, torch.bfloat16)
+                   for m in (1, 4, 15, 63, 64, 65, 256)]
+                  + [(64, 1024, 200, 64, 4, torch.bfloat16),
+                     (64, 1024, 208, 64, 4, torch.bfloat16),
+                     (130, 512, 336, 128, 8, torch.bfloat16),
+                     (130, 512, 200, 64, 8, torch.bfloat16),
+                     (96, 1024, 256, 128, 4, torch.float32),
+                     (3, 1024, 200, 64, 8, torch.float32)])
+
+
+@pytest.mark.parametrize("force", [None, "wgmma", "splitk"])
+@pytest.mark.parametrize("case", QMM_BODY_CASES,
+                         ids=[str(c[:5]) + str(c[5])[6:]
+                              for c in QMM_BODY_CASES])
+def test_quant_matmul_bodies_match_plain_version(cuda_device, monkeypatch,
+                                                 case, force):
+    """Each body against the plain version at ``kernel_tolerance``: the
+    wrapper's choice, and each body forced by moving its m threshold (f32
+    x, a group size that is not a multiple of 64 and a width that is not
+    one of 16 always take splitk).
+    The chosen body's count rises by one per call, the other's not."""
+    from repro_torch.kernels.quant_matmul import ops as qmm
+    from repro_torch.quant import quantize_weight
+    m, k, n, g, bits, dtype = case
+    if force is not None:
+        monkeypatch.setattr(qmm, "WGMMA_MIN_ROWS",
+                            1 if force == "wgmma" else 1 << 30)
+    body = qmm.qmm_body(dtype, m, n, g)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(m)
+    w = torch.randn((k, n), generator=gen, device=cuda_device) * 0.02
+    q = quantize_weight(w, group_size=g, bits=bits)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
+    before = dict(qmm.BODY_LAUNCHES)
+    out = qmm.quant_matmul(x, q.w_q, q.scales, q.zeros, group_size=g)
+    torch.cuda.synchronize()
+    assert qmm.BODY_LAUNCHES == dict(before, **{body: before[body] + 1})
+    ref = qmm.quant_matmul_ref(x, q.w_q, q.scales, q.zeros, g)
+    _assert_within_tolerance(out, ref, ref)
+
+
+def test_quant_matmul_splitk_is_deterministic(cuda_device):
+    """The split partials are added in one order: the same bits twice."""
+    from repro_torch.kernels.quant_matmul import ops as qmm
+    from repro_torch.quant import quantize_weight
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    q = quantize_weight(torch.randn((4096, 512), generator=gen,
+                                    device=cuda_device) * 0.02)
+    x = torch.randn((4, 4096), generator=gen, device=cuda_device).bfloat16()
+    assert qmm.splitk_plan(4, 4096, 512, 128).splits > 1
+    a = qmm.quant_matmul(x, q.w_q, q.scales, q.zeros)
+    b = qmm.quant_matmul(x, q.w_q, q.scales, q.zeros)
+    assert torch.equal(a, b)
 
 
 def test_quant_matmul_wrapper_rejects_what_the_kernel_does_not_take(

@@ -1,0 +1,291 @@
+"""The arithmetic of the tensor-core bodies of K5 (int4 dequant-matmul) and
+K3 (paged verify), emulated on the CPU and held to ``kernel_tolerance``.
+
+A CUDA kernel cannot run here, so each body's rounding is emulated in
+PyTorch: K5's zero-point split (``part = x_g . q_g - rowsum(x_g) *
+zero_g``, ``acc += scale_g * part``: bf16 operands, exact products, f32
+sums) and K3's FlashAttention-2 loop over 64-key tiles with an f32 online
+softmax and P.V as two bf16 products, ``P_hi = bf16(P)`` and ``P_lo =
+bf16(P - P_hi)``.  Each emulation is held at the main path's shapes to
+the port's plain version and to the JAX package's function, at the
+tolerance every kernel comparison uses (one bf16 ulp of each output plus
+1e-3 of the mean magnitude).  One case per kernel shows that the design
+with a single bf16 rounding (the weight dequantized to bf16; P rounded to
+bf16) exceeds that limit: the reason the bodies are built as they are.
+The wrappers' choices of body and grid are pure functions, tested here;
+``tests/test_torch_gpu.py`` holds the bodies themselves on the card.
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.paged_attention import paged_verify as pallas_verify
+from repro.kernels.quant_matmul.ref import quant_matmul_ref as jax_qmm_ref
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention.ref import (kernel_tolerance,
+                                                     paged_verify_ref)
+from repro_torch.kernels.quant_matmul import ops as qmm_ops
+from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.quant import quantize_weight
+
+NEG_INF = -1e30
+TILE_KEYS = 64
+
+
+def _bf16(t: torch.Tensor):
+    """A bf16 tensor as the same bf16 values in JAX."""
+    return jnp.asarray(t.float().numpy().astype(ml_dtypes.bfloat16))
+
+
+def _ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest |out - ref| over the limit, the limit's scale being ref."""
+    diff = (out.float() - ref.float()).abs()
+    return float((diff / kernel_tolerance(ref, ref)).max())
+
+
+# ---------------------------------------------------------------------------
+# K5
+# ---------------------------------------------------------------------------
+
+def k5_split(x, w_q, scales, zeros, g):
+    """The bodies' arithmetic: per group, f32 sums of exact bf16 x int
+    products, the f32 row sum times the zero, scaled into an f32 sum."""
+    m, k = x.shape
+    xf = x.float()
+    acc = torch.zeros((m, w_q.shape[1]))
+    for gi in range(k // g):
+        xg = xf[:, gi * g:(gi + 1) * g]
+        part = xg @ w_q[gi * g:(gi + 1) * g].float()
+        part = part - xg.sum(1, keepdim=True) * zeros[gi].float()
+        acc = acc + scales[gi].float() * part
+    return acc.to(x.dtype)
+
+
+def k5_bf16_weight(x, w_q, scales, zeros, g):
+    """The single-rounding design: the weight dequantized to bf16, then a
+    bf16 GEMM with f32 sums."""
+    k, n = w_q.shape
+    w = ((w_q.float().reshape(k // g, g, n) - zeros[:, None].float())
+         * scales[:, None].float()).reshape(k, n)
+    return (x.float() @ w.bfloat16().float()).to(x.dtype)
+
+
+def _qmm_case(k, n, m, seed, bits=4, g=128):
+    gen = torch.Generator().manual_seed(seed)
+    w = torch.randn((k, n), generator=gen) * 0.02
+    q = quantize_weight(w, group_size=g, bits=bits)
+    x = torch.randn((m, k), generator=gen).bfloat16()
+    return x, q
+
+
+#: llama2-7b's linear shapes (k, n), n cut to 512 columns: every column is
+#: computed on its own, so a slice has the full shape's per-column sums
+QMM_MAIN = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+
+
+@pytest.mark.parametrize("m", [4, 64, 256])
+@pytest.mark.parametrize("k,n", QMM_MAIN,
+                         ids=[f"{k}x{n}" for k, n in QMM_MAIN])
+def test_k5_split_within_tolerance_of_plain_version(k, n, m):
+    x, q = _qmm_case(k, 512, m, seed=k + n + m)
+    got = k5_split(x, q.w_q, q.scales, q.zeros, 128)
+    ref = quant_matmul_ref(x, q.w_q, q.scales, q.zeros, 128)
+    assert _ratio(got, ref) <= 1.0
+
+
+@pytest.mark.parametrize("bits,g", [(4, 128), (8, 128), (4, 64)])
+def test_k5_split_within_tolerance_of_jax_reference(bits, g):
+    x, q = _qmm_case(4096, 384, 64, seed=bits * g, bits=bits, g=g)
+    got = k5_split(x, q.w_q, q.scales, q.zeros, g)
+    want = jax_qmm_ref(_bf16(x), jnp.asarray(q.w_q.numpy()),
+                       _bf16(q.scales), _bf16(q.zeros), g)
+    want = torch.from_numpy(np.asarray(want, np.float32)).bfloat16()
+    assert _ratio(got, want) <= 1.0
+
+
+def test_k5_bf16_weight_exceeds_the_limit():
+    """Rounding (q - zero) * scale to bf16 loses 5 of its 13 bits; at a
+    256-row chunk through a 4096-deep projection the output moves by
+    several times the limit, where the split stays inside it."""
+    x, q = _qmm_case(4096, 1024, 256, seed=0)
+    ref = quant_matmul_ref(x, q.w_q, q.scales, q.zeros, 128)
+    assert _ratio(k5_bf16_weight(x, q.w_q, q.scales, q.zeros, 128), ref) > 2.0
+    assert _ratio(k5_split(x, q.w_q, q.scales, q.zeros, 128), ref) <= 1.0
+
+
+def test_k5_body_rule():
+    body = qmm_ops.qmm_body
+    threshold = qmm_ops.WGMMA_MIN_ROWS
+    assert body(torch.bfloat16, threshold, 4096, 128) == "wgmma"
+    assert body(torch.bfloat16, 256, 208, 64) == "wgmma"
+    assert body(torch.bfloat16, threshold - 1, 4096, 128) == "splitk"
+    assert body(torch.bfloat16, 256, 4096, 48) == "splitk"   # g % 64 != 0
+    assert body(torch.bfloat16, 256, 200, 128) == "splitk"   # n % 16 != 0
+    assert body(torch.float32, 256, 4096, 128) == "splitk"   # f32 x
+    assert body(torch.float32, 4, 4096, 128) == "splitk"
+
+
+@pytest.mark.parametrize("m,rows", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8),
+                                    (8, 8), (9, 16), (63, 16)])
+def test_splitk_plan_rows_and_scratch(m, rows):
+    plan = qmm_ops.splitk_plan(m, 4096, 4096, 128, sm_count=132)
+    assert plan.rows == rows
+    groups = 4096 // 128
+    assert (plan.splits - 1) * plan.groups_per_split < groups \
+        <= plan.splits * plan.groups_per_split
+    assert plan.scratch == ((plan.splits, m, 4096) if plan.splits > 1
+                            else None)
+
+
+def test_split_plans_fill_the_card():
+    """Decode of 4 rows through a 4096 x 4096 projection has 32 column
+    tiles: k is split until two blocks per SM are in the grid; lm_head's
+    250 tiles need fewer splits, and a wgmma grid of 500 tiles none."""
+    plan = qmm_ops.splitk_plan(4, 4096, 4096, 128, sm_count=132)
+    assert (plan.splits, plan.groups_per_split) == (8, 4)
+    assert plan.scratch == (8, 4, 4096)
+    assert qmm_ops.splitk_plan(4, 4096, 32000, 128, 132).splits == 2
+    assert qmm_ops.splitk_plan(1, 128, 64, 128, 132) == (1, 1, 1, None)
+    assert qmm_ops.wgmma_plan(256, 4096, 32000, 128, 132) == (128, 1, 32,
+                                                               None)
+    plan = qmm_ops.wgmma_plan(64, 4096, 4096, 128, 132)
+    assert (plan.splits, plan.groups_per_split) == (8, 4)
+    assert plan.scratch == (8, 64, 4096)
+
+
+# ---------------------------------------------------------------------------
+# K3
+# ---------------------------------------------------------------------------
+
+def k3_mma(q, ck, cv, bt, pos, hi_lo=True):
+    """The mma body's arithmetic, block for block: 64-key tiles through the
+    slot's table, scores as f32 sums of exact bf16 products, an f32 online
+    softmax, P.V as P_hi.V + P_lo.V (or bf16(P).V alone with ``hi_lo``
+    off); with ``verify_body``'s four key splits (each 16 keys of every
+    tile, merged in split order) when a slot's rows fit one warp tile."""
+    S, Q, Hk, G, d = q.shape
+    bs, nb = ck.shape[1], bt.shape[1]
+    L = nb * bs
+    body, splits = pa_ops.verify_body(q.dtype, ck.dtype, d, Q * G)
+    assert body == "mma"
+    kw = TILE_KEYS // splits
+    out = torch.empty((S, Q, Hk, G, d))
+    for s in range(S):
+        qpos = int(pos[s]) + torch.arange(Q * G) // G
+        n_keys = min(int(qpos.max()) + 1, L)
+        n_tiles = -(-n_keys // TILE_KEYS)
+        pad = n_tiles * TILE_KEYS
+        keys = torch.zeros((pad, Hk, d))
+        vals = torch.zeros((pad, Hk, d))
+        keys[:n_keys] = ck[bt[s].long()].reshape(L, Hk, d)[:n_keys].float()
+        vals[:n_keys] = cv[bt[s].long()].reshape(L, Hk, d)[:n_keys].float()
+        for h in range(Hk):
+            qs = q[s, :, h].reshape(Q * G, d).float()
+            m = torch.full((splits, Q * G), NEG_INF)
+            l = torch.zeros((splits, Q * G))
+            acc = torch.zeros((splits, Q * G, d))
+            for j in range(n_tiles):
+                for w in range(splits):
+                    kp = j * TILE_KEYS + w * kw + torch.arange(kw)
+                    live = (kp[None] <= qpos[:, None]) & (kp[None] < L)
+                    sc = (qs @ keys[kp, h].T) * d ** -0.5
+                    sc = torch.where(live, sc, torch.tensor(NEG_INF))
+                    mn = torch.maximum(m[w], sc.max(1).values)
+                    alpha = torch.exp(m[w] - mn)
+                    p = torch.where(live, torch.exp(sc - mn[:, None]),
+                                    torch.tensor(0.0))
+                    l[w] = l[w] * alpha + p.sum(1)
+                    p_hi = p.bfloat16().float()
+                    pv = p_hi @ vals[kp, h]
+                    if hi_lo:
+                        pv = pv + (p - p_hi).bfloat16().float() @ vals[kp, h]
+                    acc[w] = acc[w] * alpha[:, None] + pv
+                    m[w] = mn
+            mx = m.max(0).values
+            f = torch.exp(m - mx)
+            tot_l = (l * f).sum(0)
+            tot = (acc * f[:, :, None]).sum(0)
+            o = tot / torch.clamp(tot_l, min=1e-30)[:, None]
+            out[s, :, h] = o.reshape(Q, G, d)
+    return out.to(q.dtype)
+
+
+def _verify_case(S, Q, Hk, G, d, cursors, kv=torch.bfloat16, nb=37, bs=16,
+                 seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    N = S * nb + 8
+    if kv == torch.int8:
+        ck = torch.randint(-40, 41, (N, bs, Hk, d), generator=gen,
+                           dtype=torch.int8)
+        cv = torch.randint(-40, 41, (N, bs, Hk, d), generator=gen,
+                           dtype=torch.int8)
+    else:
+        ck = torch.randn((N, bs, Hk, d), generator=gen).to(kv)
+        cv = torch.randn((N, bs, Hk, d), generator=gen).to(kv)
+    bt = torch.randperm(N, generator=gen)[:S * nb].reshape(S, nb).int()
+    q = torch.randn((S, Q, Hk, G, d), generator=gen).bfloat16()
+    return q, ck, cv, bt, torch.tensor(cursors, dtype=torch.int32)
+
+
+#: the main path's K3 shapes (llama2-7b: G = 1, d = 128; 4 slots; a table
+#: of 37 blocks of 16) with its 32 KV heads cut to 2 (each head is computed
+#: on its own): the speculative pass's 5 queries at cursors 540-552, and
+#: bucketed admission's 256-row chunks at cursors 0 and 256; then qwen2-7b's
+#: G = 7 at 5 queries, and a padded last chunk whose rows leave the table
+VERIFY_MAIN = [(5, 1, [540, 544, 548, 552]), (256, 1, [0, 0, 0, 0]),
+               (256, 1, [256, 256, 256, 256]), (5, 7, [540, 17, 300, 0]),
+               (32, 1, [37 * 16 - 20, 0, 64, 100])]
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("Q,G,cursors", VERIFY_MAIN,
+                         ids=[f"Q{c[0]}-G{c[1]}-pos{c[2][0]}"
+                              for c in VERIFY_MAIN])
+def test_k3_hi_lo_within_tolerance_of_plain_version(Q, G, cursors, kv):
+    q, ck, cv, bt, pos = _verify_case(4, Q, 2 if G == 1 else 1, G, 128,
+                                      cursors, kv=kv, seed=Q + G)
+    got = k3_mma(q, ck, cv, bt, pos)
+    ref = paged_verify_ref(q, ck, cv, bt, pos)
+    assert _ratio(got, ref) <= 1.0
+
+
+@pytest.mark.parametrize("Q,G,d", [(5, 1, 128), (24, 1, 128), (3, 7, 32)])
+def test_k3_hi_lo_within_tolerance_of_jax_kernel(Q, G, d):
+    """Against the reference's Pallas kernel in interpret mode, as its
+    own tests run it on the CPU."""
+    q, ck, cv, bt, pos = _verify_case(2, Q, 1, G, d, [40, 100], nb=8,
+                                      seed=d + Q)
+    got = k3_mma(q, ck, cv, bt, pos)
+    want = pallas_verify(_bf16(q), _bf16(ck), _bf16(cv),
+                         jnp.asarray(bt.numpy()), jnp.asarray(pos.numpy()))
+    want = torch.from_numpy(np.asarray(want, np.float32)).bfloat16()
+    assert _ratio(got, want) <= 1.0
+
+
+def test_k3_single_bf16_p_exceeds_the_limit():
+    """P rounded once to bf16 keeps 8 of its bits; over a 256-row chunk at
+    cursor 256 the output moves by several times the limit, where the
+    hi/lo split stays inside it."""
+    q, ck, cv, bt, pos = _verify_case(2, 256, 2, 1, 128, [256, 256], seed=0)
+    ref = paged_verify_ref(q, ck, cv, bt, pos)
+    assert _ratio(k3_mma(q, ck, cv, bt, pos, hi_lo=False), ref) > 2.0
+    assert _ratio(k3_mma(q, ck, cv, bt, pos), ref) <= 1.0
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,d,rows,want", [
+    (torch.bfloat16, torch.bfloat16, 128, 5, ("mma", 4)),
+    (torch.bfloat16, torch.bfloat16, 128, 16, ("mma", 4)),
+    (torch.bfloat16, torch.int8, 128, 17, ("mma", 1)),
+    (torch.bfloat16, torch.bfloat16, 32, 256, ("mma", 1)),
+    (torch.bfloat16, torch.bfloat16, 16, 35, ("mma", 1)),
+    (torch.float32, torch.bfloat16, 128, 5, ("rows", 1)),
+    (torch.float32, torch.float32, 128, 5, ("rows", 1)),
+    (torch.bfloat16, torch.float32, 128, 5, ("rows", 1)),
+    (torch.bfloat16, torch.bfloat16, 136, 5, ("rows", 1)),
+    (torch.bfloat16, torch.bfloat16, 40, 5, ("rows", 1)),
+    (torch.bfloat16, torch.bfloat16, 256, 5, ("rows", 1)),
+])
+def test_verify_body_rule(q_dtype, kv_dtype, d, rows, want):
+    assert pa_ops.verify_body(q_dtype, kv_dtype, d, rows) == want
