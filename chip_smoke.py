@@ -23,7 +23,9 @@ caught and ignored):
               attention forward and backward on the reference's eight
               kernel cases (MHA, GQA, MQA, ragged s, a decode step with
               q_offset, a window, non-causal, head_dim 256) in bf16 and
-              f32 and at the training shape; the int4 dequant-matmul at
+              f32 and at the training shape, bf16 on both bodies (mma
+              on the tensor cores, fma on the CUDA cores) where the rule
+              picks mma; the int4 dequant-matmul at
               every llama2-7b linear shape at m = 4, 64 and 256, one int8
               case and a ragged one (m=5, n=200, g=64) in f32 and bf16.
               Then each kernel's time, its plain version's, its bound
@@ -42,7 +44,8 @@ caught and ignored):
               layers, random bf16 weights from seed 0), flash attention,
               per-layer remat, AdamW, 4 x 2048 synthetic tokens, 4 steps;
               per step its loss, grad norm, time, tokens/s, train_mfu,
-              peak memory and K6 launches.  Then at 4 layers, full width,
+              peak memory and K6 launches (every one on the mma body,
+              or the run fails).  Then at 4 layers, full width,
               a run checkpointed after step 1 and resumed equals an
               uninterrupted one bit for bit.
 5. parity   — llama2-7b at full width with 4 layers and f32 weights:
@@ -472,35 +475,54 @@ def check_flash(device, gen, worst, results):
     """K6 forward against its plain version (``kernel_tolerance``) and its
     backward's dq, dk, dv against autograd through the plain version,
     with one random upstream gradient, as relative norms
-    ||kernel - plain|| / ||plain||: at most 1e-5 in f32 (the same f32
-    arithmetic summed in another order) and 2e-2 in bf16 (the kernel's
-    D = rowsum(dO*O) reads the bf16-rounded output where autograd uses
-    the f32 one, and every gradient rounds once to bf16).  Then both
-    timed at the train phase's shape, beside the plain version and SDPA
-    (``is_causal``, ``enable_gqa``; the port never calls it)."""
+    ||kernel - plain|| / ||plain||: at most 1e-5 in f32 (the ``fma``
+    body: the same f32 arithmetic summed in another order) and 2e-2 in
+    bf16 (D = rowsum(dO*O) reads the bf16-rounded output where autograd
+    uses the f32 one, every gradient rounds once to bf16, and the ``mma``
+    body rounds P and dS once to bf16).  Every bf16 case runs on the body
+    ``flash_body`` picks and, where that is ``mma``, on the ``fma`` body
+    forced too.  Then both bodies timed at the train phase's shape (CUDA
+    events and torch.profiler's device time), beside the plain version
+    and SDPA (``is_causal``, ``enable_gqa``; the port never calls it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
 
     limit = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    # largest forward err/limit and relative error of each gradient, by body
+    largest = {b: [0.0, 0.0, 0.0, 0.0] for b in ops.BODIES}
 
-    def one(case, dtype, what):
+    def one(case, dtype, what, body=None):
         b, s, L, H, Hk, d, causal, window, q_offset = case
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         mk = lambda *shape: torch.randn(shape, generator=gen,
                                         device=device).to(dtype)
         q, k, v, do = mk(b, s, H, d), mk(b, L, Hk, d), mk(b, L, Hk, d), \
             mk(b, s, H, d)
-        o, lse = ops.flash_fwd(q, k, v, **kw)
-        grads = ops.flash_bwd(q, k, v, o, lse, do, **kw)
+        before = {n: dict(c) for n, c in ops.BODY_LAUNCHES.items()}
+        o, lse = ops.flash_fwd(q, k, v, body=body, **kw)
+        grads = ops.flash_bwd(q, k, v, o, lse, do, body=body, **kw)
+        ran = {n: _body_of(ops.BODY_LAUNCHES[n], before[n])
+               for n in before}
+        check(ran["flash_fwd"] == ran["flash_bwd"]
+              == (body or ops.flash_body(dtype, d)),
+              f"flash {what}: ran on {ran}")
+        body = ran["flash_fwd"]
+        what = f"{what} ({body})"
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         ref = ops.attention_ref(*leaves, **kw)
         ref_grads = torch.autograd.grad(ref, leaves, do)
-        err = _compare(o, ref.detach(), v, f"flash_fwd {what}", worst)
+        mine = [0.0]
+        err = _compare(o, ref.detach(), v, f"flash_fwd {what}", mine)
+        ratio = mine[0]
+        worst[0] = max(worst[0], ratio)
         rel = [float((a.float() - r.float()).norm() / r.float().norm())
                for a, r in zip(grads, ref_grads)]
         grad_err = max(float((a.float() - r.float()).abs().max())
                        for a, r in zip(grads, ref_grads))
+        if dtype == torch.bfloat16:
+            largest[body] = [max(x, y) for x, y in
+                             zip(largest[body], [ratio, *rel])]
         log(f"[kernels] flash_bwd {what} dq/dk/dv rel err "
             f"{rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} (limit "
             f"{limit[dtype]:.0e}) max_abs_err={grad_err:.3e}")
@@ -511,8 +533,16 @@ def check_flash(device, gen, worst, results):
     for case in FA_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             one(case, dtype, f"{case} {str(dtype)[6:]}")
+        if ops.flash_body(torch.bfloat16, case[5]) == "mma":
+            one(case, torch.bfloat16, f"{case} bfloat16", body="fma")
     (q, k, v, do, o, lse), err, grad_err = one(FA_MAIN, torch.bfloat16,
                                                "main-path shape")
+    _, err_fma, grad_err_fma = one(FA_MAIN, torch.bfloat16,
+                                   "main-path shape", body="fma")
+    for body, (r, dq, dk, dv) in largest.items():
+        log(f"[kernels] flash {body} body, bf16, over FA_CASES and "
+            f"FA_MAIN: largest forward err/limit {r:.4f}, largest dq/dk/dv "
+            f"rel err {dq:.3e}/{dk:.3e}/{dv:.3e}")
     b, s, L, H, Hk, d = FA_MAIN[:6]
     shape = f"b={b} s={s} L={L} H={H} Hk={Hk} d={d} causal bf16"
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -528,20 +558,34 @@ def check_flash(device, gen, worst, results):
                                           retain_graph=True)
     lib_fwd_bwd = lambda: torch.autograd.grad(sdpa(*lib_leaves), lib_leaves,
                                               dol)
-    bound, by = flash_bound(FA_MAIN, 2, backward=False)
-    results["flash_fwd"] = dict(
-        ms=time_ms(lambda: ops.flash_fwd(q, k, v)),
+    fwd_common = dict(
         plain_ms=time_ms(lambda: ops.attention_ref(q, k, v)),
-        bound_ms=bound, bound_by=by,
-        library_ms=time_ms(lambda: sdpa(ql, kl, vl)),
-        max_abs_err=err, shape=shape)
-    bound, by = flash_bound(FA_MAIN, 2, backward=True)
+        library_ms=time_ms(lambda: sdpa(ql, kl, vl)))
+    fwd_common["bound_ms"], fwd_common["bound_by"] = flash_bound(
+        FA_MAIN, 2, backward=False)
+    bwd_common = dict(plain_ms=time_ms(plain_bwd),
+                      library_ms=time_ms(lib_bwd))
+    bwd_common["bound_ms"], bwd_common["bound_by"] = flash_bound(
+        FA_MAIN, 2, backward=True)
+    bwd_shape = (shape + " (backward alone; plain and library: autograd "
+                 "backward of a kept graph)")
+
+    def timed(body, fwd):
+        if fwd:
+            fn = lambda: ops.flash_fwd(q, k, v, body=body)
+        else:
+            fn = lambda: ops.flash_bwd(q, k, v, o, lse, do, body=body)
+        return dict(ms=time_ms(fn), device_ms=device_ms(fn), body=body)
+
+    results["flash_fwd"] = dict(
+        **timed("mma", True), **fwd_common, max_abs_err=err, shape=shape,
+        more_shapes=[dict(**timed("fma", True), **fwd_common,
+                          max_abs_err=err_fma, shape=shape)])
     results["flash_bwd"] = dict(
-        ms=time_ms(lambda: ops.flash_bwd(q, k, v, o, lse, do)),
-        plain_ms=time_ms(plain_bwd), bound_ms=bound, bound_by=by,
-        library_ms=time_ms(lib_bwd), max_abs_err=grad_err,
-        shape=shape + " (backward alone; plain and library: autograd "
-        "backward of a kept graph)")
+        **timed("mma", False), **bwd_common, max_abs_err=grad_err,
+        shape=bwd_shape,
+        more_shapes=[dict(**timed("fma", False), **bwd_common,
+                          max_abs_err=grad_err_fma, shape=bwd_shape)])
     log(f"[kernels] SDPA forward+backward at {shape}: "
         f"{time_ms(lib_fwd_bwd):.4f} ms")
     del ref, lib_out
@@ -1088,6 +1132,8 @@ def phase_train(device, summary):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _launches()                # ... and ends here
+        bodies = {n: dict(c)
+                  for n, c in _kernel_ops()[2].BODY_LAUNCHES.items()}
     marks.append((torch.cuda.max_memory_allocated(device), launches))
     n_params = sum(t.numel() for t in tree_leaves(params))
     log(f"[train] {TRAIN_ARCH} params {n_params / 1e9:.4f} B, {cfg.n_layers} "
@@ -1116,6 +1162,10 @@ def phase_train(device, summary):
     got = {k: launches[k] for k in want}
     check(got == want, f"train: K6 launches {got}, expected {want} (the "
           f"forward twice per layer and step under remat)")
+    # every call is bf16 at d = 64: all of them on the tensor cores
+    check(all(bodies[k] == {"mma": want[k], "fma": 0} for k in want),
+          f"train: K6 launches by body {bodies}; every bf16 call must run "
+          f"on the mma body")
     steady = steps[1:]
     summary["train"] = dict(
         arch=TRAIN_ARCH, params=n_params, steps=TRAIN_STEPS,
@@ -1126,10 +1176,11 @@ def phase_train(device, summary):
         tokens_per_s=sum(e["tokens_per_s"] for e in steady) / len(steady),
         train_mfu=sum(e["train_mfu"] for e in steady) / len(steady),
         peak_mem_gb=max(e["peak_mem_gb"] for e in steps),
-        launches=got, wall_s=wall)
+        launches=got, bodies=bodies, wall_s=wall)
     log(f"[train] steps 1-{TRAIN_STEPS - 1}: {summary['train']['tokens_per_s']:.1f} "
         f"tokens/s, train_mfu {summary['train']['train_mfu']:.4f}; peak "
-        f"memory {summary['train']['peak_mem_gb']:.2f} GB; launches {got}")
+        f"memory {summary['train']['peak_mem_gb']:.2f} GB; launches {got}, "
+        f"by body {bodies}")
     del trainer, params, opt_state
     torch.cuda.empty_cache()
 
@@ -1768,7 +1819,8 @@ def main() -> int:
                 **trained.get("train", {}).get("launches", {}),
                 **quant_measure.get("quant", {}).get("launches", {})}
     bodies = {"paged_verify": summary.get("verify_bodies_total"),
-              "quant_matmul": quant_measure.get("quant", {}).get("bodies")}
+              "quant_matmul": quant_measure.get("quant", {}).get("bodies"),
+              **trained.get("train", {}).get("bodies", {})}
     record = []
     for name, source, replaces in KERNELS:
         if name not in kernels:

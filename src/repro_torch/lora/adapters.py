@@ -7,9 +7,16 @@ differ, so tests carry factors across with ``repro_torch.bridge``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
+
+from repro_torch.quant import QuantizedTensor
+
+#: a QuantizedTensor's array fields, in the order the reference's pytree
+#: flattens them (``src/repro/quant/weights.py``)
+_QUANTIZED_FIELDS = ("w_q", "scales", "zeros")
 
 
 def init_adapter(gen: torch.Generator, k: int, n: int, rank: int,
@@ -34,15 +41,23 @@ def init_adapters_for_tree(gen: torch.Generator, params: Dict, rank: int,
     weight must not drag its adapters down to a dtype the low-rank GEMMs
     can't run in — inline application multiplies activations by A and B
     directly, and the merge path upcasts to f32 anyway.  Leaves are
-    visited in sorted key order, as JAX flattens a dict.
+    visited in sorted key order, as JAX flattens a dict.  A
+    ``QuantizedTensor`` is visited as the reference flattens its pytree:
+    ``w_q``, ``scales``, ``zeros`` in that order, each 2-D field with
+    ``numel >= min_size`` getting a pair of its own shape; the result at
+    that leaf is a ``QuantizedTensor`` holding those pairs (or ``None``)
+    in its array fields, as the reference's ``tree_unflatten`` builds it.
     """
     def visit(leaf):
         if isinstance(leaf, dict):
             return {key: visit(leaf[key]) for key in sorted(leaf)}
-        # a tensor's shape, or a quantized weight's logical (k, n)
-        shape = tuple(getattr(leaf, "shape", ()))
-        if len(shape) == 2 and shape[0] * shape[1] >= min_size:
-            return init_adapter(gen, shape[0], shape[1], rank, dtype)
+        if isinstance(leaf, QuantizedTensor):
+            return dataclasses.replace(leaf, **{
+                f: visit(getattr(leaf, f)) for f in _QUANTIZED_FIELDS})
+        if (isinstance(leaf, torch.Tensor) and leaf.dim() == 2
+                and leaf.numel() >= min_size):
+            return init_adapter(gen, leaf.shape[0], leaf.shape[1], rank,
+                                dtype)
         return None
 
     return visit(params)

@@ -212,6 +212,30 @@ def test_engine_config_validation_matches_reference():
             jec.lora_ranks, jec.adapter_pool_slots)
 
 
+def test_moe_config_is_refused_naming_its_roadmap_item():
+    """A MoE stack passes the reference's ``engine_supported`` (which
+    ``api.measure`` routes by), but the port's engine has no MoE layers:
+    it refuses at construction, naming the queue item, instead of
+    failing inside the first step on a missing dense MLP weight."""
+    arch = "qwen2-moe-a2.7b"
+    assert configs.get(arch).family == "moe"
+    params = bridge.params_from_numpy(_weights(arch), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md queue 1 item 3"):
+        Engine(configs.reduced(configs.get(arch)), params,
+               EngineConfig(max_slots=2, max_len=64), device="cpu")
+
+
+def test_vlm_config_is_served_as_text_like_the_reference():
+    """internvl2-26b's language stack is served as text by both engines
+    (no vision prefix on the engine path): the same tokens and trace."""
+    (jeng, jres), (eng, res) = _run_both(
+        "internvl2-26b", dict(GEOMETRY, attn_impl="paged"))
+    assert configs.get("internvl2-26b").family == "vlm"
+    assert [r.tokens for r in res] == [r.tokens for r in jres]
+    assert _as_reference(eng.trace) == jeng.trace
+
+
 @pytest.mark.parametrize("kw,item", [(dict(spec_k=2), "item 8"),
                                      (dict(prefill_batch=2), "item 9"),
                                      (dict(lora_tenants=2), "item 10")])

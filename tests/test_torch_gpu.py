@@ -277,25 +277,32 @@ def test_gather_equals_paged_engine_with_spec_and_lora(cuda_device):
     assert toks["gather"] == toks["paged"]
 
 
-#: (b, s, L, H, Hk, d, causal, window, q_offset): GQA, ragged s, a decode
-#: step, a window, non-causal, head_dim 256 (the reference's FA_CASES)
-FA_GPU_CASES = [(2, 256, 256, 8, 2, 128, True, None, 0),
-                (1, 100, 100, 4, 2, 64, True, None, 0),
-                (1, 1, 384, 4, 2, 64, True, None, 383),
-                (2, 192, 192, 4, 4, 64, True, 64, 0),
-                (1, 64, 64, 4, 4, 128, False, None, 0),
-                (1, 128, 128, 2, 2, 256, True, None, 0)]
+#: the reference's eight flash attention kernel cases, as chip_smoke.py's
+#: FA_CASES: (b, s, L, H, Hk, d, causal, window, q_offset): MHA, GQA, MQA,
+#: ragged s, a decode step, a window, non-causal, head_dim 256
+FA_CASES = [(1, 128, 128, 4, 4, 64, True, None, 0),
+            (2, 256, 256, 8, 2, 128, True, None, 0),
+            (1, 256, 256, 4, 1, 64, True, None, 0),
+            (1, 100, 100, 4, 2, 64, True, None, 0),
+            (1, 1, 384, 4, 2, 64, True, None, 383),
+            (2, 192, 192, 4, 4, 64, True, 64, 0),
+            (1, 64, 64, 4, 4, 128, False, None, 0),
+            (1, 128, 128, 2, 2, 256, True, None, 0)]
+#: those the rule sends to the tensor-core body in bf16
+FA_MMA_CASES = [c for c in FA_CASES
+                if fa_ops.flash_body(torch.bfloat16, c[5]) == "mma"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FA_GPU_CASES,
-                         ids=[str(c) for c in FA_GPU_CASES])
+@pytest.mark.parametrize("case", FA_CASES, ids=[str(c) for c in FA_CASES])
 def test_flash_attention_kernels_match_plain_version(cuda_device, case,
                                                      dtype):
-    """Forward within ``kernel_tolerance``; dq, dk, dv within a relative
-    norm of 1e-5 in f32 (the same f32 arithmetic in another order) and
-    2e-2 in bf16 (the kernel's D = rowsum(dO*O) reads the bf16-rounded
-    output, and its gradients round once to bf16)."""
+    """The rule's body through the differentiable wrapper: forward
+    within ``kernel_tolerance``; dq, dk, dv within a relative norm of
+    1e-5 in f32 (the ``fma`` body: the same f32 arithmetic in another
+    order) and 2e-2 in bf16 (D = rowsum(dO*O) reads the bf16-rounded
+    output, the gradients round once to bf16, and the ``mma`` body rounds
+    P and dS once to bf16)."""
     b, s, L, H, Hk, d, causal, window, q_offset = case
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(3)
@@ -359,6 +366,95 @@ def test_flash_training_step_equals_eager(cuda_device):
     for a, r in zip(out[True][1], out[False][1]):
         rel = float((a - r).norm() / r.norm().clamp(min=1e-30))
         assert rel <= 1e-4, rel
+
+
+def _flash_inputs(case, device, seed=3, dtype=torch.bfloat16):
+    b, s, L, H, Hk, d = case[:6]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=gen,
+                                    device=device).to(dtype)
+    return mk(b, s, H, d), mk(b, L, Hk, d), mk(b, L, Hk, d), mk(b, s, H, d)
+
+
+@pytest.mark.parametrize("body", ["mma", "fma"])
+@pytest.mark.parametrize("case", FA_MMA_CASES,
+                         ids=[str(c) for c in FA_MMA_CASES])
+def test_flash_bodies_match_plain_version(cuda_device, case, body):
+    """Both bodies on every bf16 case the rule sends to ``mma`` (the
+    ``fma`` body forced): the forward within ``kernel_tolerance``, dq,
+    dk, dv within a relative norm of 2e-2 of autograd through the plain
+    version (one bf16 rounding of P and dS in the ``mma`` backward, of
+    every gradient in both)."""
+    kw = dict(causal=case[6], window=case[7], q_offset=case[8])
+    q, k, v, do = _flash_inputs(case, cuda_device)
+    before = {n: dict(c) for n, c in fa_ops.BODY_LAUNCHES.items()}
+    o, lse = fa_ops.flash_fwd(q, k, v, body=body, **kw)
+    grads = fa_ops.flash_bwd(q, k, v, o, lse, do, body=body, **kw)
+    for name in ("flash_fwd", "flash_bwd"):
+        assert fa_ops.BODY_LAUNCHES[name][body] == before[name][body] + 1
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = fa_ops.attention_ref(*leaves, **kw)
+    ref_grads = torch.autograd.grad(ref, leaves, do)
+    torch.cuda.synchronize()
+    _assert_within_tolerance(o, ref.detach(), v)
+    for a, r in zip(grads, ref_grads):
+        rel = float((a.float() - r.float()).norm() / r.float().norm())
+        assert rel <= 2e-2, rel
+
+
+def test_flash_mma_backward_is_deterministic(cuda_device):
+    """Two identical backward calls give bit-identical gradients (no
+    atomics; GQA's sum inside one dK/dV block), as the bit-exact resume
+    of a training run needs."""
+    case = (2, 384, 384, 8, 2, 64, True, None, 0)
+    q, k, v, do = _flash_inputs(case, cuda_device)
+    o, lse = fa_ops.flash_fwd(q, k, v)
+    first = fa_ops.flash_bwd(q, k, v, o, lse, do)
+    second = fa_ops.flash_bwd(q, k, v, o, lse, do)
+    o2, lse2 = fa_ops.flash_fwd(q, k, v)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bf16_train_shape_runs_on_the_mma_body(cuda_device):
+    """granite-3-2b's attention at the train phase's shape, through the
+    differentiable wrapper: both directions land on the tensor cores."""
+    case = (4, 2048, 2048, 32, 8, 64, True, None, 0)
+    q, k, v, do = _flash_inputs(case, cuda_device)
+    before = {n: dict(c) for n, c in fa_ops.BODY_LAUNCHES.items()}
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.flash_attention(*leaves)
+    torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    got = {n: {b: fa_ops.BODY_LAUNCHES[n][b] - before[n][b] for b in c}
+           for n, c in before.items()}
+    assert got == {"flash_fwd": {"mma": 1, "fma": 0},
+                   "flash_bwd": {"mma": 1, "fma": 0}}
+    assert fa_ops.flash_body(torch.float32, 64) == "fma"
+
+
+def test_flash_mma_tiles_match_the_library(cuda_device):
+    """The tile plan the tests emulate is the one the CUDA source uses."""
+    import ctypes
+    lib = fa_ops.load_library()
+    for d in range(16, 129, 16):
+        out = (ctypes.c_int * 7)()
+        assert lib.flash_mma_tiles(d, out) == 0
+        assert tuple(out) == tuple(vars(fa_ops.mma_tiles(d)).values())
+    assert lib.flash_mma_tiles(136, (ctypes.c_int * 7)()) == -1
+
+
+def test_flash_wrapper_refuses_to_force_mma_where_it_does_not_apply(
+        cuda_device):
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
+        q, k, v, _ = _flash_inputs((1, 16, 16, 2, 2, d, True, None, 0),
+                                   cuda_device, dtype=dtype)
+        with pytest.raises(ValueError, match="mma body takes"):
+            fa_ops.flash_fwd(q, k, v, body="mma")
+    with pytest.raises(ValueError, match="body must be one of"):
+        fa_ops.flash_fwd(q, k, v, body="wgmma")
 
 
 #: (m, k, n, group_size, bits, x dtype): decode and a prefill chunk at a

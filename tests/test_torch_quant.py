@@ -323,6 +323,58 @@ def test_adapter_trees_have_the_reference_structure():
         assert not got[key]["B"].any()           # fresh: the identity
 
 
+def _adapter_layout(t):
+    """(path, shapes) of every leaf of an adapter tree from either
+    package: an adapter pair's (A, B) shapes, ``None``, or a quantized
+    weight's node (its class name and metadata) with its fields below."""
+    if t is None:
+        yield "", None
+    elif isinstance(t, dict) and "A" in t:
+        yield "", (tuple(t["A"].shape), tuple(t["B"].shape))
+    elif isinstance(t, dict):
+        for key in sorted(t):
+            for path, v in _adapter_layout(t[key]):
+                yield f"/{key}{path}", v
+    else:
+        yield "", (type(t).__name__, t.group_size, t.bits)
+        for field in ("w_q", "scales", "zeros"):
+            for path, v in _adapter_layout(getattr(t, field)):
+                yield f".{field}{path}", v
+
+
+@pytest.mark.parametrize("min_size", [1 << 12, 1 << 16])
+def test_adapters_for_a_quantized_tree_have_the_reference_structure(
+        min_size):
+    """On a quantized reduced tree carried across by the bridge, each
+    quantized weight is visited as the reference flattens its pytree
+    (w_q, scales, zeros): every 2-D field of at least ``min_size``
+    elements gets a pair of its own shape, and the leaf is a
+    ``QuantizedTensor`` of pairs, as the reference's ``tree_unflatten``
+    builds it."""
+    cfg = jconfigs.reduced(jconfigs.get("llama2-7b"))
+    ref_tree = jquant.quantize_tree(jax_init_params(cfg,
+                                                    jax.random.PRNGKey(0)))
+
+    def carry(t):
+        if isinstance(t, jquant.QuantizedTensor):
+            return bridge.quantized_from_numpy(_jax_q(t), device="cpu")
+        if isinstance(t, dict):
+            return {k: carry(v) for k, v in t.items()}
+        return bridge.tensor_from_numpy(np.asarray(t), device="cpu")
+
+    port_tree = carry(ref_tree)
+    ref = jlora.init_adapters_for_tree(jax.random.PRNGKey(1), ref_tree,
+                                       rank=4, min_size=min_size)
+    port = init_adapters_for_tree(torch.Generator().manual_seed(1),
+                                  port_tree, rank=4, min_size=min_size)
+    got, want = list(_adapter_layout(port)), list(_adapter_layout(ref))
+    assert got == want
+    assert isinstance(port["lm_head"], QuantizedTensor)
+    assert port["lm_head"].w_q is not None       # the int values' own pair
+    assert tuple(port["lm_head"].w_q["A"].shape) == (
+        port_tree["lm_head"].w_q.shape[0], 4)
+
+
 def test_merge_and_inline_match_reference():
     """One adapter pair carried across: ``merge`` and ``apply_inline``
     equal the reference's in f32 at f32 rounding."""
