@@ -15,11 +15,15 @@ caught and ignored):
 2. kernels  — every kernel against its plain PyTorch version on the card,
               at the llama2-7b (Hk=32, G=1) and qwen2-7b (Hk=4, G=7) head
               shapes, d=128, bs=16, bf16 and int8 KV: decode cursors at 0,
-              mid-block and on block seams; prefill chunks at start>0 with
-              valid<C over tables that share prefix blocks; verify with
+              mid-block and on block seams; prefill chunks (0, 256), (200,
+              77) and (520, 3) over tables that share prefix blocks, every
+              row held (padding rows too), bf16 q on the mma body and f32
+              q on rows; verify with
               Q in {1, 5, 256} at cursors on and off seams and a padded
               last chunk near the table's end; grouped LoRA with mixed
-              ranks and holes (idx = -1) at T in {1, 5, 256}; flash
+              ranks and holes (idx = -1) at T in {1, 5, 256}, bf16 and f32
+              x, a repeat bit-identical, and grouped_lora_qkv (q, k and v
+              in one launch) against three plain calls; flash
               attention forward and backward on the reference's eight
               kernel cases (MHA, GQA, MQA, ragged s, a decode step with
               q_offset, a window, non-causal, head_dim 256) in bf16 and
@@ -28,8 +32,10 @@ caught and ignored):
               picks mma; the int4 dequant-matmul at
               every llama2-7b linear shape at m = 4, 64 and 256, one int8
               case and a ragged one (m=5, n=200, g=64) in f32 and bf16.
-              Then each kernel's time, its plain version's, its bound
-              and a library yardstick at the main path's shapes.
+              Then each kernel's time (CUDA events, and device time by
+              torch.profiler), its plain version's, its bound and a
+              library yardstick (its device time too for K1, K2, K4) at
+              the main path's shapes.
 3. engine   — the main path: llama2-7b at full width and depth (random
               bf16 weights from a seed), paged attention, 8 requests of
               512 prompt + 64 new tokens through 4 slots, with a radix
@@ -39,7 +45,9 @@ caught and ignored):
               and again with bucketed admission (prefill_batch=4) and the
               same tenants.  Each pass zeroes the launch counts before it
               and reads them after it; between them the passes launch
-              K1-K4.  Then a short int8-KV pass.
+              K1-K4.  Every bf16 K2 and K3 launch must run on the mma
+              body, and K4 must run once for a layer's q, k and v and once
+              for its output projection.  Then a short int8-KV pass.
 4. train    — the trainer: granite-3-2b at full width and depth (40
               layers, random bf16 weights from seed 0), flash attention,
               per-layer remat, AdamW, 4 x 2048 synthetic tokens, 4 steps;
@@ -91,6 +99,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "engine", "train", "parity", "quant",
@@ -136,23 +145,35 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, tries: int = 3) -> Optional[float]:
     """Mean device milliseconds per call from torch.profiler: the kernels'
     own durations summed, without the host's launch gaps that
     :func:`time_ms` includes when a call's host work outlasts its
-    kernels."""
+    kernels.  A profile that comes back without device events (seen now
+    and then on the card) is taken again, up to ``tries`` times; None
+    (null in the record) if every try came back empty: not measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_self_device_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters
+    us = 0.0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_self_device_us(e) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    return None
+
+
+def fmt_ms(ms: Optional[float]) -> str:
+    """A time for the log: four decimals, or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 # ---------------------------------------------------------------------------
@@ -260,16 +281,18 @@ def verify_bound(q, cache_k, tables, pos, bs):
             else "operations")
 
 
-def lora_bound(x, A, B, idx):
-    """x in, the delta out, and the (padded) factors of each distinct
-    adapter the batch uses read once; holes read no factor."""
+def lora_bound(x, factors, idx):
+    """x in once, each (A, B)'s delta out, and the (padded) factors of each
+    distinct adapter the batch uses read once; holes read no factor."""
     S, T, k = x.shape
-    _, _, R = A.shape
-    n = B.shape[2]
     live = [i for i in idx.tolist() if i >= 0]
-    nbytes = (x.numel() * x.element_size() + S * T * n * x.element_size()
-              + len(set(live)) * (k * R + R * n) * A.element_size() + S * 4)
-    flops = 2 * T * (k * R + R * n) * len(live)
+    nbytes = x.numel() * x.element_size() + S * 4
+    flops = 0
+    for A, B in factors:
+        R, n = A.shape[2], B.shape[2]
+        nbytes += (S * T * n * x.element_size()
+                   + len(set(live)) * (k * R + R * n) * A.element_size())
+        flops += 2 * T * (k * R + R * n) * len(live)
     return (max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3,
             "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
             else "operations")
@@ -293,10 +316,10 @@ def _time_verify(q, ck, cv, bt, pos, worst, what):
 
     S, Q, Hk, G, d = q.shape
     bs, nb = ck.shape[1], bt.shape[1]
-    before = dict(ops.BODY_LAUNCHES)
+    before = dict(ops.BODY_LAUNCHES["paged_verify"])
     err = _compare(ops.paged_verify(q, ck, cv, bt, pos),
                    ops.paged_verify_ref(q, ck, cv, bt, pos), cv, what, worst)
-    body = _body_of(ops.BODY_LAUNCHES, before)
+    body = _body_of(ops.BODY_LAUNCHES["paged_verify"], before)
     L = int(pos.max()) + Q
     kg = ck[bt.long()].reshape(S, nb * bs, Hk, d)[:, :L].transpose(1, 2)
     vg = cv[bt.long()].reshape(S, nb * bs, Hk, d)[:, :L].transpose(1, 2)
@@ -382,10 +405,12 @@ def _lora_pool(P, k, n, ranks, R, gen, device):
 def check_grouped_lora(device, gen, worst, results):
     """K4 against its plain version (the elementwise limit of
     ``kernel_tolerance``: one bf16 ulp plus f32 summation slack for bf16
-    deltas, 1e-4 of max|delta| for f32 ones), then timed at the
-    speculative pass's shape: 4 slots x 5 rows, the q projection of
-    llama2-7b (4096 -> 4096), ranks 8/16 padded to 16, one base-model
-    slot."""
+    deltas, 1e-4 of max|delta| for f32 ones) at T in {1, 5, 256}, holes
+    exact zeros and a repeat bit-identical; grouped_lora_qkv against three
+    plain calls.  Then timed at the speculative pass's shape, 4 slots x 5
+    rows through llama2-7b's q projection (4096 -> 4096), ranks 8/16
+    padded to 16, one base-model slot; at decode's and the chunks' rows;
+    and the q/k/v launch against three single ones."""
     import torch
     from repro_torch.kernels.grouped_lora import ops
 
@@ -404,28 +429,71 @@ def check_grouped_lora(device, gen, worst, results):
                          f"x={str(x_dtype)[6:]}", worst)
                 check(not out[1].any(), "grouped_lora: a hole (idx=-1) "
                       "got a non-zero delta")
+                check(torch.equal(ops.grouped_lora(x, A, B, idx), out),
+                      f"grouped_lora T={T}: a repeat gave other bits")
+    # one launch for a layer's q, k and v: llama2-7b (4096 -> 4096 x 3)
+    # and qwen2-7b (3584 -> 3584, 512, 512)
+    for k, ns in ((4096, (4096, 4096, 4096)), (3584, (3584, 512, 512))):
+        pairs = [_lora_pool(4, k, n, (8, 16), R, gen, device) for n in ns]
+        idx = torch.tensor([1, -1, 0, 3], dtype=torch.int32, device=device)
+        for T in (1, 5, 256):
+            x = torch.randn((4, T, k), generator=gen, device=device).to(
+                torch.bfloat16)
+            got = ops.grouped_lora_qkv(x, *pairs, idx)
+            for name, out, (A, B) in zip("qkv", got, pairs):
+                ref = ops.grouped_lora_ref(x, A, B, idx)
+                _compare(out, ref, ref, f"grouped_lora_qkv {name} k={k} "
+                         f"n={B.shape[2]} T={T}", worst)
+                check(not out[1].any(), "grouped_lora_qkv: a hole got a "
+                      "non-zero delta")
 
     k = n = 4096
     A, B = _lora_pool(4, k, n, (8, 16), R, gen, device)
     idx = torch.tensor([0, 1, 2, -1], dtype=torch.int32, device=device)
-    x = torch.randn((4, 5, k), generator=gen, device=device).to(
-        torch.bfloat16)
-    ref = ops.grouped_lora_ref(x, A, B, idx)
-    err = _compare(ops.grouped_lora(x, A, B, idx), ref, ref,
-                   "grouped_lora main-path shape", worst)
-    # library yardstick: two batched products on factors gathered once
-    # (holes pointed at zeroed factors) outside the timing
-    a = A[idx.long().clamp(min=0)] * (idx >= 0)[:, None, None]
-    b = B[idx.long().clamp(min=0)]
-    lib = lambda: torch.bmm(torch.bmm(x, a), b)
-    bound, by = lora_bound(x, A, B, idx)
-    results["grouped_lora"] = dict(
-        ms=time_ms(lambda: ops.grouped_lora(x, A, B, idx)),
-        plain_ms=time_ms(lambda: ops.grouped_lora_ref(x, A, B, idx)),
-        bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
-        max_abs_err=err,
-        shape=f"S=4 T=5 k={k} n={n} R={R} ranks=(8,16) idx={idx.tolist()} "
-              f"bf16")
+
+    def timed(S, T, factors, what):
+        """One call's times at (S, T) through llama2-7b's widths: the
+        wrapper (one launch for every factor pair in ``factors``), the
+        plain version, two torch.bmm per pair on factors gathered once
+        (holes pointed at zeroed factors) outside the timing."""
+        x = torch.randn((S, T, k), generator=gen, device=device).to(
+            torch.bfloat16)
+        ix = idx[:S].contiguous()
+        if len(factors) == 1:
+            run = lambda: ops.grouped_lora(x, *factors[0], ix)
+        else:
+            run = lambda: ops.grouped_lora_qkv(x, *factors, ix)
+        plain = lambda: [ops.grouped_lora_ref(x, A_, B_, ix)
+                         for A_, B_ in factors]
+        gathered = [(A_[ix.long().clamp(min=0)] * (ix >= 0)[:, None, None],
+                     B_[ix.long().clamp(min=0)]) for A_, B_ in factors]
+        lib = lambda: [torch.bmm(torch.bmm(x, a), b) for a, b in gathered]
+        outs = run()
+        outs = [outs] if len(factors) == 1 else outs
+        err = max(_compare(o, ref, ref, what, worst) for o, ref in
+                  zip(outs, plain()))
+        bound, by = lora_bound(x, factors, ix)
+        return dict(ms=time_ms(run), device_ms=device_ms(run),
+                    plain_ms=time_ms(plain), bound_ms=bound, bound_by=by,
+                    library_ms=time_ms(lib), library_device_ms=device_ms(lib),
+                    max_abs_err=err,
+                    shape=f"S={S} T={T} k={k} n={n} x {len(factors)} R={R} "
+                          f"ranks=(8,16) idx={ix.tolist()} bf16")
+
+    main = timed(4, 5, [(A, B)], "grouped_lora main-path shape")
+    # a layer's q, k and v: one launch against three single ones
+    qkv = [(A, B)] + [_lora_pool(4, k, n, (8, 16), R, gen, device)
+                      for _ in range(2)]
+    more = [timed(4, 1, [(A, B)], "grouped_lora decode"),
+            timed(4, 5, qkv, "grouped_lora_qkv speculative step"),
+            timed(1, 256, qkv, "grouped_lora_qkv prefill chunk"),
+            timed(4, 256, [(A, B)], "grouped_lora bucketed chunk")]
+    r = more[1]
+    three = main["device_ms"] and 3 * main["device_ms"]     # None stays None
+    log(f"[kernels] grouped_lora_qkv @ {r['shape']}: one launch "
+        f"{r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}) against three "
+        f"single launches {3 * main['ms']:.4f} ms (device {fmt_ms(three)})")
+    results["grouped_lora"] = dict(main, more_shapes=more)
 
 
 #: the reference's flash attention kernel cases (tests/test_kernels.py):
@@ -703,8 +771,8 @@ def check_quant_matmul(device, gen, worst, results):
                     ms[body] = device_ms(lambda: ops.quant_matmul(
                         x, q.w_q, q.scales, q.zeros, group_size=128))
                 log(f"[kernels] quant_matmul threshold k={k} n={n} m={m}: "
-                    f"device ms splitk {ms['splitk']:.4f}, wgmma "
-                    f"{ms['wgmma']:.4f}")
+                    f"device ms splitk {fmt_ms(ms['splitk'])}, wgmma "
+                    f"{fmt_ms(ms['wgmma'])}")
             del q
     finally:
         ops.WGMMA_MIN_ROWS = threshold
@@ -741,17 +809,29 @@ def phase_kernels(device, results):
                 ref = ops.paged_decode_ref(q, ck, cv, bt, pos)
                 _compare(out, ref, cv, f"paged_decode {tag}", worst)
                 # prefill: an admission chunk, a chunk at start>0 with
-                # valid<C that starts mid-block, a short tail chunk
+                # valid<C that starts mid-block, a short tail chunk (the
+                # key limit start+valid below every padding row's causal
+                # one); every row held, padding rows too, on the body the
+                # rule picks (mma for bf16 q, rows for f32 q)
                 C = 256
                 table = bt[1].contiguous()       # shares blocks with row 0
+                want = ops.prefill_body(q_dtype, kv_dtype, d, C * G)[0]
+                check(want == ("mma" if q_dtype == torch.bfloat16
+                               else "rows"), f"prefill_body {tag}: {want}")
                 for start, valid in ((0, 256), (200, 77), (520, 3)):
                     qp = torch.randn((C, Hk, G, d), generator=gen,
                                      device=device).to(q_dtype)
+                    before = dict(ops.BODY_LAUNCHES["paged_prefill"])
                     out = ops.paged_prefill(qp, ck, cv, table, start, valid)
+                    body = _body_of(ops.BODY_LAUNCHES["paged_prefill"],
+                                    before)
                     ref = ops.paged_prefill_ref(qp, ck, cv, table, start,
                                                 valid)
-                    _compare(out[:valid], ref[:valid], cv,
-                             f"paged_prefill {tag} start={start} "
+                    check(body == want and bool(torch.isfinite(
+                        out.float()).all()), f"paged_prefill {tag}: body "
+                        f"{body}, finite {bool(torch.isfinite(out).all())}")
+                    _compare(out, ref, cv,
+                             f"paged_prefill ({body}) {tag} start={start} "
                              f"valid={valid}", worst)
 
     # timing at the main path's shapes: llama2-7b, 4 slots, bf16 q and KV,
@@ -777,11 +857,12 @@ def phase_kernels(device, results):
             <= pos.long()[:, None])[:, None, None, :]
     lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
     bound, by = decode_bound(q, ck, bt, pos, bs)
+    run = lambda: ops.paged_decode(q, ck, cv, bt, pos)
     results["paged_decode"] = dict(
-        ms=time_ms(lambda: ops.paged_decode(q, ck, cv, bt, pos)),
+        ms=time_ms(run), device_ms=device_ms(run),
         plain_ms=time_ms(lambda: ops.paged_decode_ref(q, ck, cv, bt, pos)),
         bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
-        max_abs_err=err,
+        library_device_ms=device_ms(lib), max_abs_err=err,
         shape=f"S={S} Hk={Hk} G={G} d={d} bs={bs} nb={nb} "
               f"pos={pos.tolist()} kv=bf16")
 
@@ -790,9 +871,12 @@ def phase_kernels(device, results):
     table = bt[0].contiguous()
     qp = torch.randn((C, Hk, G, d), generator=gen, device=device).to(
         torch.bfloat16)
+    before = dict(ops.BODY_LAUNCHES["paged_prefill"])
     err = _compare(ops.paged_prefill(qp, ck, cv, table, start, valid),
                    ops.paged_prefill_ref(qp, ck, cv, table, start, valid),
                    cv, "paged_prefill main-path shape", worst)
+    body = _body_of(ops.BODY_LAUNCHES["paged_prefill"], before)
+    check(body == "mma", f"paged_prefill main-path shape ran {body}")
     L = start + valid
     kg = ck[table.long()].reshape(nb * bs, Hk, d)[:L].transpose(0, 1)[None]
     vg = cv[table.long()].reshape(nb * bs, Hk, d)[:L].transpose(0, 1)[None]
@@ -803,13 +887,13 @@ def phase_kernels(device, results):
     mask = (k_pos[None, :] <= q_pos[:, None])[None, None]
     lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
     bound, by = prefill_bound(qp, ck, start, valid, bs)
+    run = lambda: ops.paged_prefill(qp, ck, cv, table, start, valid)
     results["paged_prefill"] = dict(
-        ms=time_ms(lambda: ops.paged_prefill(qp, ck, cv, table, start,
-                                             valid)),
+        ms=time_ms(run), device_ms=device_ms(run),
         plain_ms=time_ms(lambda: ops.paged_prefill_ref(qp, ck, cv, table,
                                                        start, valid)),
         bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
-        max_abs_err=err,
+        library_device_ms=device_ms(lib), max_abs_err=err, body=body,
         shape=f"C={C} start={start} valid={valid} Hk={Hk} G={G} d={d} "
               f"bs={bs} nb={nb} kv=bf16")
     check_verify(device, gen, shapes, worst, results)
@@ -821,13 +905,15 @@ def phase_kernels(device, results):
     for name, res in results.items():
         for r in (res, *res.get("more_shapes", ())):
             body = f" ({r['body']})" if "body" in r else ""
-            dev = (f" device_ms={r['device_ms']:.4f}" if "device_ms" in r
-                   else "")
+            dev = (f" device_ms={fmt_ms(r['device_ms'])}"
+                   if "device_ms" in r else "")
+            lib_dev = (f" library_device_ms={fmt_ms(r['library_device_ms'])}"
+                       if "library_device_ms" in r else "")
             log(f"[kernels] {name}{body} @ {r['shape']}: "
                 f"kernel_ms={r['ms']:.4f}{dev} "
                 f"plain_ms={r['plain_ms']:.4f} "
                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-                f"library_ms={r['library_ms']:.4f}")
+                f"library_ms={r['library_ms']:.4f}{lib_dev}")
 
 
 # ---------------------------------------------------------------------------
@@ -892,7 +978,33 @@ def _reset_launches() -> None:
 
 
 def _launches() -> dict:
-    return {k: n for mod in _kernel_ops() for k, n in mod.LAUNCHES.items()}
+    """Launches by kernel since the reset: K4's two wrappers launch one
+    kernel, counted under ``grouped_lora``."""
+    counts = {k: n for mod in _kernel_ops() for k, n in mod.LAUNCHES.items()}
+    counts["grouped_lora"] += counts.pop("grouped_lora_qkv")
+    return counts
+
+
+def _engine_bodies() -> dict:
+    """K2's and K3's launches by body, K4's by wrapper, since the reset."""
+    ops, lora_ops = _kernel_ops()[:2]
+    return {**{w: dict(c) for w, c in ops.BODY_LAUNCHES.items()},
+            "grouped_lora": dict(lora_ops.LAUNCHES)}
+
+
+def _check_engine_bodies(tag, launches, bodies) -> None:
+    """Every bf16 K2 and K3 launch ran on the mma body, and K4 ran once for
+    a layer's q, k and v and once for its output projection (two launches
+    per layer per step, where separate q, k and v made four)."""
+    for w in ("paged_prefill", "paged_verify"):
+        check(bodies[w] == {"mma": launches[w], "rows": 0},
+              f"{tag}: a bf16 {w} call left the mma body: {bodies[w]} of "
+              f"{launches[w]}")
+    lora = bodies["grouped_lora"]
+    check(lora["grouped_lora_qkv"] == lora["grouped_lora"]
+          and sum(lora.values()) == launches["grouped_lora"],
+          f"{tag}: grouped_lora launches {lora} do not pair one q/k/v "
+          f"launch with each output projection's")
 
 
 def _with_tenants(reqs, tenants):
@@ -948,9 +1060,11 @@ def phase_engine(device, summary):
     eng, results = _serve(cfg, params, ec, reqs, device)
     wall = time.perf_counter() - t0
     launches = _launches()                    # ... and ends here
+    bodies = _engine_bodies()
     _check_results(cfg, reqs, results, "engine bf16")
     check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
           f"main path did not launch both kernels: {launches}")
+    _check_engine_bodies("engine bf16", launches, bodies)
     check(results[1].cached_tokens == 256,
           f"request 1 radix hit {results[1].cached_tokens} != 256")
     check(results[3].cached_tokens == prompt_len - 1,
@@ -962,7 +1076,8 @@ def phase_engine(device, summary):
         ttft_p50_ms=float(np.median([r.ttft for r in results]) * 1e3),
         tpot_p50_ms=float(np.median([r.tpot for r in results]) * 1e3),
         tps=eng.aggregate_tps(), prefix_hit_rate=eng.prefix_hit_rate,
-        launches=launches, prefill_chunks=n_chunks, decode_steps=n_steps,
+        launches=launches, bodies=bodies, prefill_chunks=n_chunks,
+        decode_steps=n_steps,
         kv_pool_gb=kv_gb, wall_s=wall,
         peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9)
     log(f"[engine] llama2-7b paged bf16: 8 requests x ({prompt_len} prompt + "
@@ -970,7 +1085,8 @@ def phase_engine(device, summary):
         f"TTFT p50 {summary['engine_bf16']['ttft_p50_ms']:.2f} ms, "
         f"TPOT p50 {summary['engine_bf16']['tpot_p50_ms']:.3f} ms, "
         f"TPS {summary['engine_bf16']['tps']:.1f}, prefix hit rate "
-        f"{eng.prefix_hit_rate:.4f}; launches {launches} over {n_chunks} "
+        f"{eng.prefix_hit_rate:.4f}; launches {launches} (by body "
+        f"{bodies}) over {n_chunks} "
         f"prefill chunks and {n_steps} decode steps x {cfg.n_layers} layers; "
         f"wall {wall:.1f} s (warm-up included), peak memory "
         f"{summary['engine_bf16']['peak_mem_gb']:.2f} GB")
@@ -997,13 +1113,11 @@ def phase_engine(device, summary):
         eng, results = _serve(cfg, params, ec_l, reqs_l, device)
         wall = time.perf_counter() - t0
         launches = _launches()                # ... and ends here
-        bodies = dict(_kernel_ops()[0].BODY_LAUNCHES)
+        bodies = _engine_bodies()
         _check_results(cfg, reqs_l, results, tag)
         check(all(launches[k] > 0 for k in path),
               f"{tag} did not launch {path}: {launches}")
-        check(bodies == {"mma": launches["paged_verify"], "rows": 0},
-              f"{tag}: a bf16 paged_verify call left the mma body: "
-              f"{bodies} of {launches['paged_verify']}")
+        _check_engine_bodies(tag, launches, bodies)
         pool = eng.adapter_pool
         check(pool.misses == tenants and pool.evictions == 0,
               f"{tag}: adapter pool misses {pool.misses}, evictions "
@@ -1017,7 +1131,7 @@ def phase_engine(device, summary):
             ttft_p50_ms=float(np.median([r.ttft for r in results]) * 1e3),
             tpot_p50_ms=float(np.median([r.tpot for r in results]) * 1e3),
             tps=eng.aggregate_tps(), adapter_hit_rate=eng.adapter_hit_rate,
-            launches=launches, verify_bodies=bodies, wall_s=wall)
+            launches=launches, bodies=bodies, wall_s=wall)
         if "spec_k" in extra:
             summary[tag].update(spec_acceptance=eng.spec_acceptance,
                                 spec_tokens_per_step=eng.spec_tokens_per_step,
@@ -1035,7 +1149,7 @@ def phase_engine(device, summary):
                f"{r['spec_tokens_per_step']:.4f} over {r['spec_steps']} "
                f"steps" if "spec_k" in extra else
                f", {r['batched_chunks']} batched chunks")
-            + f"; launches {launches}, paged_verify by body {bodies}; wall "
+            + f"; launches {launches}, by body {bodies}; wall "
             f"{wall:.1f} s (warm-up included)")
         del eng
         torch.cuda.empty_cache()
@@ -1045,10 +1159,12 @@ def phase_engine(device, summary):
     check(all(v > 0 for v in total.values()),
           f"the engine passes did not launch every kernel: {total}")
     summary["launches_total"] = total
-    summary["verify_bodies_total"] = {
-        b: sum(summary[t]["verify_bodies"][b] for t in
-               ("engine_spec_lora", "engine_bucketed_lora"))
-        for b in summary["engine_spec_lora"]["verify_bodies"]}
+    passes = ("engine_bf16", "engine_spec_lora", "engine_bucketed_lora")
+    summary["bodies_total"] = {
+        w: {b: sum(summary[t]["bodies"][w][b] for t in passes) for b in c}
+        for w, c in summary["engine_bf16"]["bodies"].items()}
+    log(f"[engine] launches over the three passes {total}, by body "
+        f"{summary['bodies_total']}")
 
     # a short second pass with int8 KV
     reqs8 = _requests(cfg.vocab_size, 4, prompt_len, 16, 256, seed=2)
@@ -1057,8 +1173,7 @@ def phase_engine(device, summary):
     eng, results = _serve(cfg, params, ec8, reqs8, device)
     _check_results(cfg, reqs8, results, "engine int8")
     check(eng.state["cache_k"].dtype == torch.int8, "int8 pool dtype")
-    check(_kernel_ops()[0].BODY_LAUNCHES["rows"] == 0,
-          "engine int8: a bf16 paged_verify call left the mma body")
+    _check_engine_bodies("engine int8", _launches(), _engine_bodies())
     summary["engine_int8"] = dict(
         ttft_p50_ms=float(np.median([r.ttft for r in results]) * 1e3),
         tpot_p50_ms=float(np.median([r.tpot for r in results]) * 1e3),
@@ -1429,7 +1544,7 @@ def phase_profile(device):
     """Where the time goes on the main path: torch.profiler over one
     admission step (4 prefills of 512 tokens) and over the decode blocks
     that follow, llama2-7b bf16, paged attention; then the same with
-    three LoRA tenants and a base-model request (K4's four launches per
+    three LoRA tenants and a base-model request (K4's two launches per
     layer per step on top), with speculative decoding (spec_k=4: K3
     verifies each step's candidates), and again with bucketed admission
     (prefill_batch=4: K3 admits the group in batched chunks)."""
@@ -1818,7 +1933,8 @@ def main() -> int:
     launches = {**summary.get("launches_total", {}),
                 **trained.get("train", {}).get("launches", {}),
                 **quant_measure.get("quant", {}).get("launches", {})}
-    bodies = {"paged_verify": summary.get("verify_bodies_total"),
+    engine_bodies = summary.get("bodies_total", {})
+    bodies = {**engine_bodies,
               "quant_matmul": quant_measure.get("quant", {}).get("bodies"),
               **trained.get("train", {}).get("bodies", {})}
     record = []
@@ -1833,6 +1949,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{key: r[key] for key in ("device_ms", "library_device_ms",
+                                       "body") if key in r},
             **({"body_launches": bodies[name]} if bodies.get(name)
                else {}),
             **({"more_shapes": r["more_shapes"]} if "more_shapes" in r

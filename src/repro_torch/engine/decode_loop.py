@@ -97,45 +97,54 @@ def _write_kv(cache: torch.Tensor, dst: KVWrite, new: torch.Tensor) -> None:
 
 def _lora_layers(state, idx: Optional[torch.Tensor], attn_impl: str,
                  n_layers: int) -> List[Tuple]:
-    """Per layer, the ``(lora, lora_idx, lora_fn)`` arguments of a layer
+    """Per layer, the ``(lora, lora_idx, lora_fns)`` arguments of a layer
     body for one dispatch: that layer's adapter factors, the per-row pool
-    slots ``idx`` and the delta function; all None without an adapter
+    slots ``idx`` and the delta functions ``(qkv, one)``: ``qkv(x, (A_q,
+    B_q), (A_k, B_k), (A_v, B_v), idx)`` gives the q/k/v deltas, ``one(x,
+    A, B, idx)`` the output projection's; all None without an adapter
     pool.
 
     ``paged`` hands the pool slices ``(P, k, R)`` to the CUDA kernel, which
-    reads ``idx`` itself; ``gather`` gathers each slot's factors out of the
-    pool once per dispatch, holes (idx < 0) zeroed, so the per-step delta
-    is two plain products (the reference's ``_pregather_lora``)."""
+    reads ``idx`` itself, and q, k and v share one launch; ``gather``
+    gathers each slot's factors out of the pool once per dispatch, holes
+    (idx < 0) zeroed, so each delta is two plain products (the
+    reference's ``_pregather_lora``)."""
     if "adapter_slots" not in state:
         return [(None, None, None)] * n_layers
     if attn_impl == "paged":
         xs = {n: state["lora_" + n] for n in LORA_FACTORS}
-        fn = lora_ops.grouped_lora
+        fns = (lora_ops.grouped_lora_qkv, lora_ops.grouped_lora)
     else:
         xs = {n: pregather(state["lora_" + n], idx) for n in LORA_FACTORS}
-        fn = grouped_lora_pregathered
-    return [({n: v[li] for n, v in xs.items()}, idx, fn)
+        fns = (_pregathered_qkv, grouped_lora_pregathered)
+    return [({n: v[li] for n, v in xs.items()}, idx, fns)
             for li in range(n_layers)]
 
 
-def _qkv_deltas(cfg: ArchConfig, h, lora, lora_idx, lora_fn):
+def _pregathered_qkv(x, q, k, v, idx):
+    return tuple(grouped_lora_pregathered(x, A_, B_, idx)
+                 for A_, B_ in (q, k, v))
+
+
+def _qkv_deltas(cfg: ArchConfig, h, lora, lora_idx, lora_fns):
     """Grouped low-rank q/k/v deltas of the normed input, shaped for
     ``_project_qkv(deltas=...)`` (pre-RoPE, pre-GQA-reshape)."""
     b, s, _ = h.shape
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = h.contiguous()
-    dq = lora_fn(h, lora["A_q"], lora["B_q"], lora_idx).reshape(b, s, H, hd)
-    dk = lora_fn(h, lora["A_k"], lora["B_k"], lora_idx).reshape(b, s, Hk, hd)
-    dv = lora_fn(h, lora["A_v"], lora["B_v"], lora_idx).reshape(b, s, Hk, hd)
-    return dq, dk, dv
+    pairs = [(lora["A_" + n], lora["B_" + n]) for n in "qkv"]
+    dq, dk, dv = lora_fns[0](h, *pairs, lora_idx)
+    return (dq.reshape(b, s, H, hd), dk.reshape(b, s, Hk, hd),
+            dv.reshape(b, s, Hk, hd))
 
 
-def _attn_out(cfg: ArchConfig, p, out, lora, lora_idx, lora_fn):
+def _attn_out(cfg: ArchConfig, p, out, lora, lora_idx, lora_fns):
     """Output projection of the flat attention output plus its LoRA
     delta (when the dispatch has adapters)."""
     y = A.out_proj(cfg, p["attn"], out)
     if lora is not None:
-        y = y + lora_fn(out.contiguous(), lora["A_o"], lora["B_o"], lora_idx)
+        y = y + lora_fns[1](out.contiguous(), lora["A_o"], lora["B_o"],
+                            lora_idx)
     return y
 
 
@@ -151,7 +160,7 @@ def _channel_mix(cfg: ArchConfig, p, x):
 def _prefill_layer(cfg: ArchConfig, p, x, ck, cv, bt_slot, pos_q,
                    dst: KVWrite, start: int, valid: int,
                    attn_impl: str = "gather", lora=None, lora_idx=None,
-                   lora_fn=None):
+                   lora_fns=None):
     """One layer of a single-slot prompt chunk.
 
     x: (1, C, d); ck/cv: (N, bs, Hk, hd) this layer's block pool (written
@@ -159,14 +168,14 @@ def _prefill_layer(cfg: ArchConfig, p, x, ck, cv, bt_slot, pos_q,
     positions of the chunk; ``dst`` the targets of its first ``valid``
     rows, the live ones (padding rows are neither written nor used).
     ``lora`` (this layer's factors), ``lora_idx`` ((1,) the slot's pool
-    slot, -1 = base model) and ``lora_fn`` add grouped low-rank deltas.
+    slot, -1 = base model) and ``lora_fns`` add grouped low-rank deltas.
     """
     bs = ck.shape[1]
     L_virt = bt_slot.shape[0] * bs
     b, s = x.shape[0], x.shape[1]
     h = apply_norm(cfg.norm_kind, x, p["ln1"])
     deltas = (None if lora is None
-              else _qkv_deltas(cfg, h, lora, lora_idx, lora_fn))
+              else _qkv_deltas(cfg, h, lora, lora_idx, lora_fns))
     q, k_new, v_new = A._project_qkv(cfg, p["attn"], h, pos_q[None, :],
                                      deltas)
     _write_kv(ck, dst, k_new[0, :valid])
@@ -183,13 +192,13 @@ def _prefill_layer(cfg: ArchConfig, p, x, ck, cv, bt_slot, pos_q,
         out = A._gqa_scores_softmax_out(q, page_k.to(x.dtype),
                                         page_v.to(x.dtype), mask,
                                         cfg.head_dim ** -0.5)
-    y = _attn_out(cfg, p, out, lora, lora_idx, lora_fn)
+    y = _attn_out(cfg, p, out, lora, lora_idx, lora_fns)
     return _channel_mix(cfg, p, x + y)
 
 
 def _decode_layer(cfg: ArchConfig, p, x, ck, cv, bt, pos, live,
                   dst: KVWrite, attn_impl: str = "gather", lora=None,
-                  lora_idx=None, lora_fn=None):
+                  lora_idx=None, lora_fns=None):
     """One layer of a one-token step for ALL slots.
 
     x: (S, 1, d); ck/cv: (N, bs, Hk, hd); bt: (S, max_bps) block tables;
@@ -201,7 +210,7 @@ def _decode_layer(cfg: ArchConfig, p, x, ck, cv, bt, pos, live,
     L_virt = max_bps * bs
     h = apply_norm(cfg.norm_kind, x, p["ln1"])
     deltas = (None if lora is None
-              else _qkv_deltas(cfg, h, lora, lora_idx, lora_fn))
+              else _qkv_deltas(cfg, h, lora, lora_idx, lora_fns))
     q, k_new, v_new = A._project_qkv(cfg, p["attn"], h, pos[:, None], deltas)
     _write_kv(ck, dst, k_new[live, 0])
     _write_kv(cv, dst, v_new[live, 0])
@@ -219,13 +228,13 @@ def _decode_layer(cfg: ArchConfig, p, x, ck, cv, bt, pos, live,
         out = A._gqa_scores_softmax_out(q, page_k.to(x.dtype),
                                         page_v.to(x.dtype), mask,
                                         cfg.head_dim ** -0.5)
-    y = _attn_out(cfg, p, out, lora, lora_idx, lora_fn)
+    y = _attn_out(cfg, p, out, lora, lora_idx, lora_fns)
     return _channel_mix(cfg, p, x + y)
 
 
 def _verify_layer(cfg: ArchConfig, p, x, ck, cv, bt, pos, rows: KVRows,
                   dst: KVWrite, attn_impl: str = "gather", lora=None,
-                  lora_idx=None, lora_fn=None):
+                  lora_idx=None, lora_fns=None):
     """One layer of a multi-query pass: Q queries per slot.
 
     x: (S, Q, d) — slot ``s``'s queries sit at absolute positions
@@ -246,7 +255,7 @@ def _verify_layer(cfg: ArchConfig, p, x, ck, cv, bt, pos, rows: KVRows,
     pos_q = pos[:, None] + torch.arange(Q, dtype=pos.dtype,
                                         device=x.device)[None, :]  # (S, Q)
     deltas = (None if lora is None
-              else _qkv_deltas(cfg, h, lora, lora_idx, lora_fn))
+              else _qkv_deltas(cfg, h, lora, lora_idx, lora_fns))
     q, k_new, v_new = A._project_qkv(cfg, p["attn"], h, pos_q, deltas)
     _write_kv(ck, dst, k_new[rows])
     _write_kv(cv, dst, v_new[rows])
@@ -262,7 +271,7 @@ def _verify_layer(cfg: ArchConfig, p, x, ck, cv, bt, pos, rows: KVRows,
         out = A._gqa_scores_softmax_out(q, page_k.to(x.dtype),
                                         page_v.to(x.dtype), mask,
                                         cfg.head_dim ** -0.5)
-    y = _attn_out(cfg, p, out, lora, lora_idx, lora_fn)
+    y = _attn_out(cfg, p, out, lora, lora_idx, lora_fns)
     return _channel_mix(cfg, p, x + y)
 
 

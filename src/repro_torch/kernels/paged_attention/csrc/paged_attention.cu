@@ -2,10 +2,10 @@
 // speculative verify.
 //
 // Replaces the TPU Pallas kernels of the JAX package:
-//   paged_decode_kernel  <- kernels/paged_attention/paged_attention.py::paged_decode_fwd
-//                           (_decode_kernel)
-//   paged_prefill_kernel <- kernels/paged_attention/paged_attention.py::paged_prefill_fwd
-//                           (_prefill_kernel)
+//   paged_decode_kernel      <- kernels/paged_attention/paged_attention.py::paged_decode_fwd
+//                               (_decode_kernel)
+//   paged_prefill_mma_kernel, <- kernels/paged_attention/paged_attention.py::paged_prefill_fwd
+//   paged_prefill_kernel          (_prefill_kernel)
 //   paged_verify_mma_kernel, <- kernels/paged_attention/paged_attention.py::paged_verify_fwd
 //   paged_verify_kernel         (_verify_kernel)
 //
@@ -18,34 +18,39 @@
 // What bounds them on the card: bytes.  Decode does 4 flops per K/V element
 // it reads (G rows), far below the ~295 flop/byte the H100 needs before its
 // tensor cores become the limit; it must read sum_s (pos[s]+1)*Hk*d*2*kv_bytes
-// per layer.  Verify is prefill per slot: Q = k+1 queries (or a whole
-// bucketed-admission chunk) at pos[s] .. pos[s]+Q-1 over the slot's table.
-// At llama2-7b's main-path shapes it is bound by bytes too: 0.0071 ms for
-// the speculative pass's 4 slots x 5 queries at cursors 540-552, 0.0063 and
+// per layer.  Prefill and verify are one function: Q queries of a slot (a
+// prompt chunk, the k+1 speculative candidates, or a bucketed-admission
+// chunk) at p .. p+Q-1 over the slot's table, attending keys k <= its
+// position and k < key_end (prefill: start + valid; verify: no limit past
+// the causal one).  At llama2-7b's main-path shapes they are bound by bytes
+// too: 0.0038 ms for a 256-row prefill chunk at start 256, 0.0071 ms for the
+// speculative pass's 4 slots x 5 queries at cursors 540-552, 0.0063 and
 // 0.0113 ms for bucketed admission's 4 x 256-row chunks at cursors 0 and 256
 // (each distinct K/V byte once at 3.35 TB/s).
 //
 // Two bodies:
-// * attend_rows (K1 decode, K2 prefill, and K3 for f32 q or f32 KV or a
-//   head dim the tensor-core body does not take): one thread block per
-//   (slot, KV head) for decode and per (KV head, tile of 16 query rows[,
-//   slot]) for prefill and verify; the block loops over its KV blocks in
-//   order (the TPU's sequential grid axis), carrying the running max, sum
-//   and f32 accumulator in shared memory, all arithmetic f32 on the CUDA
-//   cores.  f32 q stays exact in f32 there.
-// * paged_verify_mma_kernel (K3 for bf16 q with bf16 or int8 KV, d a
-//   multiple of 16 up to 128; see its section below): FlashAttention-2 on
-//   mma.sync, 64-key tiles by cp.async, double-buffered, P.V as P_hi.V +
-//   P_lo.V so that every comparison stays inside kernel_tolerance; the
-//   chunk path puts 64 rows in a block (four warps sharing each tile), the
-//   speculative verify (Q*G <= 16) splits each tile's keys over the four
-//   warps.  mma.sync and not wgmma: the work is bound by bytes, and P stays
-//   in registers between the two products, as FA2 needs.
+// * attend_rows (K1 decode, and K2 and K3 for f32 q or f32 KV or a head dim
+//   the tensor-core body does not take): one thread block per (slot, KV
+//   head) for decode and per (KV head, tile of 16 query rows[, slot]) for
+//   prefill and verify; the block loops over its KV blocks in order (the
+//   TPU's sequential grid axis), carrying the running max, sum and f32
+//   accumulator in shared memory, all arithmetic f32 on the CUDA cores.
+//   f32 q stays exact in f32 there.
+// * attend_mma (K2 and K3 for bf16 q with bf16 or int8 KV, d a multiple of
+//   16 up to 128; see its section below): FlashAttention-2 on mma.sync,
+//   64-key tiles by cp.async, double-buffered, P.V as P_hi.V + P_lo.V so
+//   that every comparison stays inside kernel_tolerance; a chunk puts 64
+//   rows in a block (four warps sharing each tile), a slot whose rows fit
+//   one 16-row tile (the speculative verify, a short chunk) splits each
+//   tile's keys over the four warps.  mma.sync and not wgmma: the work is
+//   bound by bytes, and P stays in registers between the two products, as
+//   FA2 needs.  paged_prefill_mma_kernel and paged_verify_mma_kernel are
+//   its two entry points (two names, so that a profile tells them apart).
 //
 // Not yet: TMA (and multicast of a shared prefix across a slot's blocks), a
 // persistent grid, split-KV across blocks (the speculative verify runs one
 // block per (slot, head): 128 blocks at S = 4, Hk = 32), and tensor cores
-// in K1 and K2.
+// in K1.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (see ../../build.py and ../ops.py).
@@ -264,13 +269,14 @@ paged_verify_kernel(const QT* __restrict__ q, const KT* __restrict__ ck,
 }
 
 // ---------------------------------------------------------------------------
-// K3 on the tensor cores: paged_verify_mma_kernel
+// K2 and K3 on the tensor cores: attend_mma
 // ---------------------------------------------------------------------------
 //
 // FlashAttention-2 on mma.sync.m16n8k16 (bf16 in, f32 accumulate) for bf16
 // q with bf16 or int8 KV and d a multiple of 16 up to 128.  Each warp owns
 // 16 of the slot's Q*G rows (R = c*G + g), its q fragments in registers for
-// the whole loop.  KV comes in tiles of 64 keys read through the slot's
+// the whole loop; row R sits at p + R / G and attends keys k <= p + R / G
+// with k < key_end.  KV comes in tiles of 64 keys read through the slot's
 // table (any bs), staged by cp.async and double-buffered; int8 K and V land
 // raw and are converted to bf16 in shared memory (exact).  S = Q.K^T and the
 // online softmax stay in f32 registers; P.V runs as two MMAs, on P_hi =
@@ -279,11 +285,32 @@ paged_verify_kernel(const QT* __restrict__ q, const KT* __restrict__ ck,
 // tests/test_torch_kernel_numerics.py).  Every product of bf16 operands is
 // exact in f32, so the rest differs from the plain version by f32 sum order.
 //
-// KS = 1 (the chunk path): four warps own 64 rows and share each tile.
-// KS = 4 (Q*G <= 16, the speculative verify): one 16-row tile, the four
-// warps take keys [16w, 16w + 16) of each tile and merge their (m, l, acc)
-// in shared memory in warp order at the end (deterministic).
+// KS = 1 (a chunk): four warps own 64 rows and share each tile.
+// KS = 4 (Q*G <= 16: the speculative verify, a short chunk): one 16-row
+// tile, the four warps take keys [16w, 16w + 16) of each tile and merge
+// their (m, l, acc) in shared memory in warp order at the end
+// (deterministic).
+//
+// Padding rows of a chunk (c >= valid, or past the table) attend every key
+// below the limit, as the reference's do; each has key 0 at least, so its
+// output stays finite, and it is not used.
 constexpr int kTileKeys = 64;
+
+// What one launch of attend_mma computes: slot s's Q*G rows of q (S, Q, Hk,
+// G, D) at p .. p+Q-1 through table s.  Verify: p = pos[s], and key_end =
+// p + Q puts no limit past the causal one.  Prefill: S = 1, pos = nullptr,
+// p = start and key_end = start + valid.
+struct MmaArgs {
+  const __nv_bfloat16* q;
+  const void* ck;
+  const void* cv;
+  const int* tables;    // (S, nb)
+  const int* pos;       // (S,) cursors, or nullptr for a prefill chunk
+  __nv_bfloat16* out;
+  int Q, Hk, G, bs, nb;
+  int start, valid;     // the prefill chunk's span (pos == nullptr)
+  float scale;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -309,7 +336,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Dynamic shared memory of paged_verify_mma_kernel.  bf16 KV: two stages
+// Dynamic shared memory of attend_mma.  bf16 KV: two stages
 // of K and V tiles, rows padded to d + 8 (16 bytes) so that fragment reads
 // hit distinct banks.  int8 KV: two stages of raw K and V tiles, then one
 // bf16 K and V tile converted from them.  KS = 4 reuses it to merge.
@@ -323,11 +350,7 @@ size_t verify_mma_smem(int d, bool int8_kv) {
 
 // grid (Hk, ceil(Q*G / (64 / KS)), S), 128 threads
 template <int D, int KS, typename KT>
-__global__ void __launch_bounds__(kThreads)
-paged_verify_mma_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
-                        const KT* __restrict__ cv, const int* __restrict__ block_tables,
-                        const int* __restrict__ pos, __nv_bfloat16* __restrict__ out, int Q,
-                        int Hk, int G, int bs, int nb, float scale) {
+__device__ __forceinline__ void attend_mma(const MmaArgs& a) {
   constexpr int RW = 4 / KS;               // row warps
   constexpr int KW = kTileKeys / KS;       // keys of a tile per warp
   constexpr int NT = KW / 8;               // n8 tiles of S
@@ -337,16 +360,24 @@ paged_verify_mma_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restric
   constexpr int CH = D / 8;                // 16-byte bf16 chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
+  const __nv_bfloat16* __restrict__ q = a.q;
+  const KT* __restrict__ ck = static_cast<const KT*>(a.ck);
+  const KT* __restrict__ cv = static_cast<const KT*>(a.cv);
+  __nv_bfloat16* __restrict__ out = a.out;
+  const int Q = a.Q, Hk = a.Hk, G = a.G, bs = a.bs, nb = a.nb;
+  const float scale = a.scale;
   const int h = blockIdx.x, s = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rt = warp % RW, ks = warp / RW;
   const int QG = Q * G;
   const int row_base = blockIdx.y * 16 * RW;
-  const int p = pos[s];
-  const int* table = block_tables + static_cast<size_t>(s) * nb;
-  const int L = nb * bs;
-  // every warp walks the same tiles: up to the block's last row's limit,
-  // never past the table (padding rows past it attend the whole table)
+  const int p = a.pos ? a.pos[s] : a.start;
+  const int key_end = a.pos ? p + Q : a.start + a.valid;
+  const int* table = a.tables + static_cast<size_t>(s) * nb;
+  // keys at or past L are masked for every row: the key limit, and never
+  // past the table (padding rows past it attend the whole table)
+  const int L = min(nb * bs, key_end);
+  // every warp walks the same tiles: up to the block's last row's limit
   const int last_row = min(QG, row_base + 16 * RW) - 1;
   const int n_keys = min(p + last_row / G + 1, L);
   const int n_tiles = (n_keys + kTileKeys - 1) / kTileKeys;
@@ -465,7 +496,7 @@ paged_verify_mma_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restric
         mma_bf16(sc[nt], qa[kk], b0, b1);
       }
     }
-    // mask (k <= q_pos of the row, k inside the table), scale, online softmax
+    // mask (k <= q_pos of the row, k below the limit), scale, online softmax
     const int kbase = j * kTileKeys + key0 + 2 * (lane % 4);
     float mx_lo = kNegInf, mx_hi = kNegInf;
 #pragma unroll
@@ -602,6 +633,16 @@ paged_verify_mma_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restric
   }
 }
 
+template <int D, int KS, typename KT>
+__global__ void __launch_bounds__(kThreads) paged_verify_mma_kernel(MmaArgs a) {
+  attend_mma<D, KS, KT>(a);
+}
+
+template <int D, int KS, typename KT>
+__global__ void __launch_bounds__(kThreads) paged_prefill_mma_kernel(MmaArgs a) {
+  attend_mma<D, KS, KT>(a);
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -657,41 +698,28 @@ int launch_verify(const void* q, const void* ck, const void* cv, const void* bt,
 }
 
 template <int D, int KS, typename KT>
-int launch_verify_mma(const void* q, const void* ck, const void* cv, const void* bt,
-                      const void* pos, void* out, int S, int Q, int Hk, int G, int bs, int nb,
-                      float scale, cudaStream_t stream) {
+int launch_mma(const MmaArgs& a, int S, bool prefill, cudaStream_t stream) {
   const size_t smem = verify_mma_smem(D, sizeof(KT) == 1);
-  auto kernel = paged_verify_mma_kernel<D, KS, KT>;
+  auto kernel = prefill ? paged_prefill_mma_kernel<D, KS, KT> : paged_verify_mma_kernel<D, KS, KT>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = 16 * (4 / KS);
-  const int tiles = (Q * G + rows - 1) / rows;
-  kernel<<<dim3(Hk, tiles, S), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(ck),
-      static_cast<const KT*>(cv), static_cast<const int*>(bt), static_cast<const int*>(pos),
-      static_cast<__nv_bfloat16*>(out), Q, Hk, G, bs, nb, scale);
+  const int tiles = (a.Q * a.G + rows - 1) / rows;
+  kernel<<<dim3(a.Hk, tiles, S), kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, typename KT>
-int verify_mma_ks(int key_splits, const void* q, const void* ck, const void* cv,
-                  const void* bt, const void* pos, void* out, int S, int Q, int Hk, int G,
-                  int bs, int nb, float scale, cudaStream_t st) {
-  if (key_splits == 4)
-    return launch_verify_mma<D, 4, KT>(q, ck, cv, bt, pos, out, S, Q, Hk, G, bs, nb, scale, st);
-  if (key_splits == 1)
-    return launch_verify_mma<D, 1, KT>(q, ck, cv, bt, pos, out, S, Q, Hk, G, bs, nb, scale, st);
+int mma_ks(int key_splits, const MmaArgs& a, int S, bool prefill, cudaStream_t st) {
+  if (key_splits == 4) return launch_mma<D, 4, KT>(a, S, prefill, st);
+  if (key_splits == 1) return launch_mma<D, 1, KT>(a, S, prefill, st);
   return -1;
 }
 
 template <typename KT>
-int verify_mma_d(int d, int key_splits, const void* q, const void* ck, const void* cv,
-                 const void* bt, const void* pos, void* out, int S, int Q, int Hk, int G, int bs,
-                 int nb, float scale, cudaStream_t st) {
-#define PA_MMA_D(DD)                                                                        \
-  case DD:                                                                                  \
-    return verify_mma_ks<DD, KT>(key_splits, q, ck, cv, bt, pos, out, S, Q, Hk, G, bs, nb, \
-                                 scale, st);
+int mma_d(int d, int key_splits, const MmaArgs& a, int S, bool prefill, cudaStream_t st) {
+#define PA_MMA_D(DD) \
+  case DD: return mma_ks<DD, KT>(key_splits, a, S, prefill, st);
   switch (d) {
     PA_MMA_D(16)
     PA_MMA_D(32)
@@ -704,6 +732,13 @@ int verify_mma_d(int d, int key_splits, const void* q, const void* ck, const voi
     default: return -1;
   }
 #undef PA_MMA_D
+}
+
+int mma_launch(int kv_dtype, int d, int key_splits, const MmaArgs& a, int S, bool prefill,
+               cudaStream_t st) {
+  if (kv_dtype == kBF16) return mma_d<__nv_bfloat16>(d, key_splits, a, S, prefill, st);
+  if (kv_dtype == kI8) return mma_d<int8_t>(d, key_splits, a, S, prefill, st);
+  return -1;
 }
 
 constexpr int kBadDType = -1;
@@ -753,22 +788,28 @@ int paged_verify_launch(const void* q, const void* cache_k, const void* cache_v,
               scale, static_cast<cudaStream_t>(stream))
 }
 
-// The tensor-core verify body: bf16 q and output, bf16 (1) or int8 (2) KV,
-// d a multiple of 16 up to 128, key_splits 1 (four 16-row warps per block)
-// or 4 (one 16-row tile, the keys split four ways).  Returns the
-// cudaError_t of the launch, or -1 for arguments it does not take.
+// The tensor-core body (attend_mma): bf16 q and output, bf16 (1) or int8 (2)
+// KV, d a multiple of 16 up to 128, key_splits 1 (four 16-row warps per
+// block) or 4 (one 16-row tile, the keys split four ways).  Each returns
+// the cudaError_t of the launch, or -1 for arguments it does not take.
 int paged_verify_mma_launch(const void* q, const void* cache_k, const void* cache_v,
                             const void* block_tables, const void* pos, void* out, int S, int Q,
                             int Hk, int G, int d, int bs, int nb, int kv_dtype, int key_splits,
                             float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_dtype == kBF16)
-    return verify_mma_d<__nv_bfloat16>(d, key_splits, q, cache_k, cache_v, block_tables, pos,
-                                       out, S, Q, Hk, G, bs, nb, scale, st);
-  if (kv_dtype == kI8)
-    return verify_mma_d<int8_t>(d, key_splits, q, cache_k, cache_v, block_tables, pos, out, S,
-                                Q, Hk, G, bs, nb, scale, st);
-  return kBadDType;
+  const MmaArgs a{static_cast<const __nv_bfloat16*>(q), cache_k, cache_v,
+                  static_cast<const int*>(block_tables), static_cast<const int*>(pos),
+                  static_cast<__nv_bfloat16*>(out), Q, Hk, G, bs, nb, 0, 0, scale};
+  return mma_launch(kv_dtype, d, key_splits, a, S, false, static_cast<cudaStream_t>(stream));
+}
+
+int paged_prefill_mma_launch(const void* q, const void* cache_k, const void* cache_v,
+                             const void* block_table, void* out, int C, int Hk, int G, int d,
+                             int bs, int nb, int start, int valid, int kv_dtype, int key_splits,
+                             float scale, void* stream) {
+  const MmaArgs a{static_cast<const __nv_bfloat16*>(q), cache_k, cache_v,
+                  static_cast<const int*>(block_table), nullptr,
+                  static_cast<__nv_bfloat16*>(out), C, Hk, G, bs, nb, start, valid, scale};
+  return mma_launch(kv_dtype, d, key_splits, a, 1, true, static_cast<cudaStream_t>(stream));
 }
 
 long long paged_verify_mma_smem_bytes(int d, int kv_dtype) {

@@ -7,14 +7,16 @@ device they launch the hand-written Hopper kernels of
 the current stream, or raise; nothing falls back.  For tensors on the CPU
 they compute the plain versions of ``ref.py``.
 
-``paged_verify`` has two bodies (:func:`verify_body`): bf16 q with bf16 or
-int8 KV and a head dim that is a multiple of 16 up to 128 runs on the
-tensor cores (``mma``, ``paged_verify_mma_kernel``); any other (q, KV,
-d) keeps the body K1 and K2 share (``rows``, ``attend_rows`` in f32).
+``paged_prefill`` and ``paged_verify`` have two bodies each, by one rule
+(:func:`prefill_body`, :func:`verify_body`): bf16 q with bf16 or int8 KV
+and a head dim that is a multiple of 16 up to 128 runs on the tensor cores
+(``mma``: ``attend_mma``, entered as ``paged_prefill_mma_kernel`` or
+``paged_verify_mma_kernel``); any other (q, KV, d) keeps the body K1
+uses (``rows``, ``attend_rows`` in f32).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
 that its main path went through the kernels; ``BODY_LAUNCHES`` counts
-``paged_verify``'s by body.
+``paged_prefill``'s and ``paged_verify``'s by body.
 """
 from __future__ import annotations
 
@@ -33,8 +35,10 @@ LIBRARY_NAME = "paged_attention"
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_prefill": 0,
                             "paged_verify": 0}
-#: paged_verify's launches by body
-BODY_LAUNCHES: Dict[str, int] = {"mma": 0, "rows": 0}
+#: paged_prefill's and paged_verify's launches by body
+BODY_LAUNCHES: Dict[str, Dict[str, int]] = {
+    "paged_prefill": {"mma": 0, "rows": 0},
+    "paged_verify": {"mma": 0, "rows": 0}}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_DTYPES = (torch.float32, torch.bfloat16)
@@ -44,25 +48,32 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, BODY_LAUNCHES):
+    for counts in (LAUNCHES, *BODY_LAUNCHES.values()):
         for k in counts:
             counts[k] = 0
 
 
 def verify_body(q_dtype: torch.dtype, kv_dtype: torch.dtype, d: int,
                 rows: int) -> Tuple[str, int]:
-    """paged_verify's body for a call, and its key splits.
+    """paged_verify's and paged_prefill's body for a call, and its key
+    splits (a prefill chunk is one slot's verify at ``pos = start`` with
+    the keys cut at ``start + valid``).
 
     ``("mma", ks)`` for bf16 q with bf16 or int8 KV and d a multiple of
-    16 up to 128: ``ks = 4`` when a slot's ``rows = Q * G`` fit one
-    16-row warp tile (the four warps then split the keys), else 1 (four
-    16-row warps per block).  ``("rows", 1)`` for anything else: f32 q
-    must stay exact in f32, which a bf16 tensor-core path would not be.
+    16 up to 128: ``ks = 4`` when a slot's ``rows`` (``Q * G``, or
+    ``C * G`` for a chunk) fit one 16-row warp tile (the four warps then
+    split the keys), else 1 (four 16-row warps per block).  ``("rows",
+    1)`` for anything else: f32 q must stay exact in f32, which a bf16
+    tensor-core path would not be.
     """
     if (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
             and d % 16 == 0 and 16 <= d <= 128):
         return "mma", 4 if rows <= 16 else 1
     return "rows", 1
+
+
+#: paged_prefill's rule is paged_verify's
+prefill_body = verify_body
 
 
 def load_library() -> ctypes.CDLL:
@@ -84,6 +95,10 @@ def load_library() -> ctypes.CDLL:
                                                 I, I, I, I, I, ctypes.c_float,
                                                 P]
         lib.paged_verify_mma_launch.restype = I
+        lib.paged_prefill_mma_launch.argtypes = [P, P, P, P, P, I, I, I, I,
+                                                 I, I, I, I, I, I,
+                                                 ctypes.c_float, P]
+        lib.paged_prefill_mma_launch.restype = I
         lib.paged_verify_mma_smem_bytes.argtypes = [I, I]
         lib.paged_verify_mma_smem_bytes.restype = ctypes.c_longlong
         lib.paged_smem_bytes.argtypes = [I, I, I]
@@ -127,6 +142,13 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
                            f"{lib.paged_error_string(err).decode()}")
+
+
+def _check_aligned(q: torch.Tensor, cache_k: torch.Tensor,
+                   cache_v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
+        if t.data_ptr() % 16:             # the mma body's 16-byte copies
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def _smem_check(lib: ctypes.CDLL, rows: int, d: int, bs: int,
@@ -193,15 +215,26 @@ def paged_prefill(q: torch.Tensor, cache_k: torch.Tensor,
                          f"fit C={C} and the table's {nb * bs} positions")
     out = torch.empty_like(q)
     lib = load_library()
-    _smem_check(lib, lib.paged_prefill_rows(), d, bs)
+    body, key_splits = prefill_body(q.dtype, cache_k.dtype, d, C * G)
+    kv_code = _DTYPE_CODES[cache_k.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.paged_prefill_launch(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        block_table.data_ptr(), out.data_ptr(), C, Hk, G, d, bs, nb,
-        start, valid, _DTYPE_CODES[q.dtype], _DTYPE_CODES[cache_k.dtype],
-        d ** -0.5, stream)
-    _raise_on(lib, err, "paged_prefill")
+    ptrs = (q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            block_table.data_ptr(), out.data_ptr())
+    if body == "mma":
+        _check_aligned(q, cache_k, cache_v)
+        _smem_check(lib, C * G, d, bs,
+                    lib.paged_verify_mma_smem_bytes(d, kv_code))
+        err = lib.paged_prefill_mma_launch(
+            *ptrs, C, Hk, G, d, bs, nb, start, valid, kv_code, key_splits,
+            d ** -0.5, stream)
+    else:
+        _smem_check(lib, lib.paged_prefill_rows(), d, bs)
+        err = lib.paged_prefill_launch(
+            *ptrs, C, Hk, G, d, bs, nb, start, valid, _DTYPE_CODES[q.dtype],
+            kv_code, d ** -0.5, stream)
+    _raise_on(lib, err, f"paged_prefill ({body})")
     LAUNCHES["paged_prefill"] += 1
+    BODY_LAUNCHES["paged_prefill"][body] += 1
     return out
 
 
@@ -237,9 +270,7 @@ def paged_verify(q: torch.Tensor, cache_k: torch.Tensor,
     ptrs = (q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
             block_tables.data_ptr(), pos.data_ptr(), out.data_ptr())
     if body == "mma":
-        for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
-            if t.data_ptr() % 16:         # the body's 16-byte copies
-                raise ValueError(f"{name} must start on a 16-byte boundary")
+        _check_aligned(q, cache_k, cache_v)
         _smem_check(lib, Q * G, d, bs,
                     lib.paged_verify_mma_smem_bytes(d, kv_code))
         err = lib.paged_verify_mma_launch(
@@ -252,11 +283,12 @@ def paged_verify(q: torch.Tensor, cache_k: torch.Tensor,
             d ** -0.5, stream)
     _raise_on(lib, err, f"paged_verify ({body})")
     LAUNCHES["paged_verify"] += 1
-    BODY_LAUNCHES[body] += 1
+    BODY_LAUNCHES["paged_verify"][body] += 1
     return out
 
 
 __all__ = ["BODY_LAUNCHES", "LAUNCHES", "load_library", "paged_decode",
            "paged_decode_ref",
            "paged_prefill", "paged_prefill_ref", "paged_verify",
-           "paged_verify_ref", "reset_launch_counts", "verify_body"]
+           "paged_verify_ref", "prefill_body", "reset_launch_counts",
+           "verify_body"]

@@ -145,10 +145,11 @@ def test_verify_mma_body_matches_plain_version(cuda_device, Q, Hk, G, kv,
                                       [0, 16, 37, nb * 16 - 3], nb=nb)
     q = q.bfloat16()
     assert ops.verify_body(q.dtype, kv, d, Q * G)[0] == "mma"
-    before = dict(ops.BODY_LAUNCHES)
+    before = dict(ops.BODY_LAUNCHES["paged_verify"])
     out = ops.paged_verify(q, ck, cv, bt, pos)
     torch.cuda.synchronize()
-    assert ops.BODY_LAUNCHES == dict(before, mma=before["mma"] + 1)
+    assert ops.BODY_LAUNCHES["paged_verify"] == dict(before,
+                                                     mma=before["mma"] + 1)
     _assert_within_tolerance(out, ops.paged_verify_ref(q, ck, cv, bt, pos),
                              cv)
 
@@ -160,29 +161,92 @@ def test_verify_f32_q_keeps_the_rows_body(cuda_device, kv):
     q, ck, cv, bt, pos = _verify_case(cuda_device, kv, 4, 7, 5, 128,
                                       [3, 40])
     assert ops.verify_body(q.dtype, kv, 128, 35) == ("rows", 1)
-    before = dict(ops.BODY_LAUNCHES)
+    before = dict(ops.BODY_LAUNCHES["paged_verify"])
     out = ops.paged_verify(q, ck, cv, bt, pos)
     torch.cuda.synchronize()
-    assert ops.BODY_LAUNCHES == dict(before, rows=before["rows"] + 1)
+    assert ops.BODY_LAUNCHES["paged_verify"] == dict(before,
+                                                     rows=before["rows"] + 1)
     _assert_within_tolerance(out, ops.paged_verify_ref(q, ck, cv, bt, pos),
                              cv)
 
 
-@pytest.mark.parametrize("T", [1, 5, 40])
+def _prefill_case(device, kv, Hk, G, C, q_dtype, nb=37, seed=5):
+    q, ck, cv, bt, _ = _verify_case(device, kv, Hk, G, C, 128, [0], nb=nb,
+                                    seed=seed)
+    return q[0].to(q_dtype).contiguous(), ck, cv, bt[0].contiguous()
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("Hk,G", [(32, 1), (4, 7)])
+@pytest.mark.parametrize("start,valid", [(0, 256), (200, 77), (520, 3)])
+def test_prefill_mma_body_matches_plain_version(cuda_device, start, valid,
+                                                Hk, G, kv):
+    """K2 on the tensor-core body (bf16 q): 256-row chunks at llama2-7b's
+    and qwen2-7b's heads; an admission chunk, one that starts mid-block
+    with valid < C, and a tail chunk, both with the key limit below every
+    padding row's causal one.  Every row is held to the plain version,
+    the padding rows too (finite, as the reference's)."""
+    q, ck, cv, table = _prefill_case(cuda_device, kv, Hk, G, 256,
+                                     torch.bfloat16)
+    assert ops.prefill_body(q.dtype, kv, 128, 256 * G) == ("mma", 1)
+    before = dict(ops.BODY_LAUNCHES["paged_prefill"])
+    out = ops.paged_prefill(q, ck, cv, table, start, valid)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES["paged_prefill"] == dict(before,
+                                                      mma=before["mma"] + 1)
+    assert bool(torch.isfinite(out.float()).all())
+    _assert_within_tolerance(
+        out, ops.paged_prefill_ref(q, ck, cv, table, start, valid), cv)
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
+def test_prefill_short_chunk_splits_the_keys(cuda_device, kv):
+    """A chunk of C * G <= 16 rows runs the key-split variant (KS = 4)
+    of the mma body, with the key limit."""
+    q, ck, cv, table = _prefill_case(cuda_device, kv, 4, 1, 8,
+                                     torch.bfloat16, nb=8)
+    assert ops.prefill_body(q.dtype, kv, 128, 8) == ("mma", 4)
+    for start, valid in ((0, 8), (37, 5), (120, 3)):
+        out = ops.paged_prefill(q, ck, cv, table, start, valid)
+        torch.cuda.synchronize()
+        _assert_within_tolerance(
+            out, ops.paged_prefill_ref(q, ck, cv, table, start, valid), cv)
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
+def test_prefill_f32_q_keeps_the_rows_body(cuda_device, kv):
+    """f32 q stays exact in f32: K2 takes attend_rows for it."""
+    q, ck, cv, table = _prefill_case(cuda_device, kv, 4, 7, 64,
+                                     torch.float32)
+    assert ops.prefill_body(q.dtype, kv, 128, 448) == ("rows", 1)
+    before = dict(ops.BODY_LAUNCHES["paged_prefill"])
+    out = ops.paged_prefill(q, ck, cv, table, 200, 41)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES["paged_prefill"] == dict(before,
+                                                      rows=before["rows"] + 1)
+    _assert_within_tolerance(
+        out, ops.paged_prefill_ref(q, ck, cv, table, 200, 41), cv)
+
+
+def _lora_pool(device, k, n, gen, ranks=(4, 8, 16, 8), R=16):
+    P = len(ranks)
+    A = torch.zeros((P, k, R), device=device)
+    B = torch.zeros((P, R, n), device=device)
+    for p, r in enumerate(ranks):
+        A[p, :, :r] = torch.randn((k, r), generator=gen,
+                                  device=device) * r ** -0.5
+        B[p, :r] = torch.randn((r, n), generator=gen, device=device) * 0.05
+    return A.bfloat16().contiguous(), B.bfloat16().contiguous()
+
+
+@pytest.mark.parametrize("T", [1, 5, 40, 256])
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 def test_grouped_lora_kernel_matches_plain_version(cuda_device, T, x_dtype):
     """Mixed ranks (4/8/16 padded to 16), a shared tenant and holes."""
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(2)
-    S, k, n, P, R = 5, 320, 300, 4, 16
-    A = torch.zeros((P, k, R), device=cuda_device)
-    B = torch.zeros((P, R, n), device=cuda_device)
-    for p, r in enumerate((4, 8, 16, 8)):
-        A[p, :, :r] = torch.randn((k, r), generator=gen,
-                                  device=cuda_device) * r ** -0.5
-        B[p, :r] = torch.randn((r, n), generator=gen,
-                               device=cuda_device) * 0.05
-    A, B = A.bfloat16().contiguous(), B.bfloat16().contiguous()
+    S, k, n = 5, 320, 300
+    A, B = _lora_pool(cuda_device, k, n, gen)
     x = torch.randn((S, T, k), generator=gen,
                     device=cuda_device).to(x_dtype)
     idx = torch.tensor([2, -1, 0, 2, 3], dtype=torch.int32,
@@ -194,6 +258,61 @@ def test_grouped_lora_kernel_matches_plain_version(cuda_device, T, x_dtype):
     _assert_within_tolerance(out, ref, ref)
     assert not out[1].any()
     assert lora_ops.LAUNCHES["grouped_lora"] == before + 1
+
+
+@pytest.mark.parametrize("T", [1, 5, 256])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (3584, 512)])
+def test_grouped_lora_kernel_at_main_path_widths(cuda_device, k, n, T):
+    """llama2-7b's q/o and qwen2-7b's k/v widths at the main path's T:
+    decode, speculative verify, a prefill chunk (k split 32 ways at 4 x 1
+    and 4 x 5 rows, 5 ways at 4 x 256)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    A, B = _lora_pool(cuda_device, k, n, gen, ranks=(8, 16, 8, 16))
+    x = torch.randn((4, T, k), generator=gen,
+                    device=cuda_device).bfloat16()
+    idx = torch.tensor([0, -1, 3, 1], dtype=torch.int32, device=cuda_device)
+    out = lora_ops.grouped_lora(x, A, B, idx)
+    ref = lora_ops.grouped_lora_ref(x, A, B, idx)
+    torch.cuda.synchronize()
+    _assert_within_tolerance(out, ref, ref)
+    assert not out[1].any()
+
+
+@pytest.mark.parametrize("T", [1, 5, 256])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_grouped_lora_qkv_matches_three_plain_calls(cuda_device, T, x_dtype):
+    """One launch for q, k and v (q wider than k and v, as under GQA)
+    against three plain calls, holes exact zeros."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4)
+    k = 896
+    pairs = [_lora_pool(cuda_device, k, n, gen) for n in (896, 128, 128)]
+    x = torch.randn((4, T, k), generator=gen, device=cuda_device).to(x_dtype)
+    idx = torch.tensor([1, 3, -1, 1], dtype=torch.int32, device=cuda_device)
+    before = dict(lora_ops.LAUNCHES)
+    got = lora_ops.grouped_lora_qkv(x, *pairs, idx, scale=0.5)
+    torch.cuda.synchronize()
+    assert lora_ops.LAUNCHES == dict(
+        before, grouped_lora_qkv=before["grouped_lora_qkv"] + 1)
+    for out, (A, B) in zip(got, pairs):
+        ref = lora_ops.grouped_lora_ref(x, A, B, idx, scale=0.5)
+        _assert_within_tolerance(out, ref, ref)
+        assert not out[2].any()
+
+
+@pytest.mark.parametrize("T", [5, 256])
+def test_grouped_lora_is_deterministic(cuda_device, T):
+    """Fixed sum orders: the same input gives the same bits."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(6)
+    A, B = _lora_pool(cuda_device, 4096, 4096, gen, ranks=(8, 16))
+    x = torch.randn((4, T, 4096), generator=gen,
+                    device=cuda_device).bfloat16()
+    idx = torch.tensor([0, 1, -1, 0], dtype=torch.int32, device=cuda_device)
+    first = lora_ops.grouped_lora(x, A, B, idx)
+    for _ in range(3):
+        assert torch.equal(lora_ops.grouped_lora(x, A, B, idx), first)
 
 
 def test_grouped_lora_kernel_faults_on_a_slot_past_the_pool(cuda_device):

@@ -1,5 +1,6 @@
 """The arithmetic of the tensor-core bodies of K5 (int4 dequant-matmul) and
-K3 (paged verify), emulated on the CPU and held to ``kernel_tolerance``.
+K3 and K2 (paged verify and prefill, one body), emulated on the CPU and
+held to ``kernel_tolerance``; the grid plan of K4 (grouped LoRA).
 
 A CUDA kernel cannot run here, so each body's rounding is emulated in
 PyTorch: K5's zero-point split (``part = x_g . q_g - rowsum(x_g) *
@@ -21,10 +22,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.paged_attention import paged_prefill as pallas_prefill
 from repro.kernels.paged_attention import paged_verify as pallas_verify
 from repro.kernels.quant_matmul.ref import quant_matmul_ref as jax_qmm_ref
+from repro_torch.kernels.grouped_lora import ops as lora_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (kernel_tolerance,
+                                                     paged_prefill_ref,
                                                      paged_verify_ref)
 from repro_torch.kernels.quant_matmul import ops as qmm_ops
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
@@ -159,28 +163,30 @@ def test_split_plans_fill_the_card():
 # K3
 # ---------------------------------------------------------------------------
 
-def k3_mma(q, ck, cv, bt, pos, hi_lo=True):
+def k3_mma(q, ck, cv, bt, pos, hi_lo=True, key_end=None):
     """The mma body's arithmetic, block for block: 64-key tiles through the
     slot's table, scores as f32 sums of exact bf16 products, an f32 online
     softmax, P.V as P_hi.V + P_lo.V (or bf16(P).V alone with ``hi_lo``
     off); with ``verify_body``'s four key splits (each 16 keys of every
-    tile, merged in split order) when a slot's rows fit one warp tile."""
+    tile, merged in split order) when a slot's rows fit one warp tile.
+    ``key_end`` cuts the keys every row attends (K2's ``start + valid``);
+    None is verify's "no limit past the causal one"."""
     S, Q, Hk, G, d = q.shape
     bs, nb = ck.shape[1], bt.shape[1]
-    L = nb * bs
     body, splits = pa_ops.verify_body(q.dtype, ck.dtype, d, Q * G)
     assert body == "mma"
     kw = TILE_KEYS // splits
     out = torch.empty((S, Q, Hk, G, d))
     for s in range(S):
+        L = min(nb * bs, int(pos[s]) + Q if key_end is None else key_end)
         qpos = int(pos[s]) + torch.arange(Q * G) // G
         n_keys = min(int(qpos.max()) + 1, L)
         n_tiles = -(-n_keys // TILE_KEYS)
         pad = n_tiles * TILE_KEYS
         keys = torch.zeros((pad, Hk, d))
         vals = torch.zeros((pad, Hk, d))
-        keys[:n_keys] = ck[bt[s].long()].reshape(L, Hk, d)[:n_keys].float()
-        vals[:n_keys] = cv[bt[s].long()].reshape(L, Hk, d)[:n_keys].float()
+        keys[:n_keys] = ck[bt[s].long()].reshape(-1, Hk, d)[:n_keys].float()
+        vals[:n_keys] = cv[bt[s].long()].reshape(-1, Hk, d)[:n_keys].float()
         for h in range(Hk):
             qs = q[s, :, h].reshape(Q * G, d).float()
             m = torch.full((splits, Q * G), NEG_INF)
@@ -210,6 +216,17 @@ def k3_mma(q, ck, cv, bt, pos, hi_lo=True):
             o = tot / torch.clamp(tot_l, min=1e-30)[:, None]
             out[s, :, h] = o.reshape(Q, G, d)
     return out.to(q.dtype)
+
+
+def k2_mma(q, ck, cv, table, start, valid, hi_lo=True):
+    """K2 on the mma body: one slot's chunk q (C, Hk, G, d) as K3's body
+    at S = 1 and pos = start, the keys cut at start + valid."""
+    C, Hk, G, d = q.shape
+    assert pa_ops.prefill_body(q.dtype, ck.dtype, d, C * G) \
+        == pa_ops.verify_body(q.dtype, ck.dtype, d, C * G)
+    return k3_mma(q[None], ck, cv, table[None],
+                  torch.tensor([start], dtype=torch.int32), hi_lo=hi_lo,
+                  key_end=start + valid)[0]
 
 
 def _verify_case(S, Q, Hk, G, d, cursors, kv=torch.bfloat16, nb=37, bs=16,
@@ -289,3 +306,103 @@ def test_k3_single_bf16_p_exceeds_the_limit():
 ])
 def test_verify_body_rule(q_dtype, kv_dtype, d, rows, want):
     assert pa_ops.verify_body(q_dtype, kv_dtype, d, rows) == want
+
+
+# ---------------------------------------------------------------------------
+# K2
+# ---------------------------------------------------------------------------
+
+#: the chunks chip_smoke.py holds K2 to: an admission chunk, one at start
+#: > 0 with valid < C that starts mid-block, and a short tail chunk, whose
+#: key limit lies below the causal limit of every padding row
+PREFILL_CHUNKS = [(0, 256), (200, 77), (520, 3)]
+
+
+def _prefill_case(C, Hk, G, d, kv, nb=37, bs=16, seed=0):
+    q, ck, cv, bt, _ = _verify_case(1, C, Hk, G, d, [0], kv=kv, nb=nb,
+                                    bs=bs, seed=seed)
+    return q[0], ck, cv, bt[0]
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("G", [1, 7])
+@pytest.mark.parametrize("start,valid", PREFILL_CHUNKS)
+def test_k2_hi_lo_within_tolerance_of_plain_version(start, valid, G, kv):
+    """C = 256 chunks (llama2-7b's G = 1 with its 32 KV heads cut to 2,
+    qwen2-7b's G = 7 at one KV head: each head is computed on its own),
+    every row held, the padding rows too (they attend every key below
+    start + valid, as the reference's do, and stay finite)."""
+    q, ck, cv, table = _prefill_case(256, 2 if G == 1 else 1, G, 128, kv,
+                                     seed=start + valid + G)
+    got = k2_mma(q, ck, cv, table, start, valid)
+    ref = paged_prefill_ref(q, ck, cv, table, start, valid)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _ratio(got, ref) <= 1.0
+
+
+@pytest.mark.parametrize("G,d", [(1, 128), (7, 32)])
+@pytest.mark.parametrize("start,valid", [(0, 24), (13, 9), (40, 3)])
+def test_k2_hi_lo_within_tolerance_of_jax_kernel(start, valid, G, d):
+    """Against the reference's Pallas kernel in interpret mode (bf16 KV),
+    as its own tests run it, on the live rows they compare; C = 24 keeps
+    the chunk at one or two 64-row tiles or splits its keys four ways."""
+    q, ck, cv, table = _prefill_case(24 if G == 1 else 2, 1, G, d,
+                                     torch.bfloat16, nb=8, seed=d + start)
+    valid = min(valid, q.shape[0])
+    got = k2_mma(q, ck, cv, table, start, valid)
+    want = pallas_prefill(_bf16(q), _bf16(ck), _bf16(cv),
+                          jnp.asarray(table.numpy()), jnp.int32(start),
+                          jnp.int32(valid))
+    want = torch.from_numpy(np.asarray(want, np.float32)).bfloat16()
+    assert _ratio(got[:valid], want[:valid]) <= 1.0
+
+
+def test_k2_single_bf16_p_exceeds_the_limit():
+    """As for K3: one bf16 rounding of P misses the limit on a 256-row
+    chunk at start 256, where hi/lo P stays inside it."""
+    q, ck, cv, table = _prefill_case(256, 2, 1, 128, torch.bfloat16, seed=1)
+    ref = paged_prefill_ref(q, ck, cv, table, 256, 256)
+    assert _ratio(k2_mma(q, ck, cv, table, 256, 256, hi_lo=False), ref) > 2.0
+    assert _ratio(k2_mma(q, ck, cv, table, 256, 256), ref) <= 1.0
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,d,rows,want", [
+    (torch.bfloat16, torch.bfloat16, 128, 256, ("mma", 1)),
+    (torch.bfloat16, torch.int8, 128, 1792, ("mma", 1)),
+    (torch.bfloat16, torch.bfloat16, 64, 16, ("mma", 4)),
+    (torch.bfloat16, torch.int8, 32, 8, ("mma", 4)),
+    (torch.float32, torch.bfloat16, 128, 256, ("rows", 1)),
+    (torch.float32, torch.int8, 128, 256, ("rows", 1)),
+    (torch.bfloat16, torch.float32, 128, 256, ("rows", 1)),
+    (torch.bfloat16, torch.bfloat16, 40, 256, ("rows", 1)),
+    (torch.bfloat16, torch.bfloat16, 256, 256, ("rows", 1)),
+])
+def test_prefill_body_rule(q_dtype, kv_dtype, d, rows, want):
+    assert pa_ops.prefill_body(q_dtype, kv_dtype, d, rows) == want
+
+
+# ---------------------------------------------------------------------------
+# K4
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,T,k,ns,want", [
+    # decode and speculative verify at llama2-7b's 4096: 32 slices
+    (4, 1, 4096, [4096], (32, 128, 1)),
+    (4, 5, 4096, [4096], (32, 128, 1)),
+    # a prefill chunk's q/k/v in one launch, and bucketed admission's o
+    (1, 256, 4096, [4096, 4096, 4096], (17, 248, 4)),
+    (4, 256, 4096, [4096], (5, 824, 4)),
+    # qwen2-7b's q/k/v (3584 -> 3584, 512, 512), and a narrow k
+    (1, 256, 3584, [3584, 512, 512], (17, 216, 4)),
+    (2, 40, 320, [300], (5, 64, 1)),
+])
+def test_lora_split_plan(S, T, k, ns, want):
+    """Phase 1 fills two blocks per SM where k and the 32-slice cap allow
+    (slices of at least 64, a multiple of 8, covering k with none empty);
+    phase 2 takes up to four column tiles per block while its grid keeps
+    two per SM."""
+    plan = lora_ops.split_plan(S, T, k, ns, sm_count=132)
+    assert tuple(plan) == want
+    assert plan.k_split % 8 == 0
+    assert (plan.splits - 1) * plan.k_split < k <= plan.splits * plan.k_split
+    assert plan.splits <= 32

@@ -26,10 +26,12 @@ from repro_torch.engine import adapter_pool as tap
 from repro_torch.engine.kv_cache import BlockPagedKVCache
 from repro_torch.kernels.grouped_lora import (grouped_lora,
                                               grouped_lora_pregathered,
+                                              grouped_lora_qkv,
                                               grouped_lora_ref)
 from repro_torch.kernels.grouped_lora.ref import pregather
 
 _JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+_TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def _pool(P, k, n, R, ranks, seed=0):
@@ -116,6 +118,31 @@ def test_ref_scale_and_dtype():
     half = grouped_lora_ref(x, A, B, idx, scale=0.5)
     torch.testing.assert_close(half, 0.5 * one, rtol=0, atol=0)
     assert grouped_lora_ref(x.bfloat16(), A, B, idx).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("T", [1, 5, 24])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_qkv_equals_three_plain_calls(T, dt):
+    """``grouped_lora_qkv`` (one launch on the card) on the CPU is three
+    ``grouped_lora_ref`` calls, bit for bit: a mixed-rank pool, a shared
+    tenant, holes, and q wider than k and v (qwen2-7b's GQA shape cut
+    down), with a scale."""
+    S, k, P, R = 5, 64, 4, 16
+    rng = np.random.default_rng(10 + T)
+    x = _t(rng.standard_normal((S, T, k)).astype(np.float32))
+    idx = torch.tensor([2, -1, 0, 2, 3], dtype=torch.int32)
+    pairs = []
+    for i, n in enumerate((56, 8, 8)):
+        A, B = _pool(P, k, n, R, (4, 8, 16), seed=i)
+        pairs.append(tuple(_t(f).to(_TORCH[dt]) for f in (A, B)))
+    x = x.to(_TORCH[dt])
+    got = grouped_lora_qkv(x, *pairs, idx, scale=0.5)
+    assert len(got) == 3
+    for out, (A, B) in zip(got, pairs):
+        want = grouped_lora_ref(x, A, B, idx, scale=0.5)
+        assert out.dtype == want.dtype and out.shape == want.shape
+        assert torch.equal(out, want)
+        assert not out[1].any()
 
 
 def test_slot_past_the_pool_raises():
