@@ -15,7 +15,8 @@ caught and ignored):
 2. kernels  — every kernel against its plain PyTorch version on the card,
               at the llama2-7b (Hk=32, G=1) and qwen2-7b (Hk=4, G=7) head
               shapes, d=128, bs=16, bf16 and int8 KV: decode cursors at 0,
-              mid-block and on block seams; prefill chunks (0, 256), (200,
+              mid-block and on block seams, on the split body, a repeat
+              bit-identical; prefill chunks (0, 256), (200,
               77) and (520, 3) over tables that share prefix blocks, every
               row held (padding rows too), bf16 q on the mma body and f32
               q on rows; verify with
@@ -34,8 +35,10 @@ caught and ignored):
               case and a ragged one (m=5, n=200, g=64) in f32 and bf16.
               Then each kernel's time (CUDA events, and device time by
               torch.profiler), its plain version's, its bound and a
-              library yardstick (its device time too for K1, K2, K4) at
-              the main path's shapes.
+              library yardstick (its device time too) at the main path's
+              shapes; K1 and its yardstick also cold (each call after a
+              64 MB copy, as the engine finds K/V), K1 at qwen2-7b's
+              heads too, and a sweep of K1's split length.
 3. engine   — the main path: llama2-7b at full width and depth (random
               bf16 weights from a seed), paged attention, 8 requests of
               512 prompt + 64 new tokens through 4 slots, with a radix
@@ -45,9 +48,10 @@ caught and ignored):
               and again with bucketed admission (prefill_batch=4) and the
               same tenants.  Each pass zeroes the launch counts before it
               and reads them after it; between them the passes launch
-              K1-K4.  Every bf16 K2 and K3 launch must run on the mma
-              body, and K4 must run once for a layer's q, k and v and once
-              for its output projection.  Then a short int8-KV pass.
+              K1-K4.  Every K1 launch must run on the split body, every
+              bf16 K2 and K3 launch on the mma body, and K4 once for a
+              layer's q, k and v and once for its output projection.
+              Then a short int8-KV pass.
 4. train    — the trainer: granite-3-2b at full width and depth (40
               layers, random bf16 weights from seed 0), flash attention,
               per-layer remat, AdamW, 4 x 2048 synthetic tokens, 4 steps;
@@ -145,30 +149,72 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, tries: int = 3) -> Optional[float]:
+def device_ms(fn, iters: int = 20, tries: int = 3,
+              skip: tuple = ()) -> Optional[float]:
     """Mean device milliseconds per call from torch.profiler: the kernels'
     own durations summed, without the host's launch gaps that
     :func:`time_ms` includes when a call's host work outlasts its
-    kernels.  A profile that comes back without device events (seen now
-    and then on the card) is taken again, up to ``tries`` times; None
-    (null in the record) if every try came back empty: not measured."""
+    kernels, and without the device events whose names start with one of
+    ``skip``.  None (null in the record) if every profile came back
+    empty: not measured."""
+    ms = device_ms_by_kernel(fn, iters, tries)
+    kept = [v for k, v in ms.items() if not k.startswith(skip)]
+    return sum(kept) if kept else None
+
+
+def device_ms_by_kernel(fn, iters: int = 20, tries: int = 3) -> dict:
+    """Mean device milliseconds per call of each kernel ``fn`` launches
+    (torch.profiler).  A profile that comes back without device events
+    (seen now and then on the card) is taken again, up to ``tries``
+    times; empty if every try came back empty."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    us = 0.0
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_self_device_us(e) for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-    return None
+        ms = {e.key: _self_device_us(e) / 1e3 / iters
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _self_device_us(e) > 0}
+        if ms:
+            return ms
+    return {}
+
+
+#: bytes of each of the two buffers a cold timing copies between calls:
+#: 128 MB read and written, more than the H100's 50 MB L2
+L2_FLUSH_BYTES = 64 << 20
+
+
+def l2_flush(device):
+    """The two buffers of :func:`cold_times`, and a check that their copy
+    is one device-to-device memcpy (its profiler events, left out of a
+    cold device time, are named ``Memcpy ...``)."""
+    import torch
+    src = torch.ones(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    names = set(device_ms_by_kernel(lambda: dst.copy_(src), iters=1))
+    check(bool(names) and all(n.startswith("Memcpy") for n in names),
+          f"the L2 flush ran {names}, not one memcpy")
+    return src, dst
+
+
+def cold_times(fn, flush) -> dict:
+    """``fn`` with its operands out of L2, as the engine finds K/V (a
+    layer's weights pass through L2 between two K1 calls): each call
+    follows a copy of ``flush``'s 64 MB.  Event time: (copy + call) less
+    the copy alone; device time: torch.profiler's, the copy's events
+    left out."""
+    src, dst = flush
+    copy = lambda: dst.copy_(src)
+    both = lambda: (copy(), fn())
+    return dict(cold_ms=time_ms(both) - time_ms(copy),
+                cold_device_ms=device_ms(both, skip=("Memcpy",)))
 
 
 def fmt_ms(ms: Optional[float]) -> str:
@@ -335,9 +381,87 @@ def _time_verify(q, ck, cv, bt, pos, worst, what):
         device_ms=device_ms(lambda: ops.paged_verify(q, ck, cv, bt, pos)),
         plain_ms=time_ms(lambda: ops.paged_verify_ref(q, ck, cv, bt, pos)),
         bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
-        max_abs_err=err, body=body,
+        library_device_ms=device_ms(lib), max_abs_err=err, body=body,
         shape=f"S={S} Q={Q} Hk={Hk} G={G} d={d} bs={bs} nb={nb} "
               f"pos={pos.tolist()} kv=bf16")
+
+
+def _time_decode(q, ck, cv, bt, pos, worst, flush, what):
+    """K1 against its plain version at one shape, a repeat bit-identical;
+    then its time warm and cold (``cold_times``), event and device, its
+    bound, its plain version's time, and SDPA (``enable_gqa`` for G > 1;
+    the port never calls it) over K/V gathered once into contiguous (S,
+    Hk, L, d) buffers outside the timing, warm and cold."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
+
+    S, Hk, G, d = q.shape
+    bs, nb = ck.shape[1], bt.shape[1]
+    run = lambda: ops.paged_decode(q, ck, cv, bt, pos)
+    before = dict(ops.BODY_LAUNCHES["paged_decode"])
+    out = run()
+    body = _body_of(ops.BODY_LAUNCHES["paged_decode"], before)
+    err = _compare(out, ops.paged_decode_ref(q, ck, cv, bt, pos), cv,
+                   f"{what} ({body})", worst)
+    check(torch.equal(run(), out), f"{what}: a repeat gave other bits")
+    L = int(pos.max()) + 1
+    kg = ck[bt.long()].reshape(S, nb * bs, Hk, d)[:, :L].transpose(1, 2)
+    vg = cv[bt.long()].reshape(S, nb * bs, Hk, d)[:, :L].transpose(1, 2)
+    kg, vg = kg.contiguous(), vg.contiguous()
+    qs = q.reshape(S, Hk * G, 1, d)
+    mask = (torch.arange(L, device=q.device)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask,
+                                                 enable_gqa=G > 1)
+    bound, by = decode_bound(q, ck, bt, pos, bs)
+    lib_cold = cold_times(lib, flush)
+    return dict(
+        ms=time_ms(run), device_ms=device_ms(run), **cold_times(run, flush),
+        plain_ms=time_ms(lambda: ops.paged_decode_ref(q, ck, cv, bt, pos)),
+        bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
+        library_device_ms=device_ms(lib),
+        library_cold_ms=lib_cold["cold_ms"],
+        library_cold_device_ms=lib_cold["cold_device_ms"],
+        max_abs_err=err, body=body,
+        shape=f"S={S} Hk={Hk} G={G} d={d} bs={bs} nb={nb} "
+              f"pos={pos.tolist()} kv=bf16 split="
+              f"{tuple(ops.decode_split_plan(S, Hk, G, nb, bs, _sm_count(q)))}")
+
+
+def _sm_count(t) -> int:
+    import torch
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def _sweep_decode(q, ck, cv, bt, pos, flush, arch):
+    """K1's device time, warm and cold, split kernel and combine apart,
+    with the table cut into splits of 1, 2, 4, ... blocks, and under
+    ``decode_split_plan``'s own choice: the measurement behind the plan's
+    constants."""
+    from repro_torch.kernels.paged_attention import ops
+    S, Hk, G, _ = q.shape
+    bs, nb = ck.shape[1], bt.shape[1]
+    planned = ops.decode_split_plan(S, Hk, G, nb, bs, _sm_count(q))
+    kept = ops.decode_split_plan
+    run = lambda: ops.paged_decode(q, ck, cv, bt, pos)
+    try:
+        for per in sorted({1, 2, 4, 7, 12, 19, nb, planned.split_blocks}):
+            plan = ops.DecodePlan(-(-nb // per), per)
+            ops.decode_split_plan = lambda *a, plan=plan: plan
+            parts = device_ms_by_kernel(run)
+            split = sum(v for k, v in parts.items() if "split" in k)
+            total = sum(parts.values()) if parts else None
+            cold = cold_times(run, flush)["cold_device_ms"]
+            log(f"[kernels] paged_decode split sweep {arch}: plan "
+                f"{tuple(plan)}{' (planned)' if plan == planned else ''}, "
+                f"{plan.splits * S * Hk * -(-G // ops.DECODE_ROWS)} blocks; "
+                f"device ms warm {fmt_ms(total)} (split "
+                f"{fmt_ms(split if parts else None)}, combine "
+                f"{fmt_ms(total - split if parts else None)}), cold "
+                f"{fmt_ms(cold)}")
+    finally:
+        ops.decode_split_plan = kept
 
 
 def check_verify(device, gen, shapes, worst, results):
@@ -628,11 +752,13 @@ def check_flash(device, gen, worst, results):
                                               dol)
     fwd_common = dict(
         plain_ms=time_ms(lambda: ops.attention_ref(q, k, v)),
-        library_ms=time_ms(lambda: sdpa(ql, kl, vl)))
+        library_ms=time_ms(lambda: sdpa(ql, kl, vl)),
+        library_device_ms=device_ms(lambda: sdpa(ql, kl, vl)))
     fwd_common["bound_ms"], fwd_common["bound_by"] = flash_bound(
         FA_MAIN, 2, backward=False)
     bwd_common = dict(plain_ms=time_ms(plain_bwd),
-                      library_ms=time_ms(lib_bwd))
+                      library_ms=time_ms(lib_bwd),
+                      library_device_ms=device_ms(lib_bwd))
     bwd_common["bound_ms"], bwd_common["bound_by"] = flash_bound(
         FA_MAIN, 2, backward=True)
     bwd_shape = (shape + " (backward alone; plain and library: autograd "
@@ -712,6 +838,7 @@ def _time_qmm(x, q, worst, what):
         plain_ms=time_ms(lambda: ops.quant_matmul_ref(*args, g)),
         bound_ms=bound, bound_by=by,
         library_ms=time_ms(lambda: torch.matmul(x, w)),
+        library_device_ms=device_ms(lambda: torch.matmul(x, w)),
         max_abs_err=err, body=body,
         shape=f"m={x.shape[0]} k={x.shape[1]} n={q.w_q.shape[1]} "
               f"g={g} int{q.bits} x={str(x.dtype)[6:]}")
@@ -805,9 +932,15 @@ def phase_kernels(device, results):
                 bt = _tables(S, nb, N, 2, gen, device)
                 q = torch.randn((S, Hk, G, d), generator=gen,
                                 device=device).to(q_dtype)
+                before = dict(ops.BODY_LAUNCHES["paged_decode"])
                 out = ops.paged_decode(q, ck, cv, bt, pos)
+                body = _body_of(ops.BODY_LAUNCHES["paged_decode"], before)
                 ref = ops.paged_decode_ref(q, ck, cv, bt, pos)
-                _compare(out, ref, cv, f"paged_decode {tag}", worst)
+                _compare(out, ref, cv, f"paged_decode ({body}) {tag}", worst)
+                check(body == "split" and torch.equal(
+                    ops.paged_decode(q, ck, cv, bt, pos), out),
+                      f"paged_decode {tag}: body {body}, or a repeat gave "
+                      f"other bits")
                 # prefill: an admission chunk, a chunk at start>0 with
                 # valid<C that starts mid-block, a short tail chunk (the
                 # key limit start+valid below every padding row's causal
@@ -835,36 +968,29 @@ def phase_kernels(device, results):
                              f"valid={valid}", worst)
 
     # timing at the main path's shapes: llama2-7b, 4 slots, bf16 q and KV,
-    # cursors around the middle of the 64-token decode after a 512 prompt
-    Hk, G = shapes["llama2-7b"]
-    ck, cv = _pool(N, bs, Hk, d, torch.bfloat16, gen, device)
+    # cursors around the middle of the 64-token decode after a 512 prompt;
+    # then qwen2-7b's heads at the same cursors
+    flush = l2_flush(device)
     pos = torch.tensor([540, 544, 548, 552], dtype=torch.int32, device=device)
     S = pos.numel()
-    bt = _tables(S, nb, N, 16, gen, device)
-    q = torch.randn((S, Hk, G, d), generator=gen, device=device).to(
-        torch.bfloat16)
-    err = _compare(ops.paged_decode(q, ck, cv, bt, pos),
-                   ops.paged_decode_ref(q, ck, cv, bt, pos), cv,
-                   "paged_decode main-path shape", worst)
-    L = int(pos.max()) + 1
-    # library yardstick: SDPA over K/V already gathered into contiguous
-    # (S, Hk, L, d) buffers; the gather is done once, outside the timing
-    kg = ck[bt.long()].reshape(S, nb * bs, Hk, d)[:, :L].transpose(1, 2)
-    vg = cv[bt.long()].reshape(S, nb * bs, Hk, d)[:, :L].transpose(1, 2)
-    kg, vg = kg.contiguous(), vg.contiguous()
-    qs = q.reshape(S, Hk * G, 1, d)
-    mask = (torch.arange(L, device=device)[None, :]
-            <= pos.long()[:, None])[:, None, None, :]
-    lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
-    bound, by = decode_bound(q, ck, bt, pos, bs)
-    run = lambda: ops.paged_decode(q, ck, cv, bt, pos)
-    results["paged_decode"] = dict(
-        ms=time_ms(run), device_ms=device_ms(run),
-        plain_ms=time_ms(lambda: ops.paged_decode_ref(q, ck, cv, bt, pos)),
-        bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
-        library_device_ms=device_ms(lib), max_abs_err=err,
-        shape=f"S={S} Hk={Hk} G={G} d={d} bs={bs} nb={nb} "
-              f"pos={pos.tolist()} kv=bf16")
+    timed = []
+    for arch in ("llama2-7b", "qwen2-7b"):
+        Hk, G = shapes[arch]
+        ck, cv = _pool(N, bs, Hk, d, torch.bfloat16, gen, device)
+        bt = _tables(S, nb, N, 16, gen, device)
+        q = torch.randn((S, Hk, G, d), generator=gen, device=device).to(
+            torch.bfloat16)
+        timed.append(_time_decode(q, ck, cv, bt, pos, worst, flush,
+                                  f"paged_decode main-path shape {arch}"))
+        _sweep_decode(q, ck, cv, bt, pos, flush, arch)
+        if arch == "llama2-7b":
+            main_pool = ck, cv, bt
+    check(all(t["body"] == "split" for t in timed),
+          f"paged_decode left the split body: {[t['body'] for t in timed]}")
+    results["paged_decode"] = dict(timed[0], more_shapes=timed[1:])
+    del flush
+    Hk, G = shapes["llama2-7b"]
+    ck, cv, bt = main_pool
 
     # prefill: the second 256-token chunk of a 512-token prompt
     C, start, valid = 256, 256, 256
@@ -905,15 +1031,16 @@ def phase_kernels(device, results):
     for name, res in results.items():
         for r in (res, *res.get("more_shapes", ())):
             body = f" ({r['body']})" if "body" in r else ""
-            dev = (f" device_ms={fmt_ms(r['device_ms'])}"
-                   if "device_ms" in r else "")
-            lib_dev = (f" library_device_ms={fmt_ms(r['library_device_ms'])}"
-                       if "library_device_ms" in r else "")
+            extra = lambda *keys: "".join(
+                f" {k}={fmt_ms(r[k])}" for k in keys if k in r)
             log(f"[kernels] {name}{body} @ {r['shape']}: "
-                f"kernel_ms={r['ms']:.4f}{dev} "
+                f"kernel_ms={r['ms']:.4f}"
+                f"{extra('device_ms', 'cold_ms', 'cold_device_ms')} "
                 f"plain_ms={r['plain_ms']:.4f} "
                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-                f"library_ms={r['library_ms']:.4f}{lib_dev}")
+                f"library_ms={r['library_ms']:.4f}"
+                + extra('library_device_ms', 'library_cold_ms',
+                        'library_cold_device_ms'))
 
 
 # ---------------------------------------------------------------------------
@@ -986,16 +1113,21 @@ def _launches() -> dict:
 
 
 def _engine_bodies() -> dict:
-    """K2's and K3's launches by body, K4's by wrapper, since the reset."""
+    """K1's, K2's and K3's launches by body, K4's by wrapper, since the
+    reset."""
     ops, lora_ops = _kernel_ops()[:2]
     return {**{w: dict(c) for w, c in ops.BODY_LAUNCHES.items()},
             "grouped_lora": dict(lora_ops.LAUNCHES)}
 
 
 def _check_engine_bodies(tag, launches, bodies) -> None:
-    """Every bf16 K2 and K3 launch ran on the mma body, and K4 ran once for
-    a layer's q, k and v and once for its output projection (two launches
-    per layer per step, where separate q, k and v made four)."""
+    """Every K1 launch ran on the split body, every bf16 K2 and K3 launch
+    on the mma body, and K4 ran once for a layer's q, k and v and once for
+    its output projection (two launches per layer per step, where separate
+    q, k and v made four)."""
+    check(bodies["paged_decode"] == {"split": launches["paged_decode"]},
+          f"{tag}: a paged_decode call left the split body: "
+          f"{bodies['paged_decode']} of {launches['paged_decode']}")
     for w in ("paged_prefill", "paged_verify"):
         check(bodies[w] == {"mma": launches[w], "rows": 0},
               f"{tag}: a bf16 {w} call left the mma body: {bodies[w]} of "
@@ -1949,8 +2081,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{key: r[key] for key in ("device_ms", "library_device_ms",
-                                       "body") if key in r},
+            **{key: r[key] for key in (
+                "device_ms", "cold_ms", "cold_device_ms", "library_device_ms",
+                "library_cold_ms", "library_cold_device_ms", "body")
+               if key in r},
             **({"body_launches": bodies[name]} if bodies.get(name)
                else {}),
             **({"more_shapes": r["more_shapes"]} if "more_shapes" in r

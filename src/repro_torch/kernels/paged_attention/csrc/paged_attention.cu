@@ -2,8 +2,8 @@
 // speculative verify.
 //
 // Replaces the TPU Pallas kernels of the JAX package:
-//   paged_decode_kernel      <- kernels/paged_attention/paged_attention.py::paged_decode_fwd
-//                               (_decode_kernel)
+//   paged_decode_split_kernel, <- kernels/paged_attention/paged_attention.py::paged_decode_fwd
+//   paged_decode_combine_kernel   (_decode_kernel)
 //   paged_prefill_mma_kernel, <- kernels/paged_attention/paged_attention.py::paged_prefill_fwd
 //   paged_prefill_kernel          (_prefill_kernel)
 //   paged_verify_mma_kernel, <- kernels/paged_attention/paged_attention.py::paged_verify_fwd
@@ -28,12 +28,17 @@
 // 0.0113 ms for bucketed admission's 4 x 256-row chunks at cursors 0 and 256
 // (each distinct K/V byte once at 3.35 TB/s).
 //
-// Two bodies:
-// * attend_rows (K1 decode, and K2 and K3 for f32 q or f32 KV or a head dim
-//   the tensor-core body does not take): one thread block per (slot, KV
-//   head) for decode and per (KV head, tile of 16 query rows[, slot]) for
-//   prefill and verify; the block loops over its KV blocks in order (the
-//   TPU's sequential grid axis), carrying the running max, sum and f32
+// Three bodies:
+// * decode_split (K1; see its section below): split-KV ("flash-decoding").
+//   One block walks one split of a slot's keys for one KV head in 16-byte
+//   loads, a few keys in flight per lane, f32 on the CUDA cores, and writes
+//   an f32 partial (max, sum, accumulator); a second kernel combines the
+//   splits in split order.  At S = 4, Hk = 32 that is 512 blocks where one
+//   block per (slot, head) made 128, each walking ~35 KV blocks in turn.
+// * attend_rows (K2 and K3 for f32 q or f32 KV or a head dim the
+//   tensor-core body does not take): one thread block per (KV head, tile
+//   of 16 query rows[, slot]); the block loops over its KV blocks in order
+//   (the TPU's sequential grid axis), carrying the running max, sum and f32
 //   accumulator in shared memory, all arithmetic f32 on the CUDA cores.
 //   f32 q stays exact in f32 there.
 // * attend_mma (K2 and K3 for bf16 q with bf16 or int8 KV, d a multiple of
@@ -48,9 +53,10 @@
 //   its two entry points (two names, so that a profile tells them apart).
 //
 // Not yet: TMA (and multicast of a shared prefix across a slot's blocks), a
-// persistent grid, split-KV across blocks (the speculative verify runs one
-// block per (slot, head): 128 blocks at S = 4, Hk = 32), and tensor cores
-// in K1.
+// persistent grid, split-KV in K3 (the speculative verify runs one block
+// per (slot, head): 128 blocks at S = 4, Hk = 32), reading a prefix block
+// that several slots share once for all of them in K1, and tensor cores in
+// K1 for large G.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (see ../../build.py and ../ops.py).
@@ -205,21 +211,6 @@ __device__ void attend_rows(const QT* __restrict__ q, const KT* __restrict__ ck,
     out[(static_cast<size_t>(c * Hk + h) * G + g) * d + j] =
         from_f32<QT>(acc[e] / fmaxf(l_s[r], 1e-30f));
   }
-}
-
-// grid (Hk, S): slot s's G grouped query heads of KV head h attend keys
-// [0, pos[s]] through block table s; blocks past the cursor are skipped.
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ ck,
-                    const KT* __restrict__ cv, const int* __restrict__ block_tables,
-                    const int* __restrict__ pos, QT* __restrict__ out, int Hk, int G,
-                    int d, int bs, int nb, float scale) {
-  const int h = blockIdx.x, s = blockIdx.y;
-  const int p = pos[s];
-  const int n_blk = min(nb, p / bs + 1);
-  attend_rows<QT, KT>(q, ck, cv, block_tables + static_cast<size_t>(s) * nb, out, s * G, G, G,
-                      Hk, h, d, bs, n_blk, p, 0, p + 1, scale);
 }
 
 // grid (Hk, ceil(C*G / 16)): a tile of 16 chunk rows (c, g) of KV head h;
@@ -643,6 +634,301 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_mma_kernel(MmaArgs a) 
   attend_mma<D, KS, KT>(a);
 }
 
+// ---------------------------------------------------------------------------
+// K1: split-KV decode
+// ---------------------------------------------------------------------------
+//
+// One query token per slot: slot s's G grouped heads of KV head h attend
+// keys [0, pos[s]] through block table s.  Bound by bytes: 4*G flops per
+// K/V element pair it reads (at most 7 flop/B at qwen2-7b's G = 7, 2 at
+// llama2-7b's G = 1), where the f32 CUDA cores sustain ~20 flop/B (67
+// TFLOP/s over 3.35 TB/s); so the design is about keeping enough bytes in
+// flight, not about the tensor cores (at G = 1 an m16n8k16 tile would use
+// one row of 16, and hi/lo P would double the P.V products).
+//
+// paged_decode_split_kernel, grid (n_splits, Hk * row_groups, S), 128
+// threads: split j of slot s covers keys [j*split_keys, (j+1)*split_keys)
+// below the cursor (split_keys a multiple of bs, chosen on the host from
+// the table's width alone, never from pos: no sync, and a grid a CUDA graph
+// can hold).  A split past the cursor returns at once; the combine reads
+// only the splits below it.  Inside a split:
+// * the split's block ids are staged in shared memory once;
+// * a key row is read by LPK lanes (LPK the power of two >= d/8), 8
+//   elements, 16 bytes of bf16, per lane: one warp load covers 32/LPK keys
+//   (two at d = 128), and each lane issues the K and V loads of U keys
+//   before it uses any of them;
+// * each lane holds its 8 columns of R query rows in f32 registers; the
+//   score of a key is an f32 sum of exact products (bf16 x bf16, int8 and
+//   f32 q all exact in f32), reduced over the LPK lanes by shuffles;
+// * each lane group (the LPK lanes of one key slot) runs its own online
+//   softmax over its keys; the groups of a warp merge by shuffles, the four
+//   warps in shared memory in warp order, and the block writes the split's
+//   (m, l, acc) in f32.
+// paged_decode_combine_kernel, grid (Hk * G, S): M = max_j m_j, out = sum_j
+// e^(m_j - M) acc_j / max(sum_j e^(m_j - M) l_j, 1e-30) over the live
+// splits in split order, cast to q's dtype.  No atomics anywhere, so a
+// repeated call gives the same bits.
+constexpr int kDecodeRows = 8;      // query rows of one block (R at most)
+
+struct DecodeArgs {
+  const void* q;          // (S, Hk, G, d)
+  const void* ck;         // (N, bs, Hk, d)
+  const void* cv;
+  const int* tables;      // (S, nb)
+  const int* pos;         // (S,)
+  float* part;            // acc (S, Hk, splits, G, d), then (m, l) (S, Hk, splits, G, 2)
+  void* out;              // (S, Hk, G, d)
+  int S, Hk, G, d, bs, nb;
+  int splits, split_blocks, row_groups, lanes;   // lanes: LPK
+  float scale;
+};
+
+// 8 consecutive elements of a K or V row, as loaded
+template <typename KT> struct Row8;
+template <> struct Row8<__nv_bfloat16> { uint4 r; };
+template <> struct Row8<int8_t> { uint2 r; };
+template <> struct Row8<float> { uint4 a, b; };
+
+__device__ __forceinline__ void load8(Row8<__nv_bfloat16>& x, const __nv_bfloat16* p) {
+  x.r = __ldg(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ void load8(Row8<int8_t>& x, const int8_t* p) {
+  x.r = __ldg(reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ void load8(Row8<float>& x, const float* p) {
+  x.a = __ldg(reinterpret_cast<const uint4*>(p));
+  x.b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+}
+
+__device__ __forceinline__ void unpack8(const Row8<__nv_bfloat16>& x, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x.r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void unpack8(const Row8<int8_t>& x, float (&f)[8]) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&x.r);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = static_cast<float>(b[i]);
+}
+__device__ __forceinline__ void unpack8(const Row8<float>& x, float (&f)[8]) {
+  const float* a = reinterpret_cast<const float*>(&x.a);
+  const float* b = reinterpret_cast<const float*>(&x.b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = a[i];
+    f[4 + i] = b[i];
+  }
+}
+
+// keys [0, key_lim) of slot s are attended: through its cursor, never past
+// the table (at least key 0, so that every row has a key)
+__device__ __forceinline__ int decode_key_lim(const DecodeArgs& a, int s) {
+  return max(1, min(a.pos[s] + 1, a.nb * a.bs));
+}
+
+size_t decode_split_smem(int d, int split_blocks) {
+  // four warps' acc (R x d) and (m, l) (R each), then the split's block ids
+  return sizeof(float) * 4 * kDecodeRows * (static_cast<size_t>(d) + 2) +
+         sizeof(int) * static_cast<size_t>(split_blocks);
+}
+
+template <typename QT, typename KT, int R, int U>
+__global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(DecodeArgs a) {
+  extern __shared__ __align__(16) float dsm[];
+  const int j = blockIdx.x;
+  const int h = blockIdx.y / a.row_groups, g0 = (blockIdx.y - h * a.row_groups) * R;
+  const int s = blockIdx.z;
+  const int Hk = a.Hk, G = a.G, d = a.d, bs = a.bs;
+  const int split_keys = a.split_blocks * bs;
+  const int k0 = j * split_keys;
+  const int key_lim = decode_key_lim(a, s);
+  if (k0 >= key_lim) return;             // past the cursor: the combine skips it
+  const int k1 = min(k0 + split_keys, key_lim);
+  const int rows = min(R, G - g0);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lpk = a.lanes, kpr = 32 / lpk;      // lanes per key, keys per warp load
+  const int c = lane & (lpk - 1), kg = lane / lpk;
+  const bool on = 8 * c < d;                     // lanes past d/8 hold no columns
+
+  float* acc_s = dsm;                            // [4][R][d]
+  float* m_s = acc_s + 4 * kDecodeRows * d;      // [4][R]
+  float* l_s = m_s + 4 * kDecodeRows;            // [4][R]
+  int* blk_s = reinterpret_cast<int*>(l_s + 4 * kDecodeRows);
+  const int* table = a.tables + static_cast<size_t>(s) * a.nb + j * a.split_blocks;
+  const int n_blk = (k1 - k0 + bs - 1) / bs;
+  for (int i = tid; i < n_blk; i += kThreads) blk_s[i] = table[i];
+
+  // this lane's 8 columns of the block's R rows, in f32
+  const QT* q = static_cast<const QT*>(a.q) + ((static_cast<size_t>(s) * Hk + h) * G + g0) * d;
+  float qr[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      qr[r][e] = (r < rows && on) ? to_f32(q[r * d + 8 * c + e]) : 0.f;
+
+  float m[R], l[R], acc[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+  }
+  __syncthreads();
+
+  const KT* ck = static_cast<const KT*>(a.ck);
+  const KT* cv = static_cast<const KT*>(a.cv);
+  const int chunk = kpr * U;                     // keys of one warp step
+  for (int base = k0 + warp * chunk; base < k1; base += 4 * chunk) {
+    Row8<KT> kr[U], vr[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kp = base + u * kpr + kg;
+      if (kp < k1 && on) {
+        const int t = kp - k0;
+        const size_t off =
+            ((static_cast<size_t>(blk_s[t / bs]) * bs + t % bs) * Hk + h) * d + 8 * c;
+        load8(kr[u], ck + off);
+        load8(vr[u], cv + off);
+      } else {
+        kr[u] = Row8<KT>{};
+        vr[u] = Row8<KT>{};
+      }
+    }
+    float sc[U][R];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[8];
+      unpack8(kr[u], kf);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float t = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) t = fmaf(qr[r][e], kf[e], t);
+        sc[u][r] = t;
+      }
+    }
+    for (int o = lpk >> 1; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int r = 0; r < R; ++r) sc[u][r] += __shfl_xor_sync(0xffffffffu, sc[u][r], o);
+    // online softmax of this lane group over its U keys
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const bool live = base + u * kpr + kg < k1;
+        sc[u][r] = live ? sc[u][r] * a.scale : kNegInf;
+        mx = fmaxf(mx, sc[u][r]);
+      }
+      const float alpha = expf(m[r] - mx);
+      m[r] = mx;
+      l[r] *= alpha;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[r][e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const bool live = base + u * kpr + kg < k1;
+        sc[u][r] = live ? expf(sc[u][r] - mx) : 0.f;
+        l[r] += sc[u][r];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[8];
+      unpack8(vr[u], vf);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(sc[u][r], vf[e], acc[r][e]);
+    }
+  }
+
+  // the warp's lane groups merge (lanes c, c + lpk, ... hold one column set)
+  for (int o = lpk; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
+      const float mn = fmaxf(m[r], mo);
+      const float fa = expf(m[r] - mn), fb = expf(mo - mn);
+      l[r] = l[r] * fa + lo * fb;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[r][e] = acc[r][e] * fa + __shfl_xor_sync(0xffffffffu, acc[r][e], o) * fb;
+      m[r] = mn;
+    }
+  }
+  if (kg == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (on && r < rows)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc_s[(warp * kDecodeRows + r) * d + 8 * c + e] = acc[r][e];
+      if (lane == 0) {
+        m_s[warp * kDecodeRows + r] = m[r];
+        l_s[warp * kDecodeRows + r] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the four warps merge in warp order into the split's partial
+  const size_t prow = ((static_cast<size_t>(s) * Hk + h) * a.splits + j) * G + g0;
+  float* p_acc = a.part + prow * d;
+  float* p_ml = a.part + static_cast<size_t>(a.S) * Hk * a.splits * G * d + prow * 2;
+  for (int e = tid; e < rows * d; e += kThreads) {
+    const int r = e / d, col = e - r * d;
+    float mx = m_s[r];
+#pragma unroll
+    for (int w = 1; w < 4; ++w) mx = fmaxf(mx, m_s[w * kDecodeRows + r]);
+    float lt = 0.f, at = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float f = expf(m_s[w * kDecodeRows + r] - mx);
+      lt += l_s[w * kDecodeRows + r] * f;
+      at += acc_s[(w * kDecodeRows + r) * d + col] * f;
+    }
+    p_acc[e] = at;
+    if (col == 0) {
+      p_ml[2 * r] = mx;
+      p_ml[2 * r + 1] = lt;
+    }
+  }
+}
+
+// grid (Hk * G, S): one query row (s, h, g) per block, a column per thread
+template <typename QT>
+__global__ void __launch_bounds__(kThreads) paged_decode_combine_kernel(DecodeArgs a) {
+  const int s = blockIdx.y, G = a.G, d = a.d;
+  const int live = (decode_key_lim(a, s) - 1) / (a.split_blocks * a.bs) + 1;
+  const size_t hg = static_cast<size_t>(s) * a.Hk * G + blockIdx.x;       // (s, h, g)
+  const size_t prow = (hg / G * a.splits) * G + hg % G;                    // its split 0
+  const float* p_acc = a.part + prow * d;
+  const float* p_ml = a.part + static_cast<size_t>(a.S) * a.Hk * a.splits * G * d + prow * 2;
+  QT* out = static_cast<QT*>(a.out) + hg * d;
+  float mx = kNegInf;
+  for (int jj = 0; jj < live; ++jj) mx = fmaxf(mx, p_ml[2 * jj * G]);
+  for (int col = threadIdx.x; col < d; col += kThreads) {
+    float lt = 0.f, at = 0.f;
+#pragma unroll 4
+    for (int jj = 0; jj < live; ++jj) {
+      const float f = expf(p_ml[2 * jj * G] - mx);
+      lt += p_ml[2 * jj * G + 1] * f;
+      at += p_acc[static_cast<size_t>(jj) * G * d + col] * f;
+    }
+    out[col] = from_f32<QT>(at / fmaxf(lt, 1e-30f));
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -650,19 +936,31 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename QT, typename KT>
-int launch_decode(const void* q, const void* ck, const void* cv, const void* bt,
-                  const void* pos, void* out, int S, int Hk, int G, int d, int bs, int nb,
-                  float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(G, d, bs);
-  auto kernel = paged_decode_kernel<QT, KT>;
-  cudaError_t err = allow_smem(kernel, smem);
+template <typename QT, typename KT, int R, int U>
+int launch_decode_rows(const DecodeArgs& a, cudaStream_t stream) {
+  const size_t smem = decode_split_smem(a.d, a.split_blocks);
+  auto split = paged_decode_split_kernel<QT, KT, R, U>;
+  cudaError_t err = allow_smem(split, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(Hk, S), kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(ck), static_cast<const KT*>(cv),
-      static_cast<const int*>(bt), static_cast<const int*>(pos), static_cast<QT*>(out), Hk, G,
-      d, bs, nb, scale);
+  split<<<dim3(a.splits, a.Hk * a.row_groups, a.S), kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  paged_decode_combine_kernel<QT><<<dim3(a.Hk * a.G, a.S), kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// R, the rows of one block: G rounded up to a power of two, at most 8 (a
+// larger G takes ceil(G / 8) row groups); U keys in flight per lane, fewer
+// where R's registers are many (timed against U = 4 and 2 on an H100: a
+// little faster, and no spills)
+template <typename QT, typename KT>
+int launch_decode(DecodeArgs a, cudaStream_t stream) {
+  const int R = a.G > 4 ? 8 : a.G > 2 ? 4 : a.G;
+  a.row_groups = (a.G + R - 1) / R;
+  if (R == 1) return launch_decode_rows<QT, KT, 1, 8>(a, stream);
+  if (R == 2) return launch_decode_rows<QT, KT, 2, 8>(a, stream);
+  if (R == 4) return launch_decode_rows<QT, KT, 4, 4>(a, stream);
+  return launch_decode_rows<QT, KT, 8, 4>(a, stream);
 }
 
 template <typename QT, typename KT>
@@ -761,13 +1059,28 @@ extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (KV only).  Returns the
 // cudaError_t of the launch (0 on success) or -1 for an unsupported pair.
+//
+// K1's two launches: the splits of `split_blocks` table entries each
+// (`splits` = ceil(nb / split_blocks)) into `scratch`, S*Hk*splits*G*(d+2)
+// floats, then their combine into `out`.  d a multiple of 8 up to 256.
 int paged_decode_launch(const void* q, const void* cache_k, const void* cache_v,
-                        const void* block_tables, const void* pos, void* out, int S, int Hk,
-                        int G, int d, int bs, int nb, int q_dtype, int kv_dtype, float scale,
-                        void* stream) {
+                        const void* block_tables, const void* pos, void* scratch, void* out,
+                        int S, int Hk, int G, int d, int bs, int nb, int splits,
+                        int split_blocks, int q_dtype, int kv_dtype, float scale, void* stream) {
+  if (d % 8 != 0 || d < 8 || d > 256 || nb < 1 || splits < 1 || split_blocks < 1)
+    return kBadDType;
+  int lanes = 1;
+  while (8 * lanes < d) lanes *= 2;
+  const DecodeArgs a{q, cache_k, cache_v, static_cast<const int*>(block_tables),
+                     static_cast<const int*>(pos), static_cast<float*>(scratch), out,
+                     S, Hk, G, d, bs, nb, splits, split_blocks, 1, lanes, scale};
   if (q_dtype < kF32 || q_dtype > kBF16 || kv_dtype < kF32 || kv_dtype > kI8) return kBadDType;
-  PA_DISPATCH(launch_decode, q, cache_k, cache_v, block_tables, pos, out, S, Hk, G, d, bs, nb,
-              scale, static_cast<cudaStream_t>(stream))
+  PA_DISPATCH(launch_decode, a, static_cast<cudaStream_t>(stream))
+}
+
+// Bytes of dynamic shared memory K1's split kernel asks for.
+long long paged_decode_smem_bytes(int d, int split_blocks) {
+  return static_cast<long long>(decode_split_smem(d, split_blocks));
 }
 
 int paged_prefill_launch(const void* q, const void* cache_k, const void* cache_v,
@@ -825,7 +1138,7 @@ long long paged_smem_bytes(int rows, int d, int bs) {
 int paged_prefill_rows() { return kPrefillRows; }
 
 const char* paged_error_string(int code) {
-  if (code == kBadDType) return "unsupported (q, kv) dtype pair, head dim or key split";
+  if (code == kBadDType) return "unsupported (q, kv) dtype pair, head dim, key split or split plan";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -7,22 +7,25 @@ device they launch the hand-written Hopper kernels of
 the current stream, or raise; nothing falls back.  For tensors on the CPU
 they compute the plain versions of ``ref.py``.
 
+``paged_decode`` has one body, ``split``: the slot's keys split over
+blocks by :func:`decode_split_plan` (``paged_decode_split_kernel``), the
+splits' f32 partials combined in split order (``paged_decode_combine_kernel``).
 ``paged_prefill`` and ``paged_verify`` have two bodies each, by one rule
 (:func:`prefill_body`, :func:`verify_body`): bf16 q with bf16 or int8 KV
 and a head dim that is a multiple of 16 up to 128 runs on the tensor cores
 (``mma``: ``attend_mma``, entered as ``paged_prefill_mma_kernel`` or
-``paged_verify_mma_kernel``); any other (q, KV, d) keeps the body K1
-uses (``rows``, ``attend_rows`` in f32).
+``paged_verify_mma_kernel``); any other (q, KV, d) keeps the f32 body
+(``rows``, ``attend_rows``).
 
-``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
-that its main path went through the kernels; ``BODY_LAUNCHES`` counts
-``paged_prefill``'s and ``paged_verify``'s by body.
+``LAUNCHES`` counts the calls of each wrapper that launched, so a run can
+show that its main path went through the kernels; ``BODY_LAUNCHES``
+counts them by body.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,14 +38,22 @@ LIBRARY_NAME = "paged_attention"
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_prefill": 0,
                             "paged_verify": 0}
-#: paged_prefill's and paged_verify's launches by body
+#: each wrapper's launches by body
 BODY_LAUNCHES: Dict[str, Dict[str, int]] = {
+    "paged_decode": {"split": 0},
     "paged_prefill": {"mma": 0, "rows": 0},
     "paged_verify": {"mma": 0, "rows": 0}}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 _SMEM_LIMIT = 232_448      # bytes of shared memory one block may use on H100
+#: K1's split plan: query rows of one block (the kernel's kDecodeRows; a
+#: larger G takes row groups), the blocks per SM it aims for, and the
+#: fewest keys a split may hold (chip_smoke.py's "split sweep" times every
+#: split length at llama2-7b's and qwen2-7b's heads; PERF.md section 6)
+DECODE_ROWS = 8
+DECODE_BLOCKS_PER_SM = 2
+DECODE_MIN_SPLIT_KEYS = 64
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -76,15 +87,41 @@ def verify_body(q_dtype: torch.dtype, kv_dtype: torch.dtype, d: int,
 prefill_body = verify_body
 
 
+class DecodePlan(NamedTuple):
+    splits: int          # splits of each (slot, KV head)'s table
+    split_blocks: int    # table entries (KV blocks) per split
+
+
+def decode_split_plan(S: int, Hk: int, G: int, nb: int, bs: int,
+                      sm_count: int) -> DecodePlan:
+    """K1's grid on a card of ``sm_count`` SMs, from shapes alone: the
+    table's ``nb`` entries of ``bs`` keys are cut into equal splits until
+    the (splits x KV heads x row groups x slots) blocks fill
+    ``DECODE_BLOCKS_PER_SM`` per SM, each split keeping at least
+    ``DECODE_MIN_SPLIT_KEYS`` keys (a block's fixed cost, its q rows in
+    registers, two merges and a partial, is then spread over enough
+    keys).
+
+    The cursors are never read: that would sync the host on the hot path,
+    and a grid that depends on them could not be held in a CUDA graph.
+    Splits past a slot's cursor cost a block that returns at once."""
+    blocks = S * Hk * -(-G // DECODE_ROWS)
+    want = -(-DECODE_BLOCKS_PER_SM * sm_count // max(1, blocks))
+    per = min(nb, max(nb // want, -(-DECODE_MIN_SPLIT_KEYS // bs), 1))
+    return DecodePlan(-(-nb // per), per)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' shared library."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(_build.build(SOURCE, LIBRARY_NAME).path))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.paged_decode_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
-                                            I, I, ctypes.c_float, P]
+        lib.paged_decode_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
+                                            I, I, I, I, I, ctypes.c_float, P]
         lib.paged_decode_launch.restype = I
+        lib.paged_decode_smem_bytes.argtypes = [I, I]
+        lib.paged_decode_smem_bytes.restype = ctypes.c_longlong
         lib.paged_prefill_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, I,
                                              I, I, I, I, ctypes.c_float, P]
         lib.paged_prefill_launch.restype = I
@@ -147,7 +184,7 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
 def _check_aligned(q: torch.Tensor, cache_k: torch.Tensor,
                    cache_v: torch.Tensor) -> None:
     for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
-        if t.data_ptr() % 16:             # the mma body's 16-byte copies
+        if t.data_ptr() % 16:             # 16-byte loads and copies
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
@@ -177,19 +214,30 @@ def paged_decode(q: torch.Tensor, cache_k: torch.Tensor,
     nb = block_tables.shape[-1]
     _check_index("block_tables", block_tables, (S, nb), q.device)
     _check_index("pos", pos, (S,), q.device)
+    if d % 8 or not 8 <= d <= 256 or nb == 0:
+        raise ValueError(f"paged_decode takes a head dim that is a multiple "
+                         f"of 8 up to 256 and a table of at least one "
+                         f"block, got d={d}, nb={nb}")
+    _check_aligned(q, cache_k, cache_v)
     out = torch.empty_like(q)
-    if S == 0:
+    if q.numel() == 0:
         return out
     lib = load_library()
-    _smem_check(lib, G, d, bs)
+    plan = decode_split_plan(S, Hk, G, nb, bs, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    _smem_check(lib, G, d, bs,
+                lib.paged_decode_smem_bytes(d, plan.split_blocks))
+    scratch = torch.empty(S * Hk * plan.splits * G * (d + 2),
+                          dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paged_decode_launch(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        S, Hk, G, d, bs, nb, _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[cache_k.dtype], d ** -0.5, stream)
-    _raise_on(lib, err, "paged_decode")
+        block_tables.data_ptr(), pos.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), S, Hk, G, d, bs, nb, plan.splits, plan.split_blocks,
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[cache_k.dtype], d ** -0.5, stream)
+    _raise_on(lib, err, "paged_decode (split)")
     LAUNCHES["paged_decode"] += 1
+    BODY_LAUNCHES["paged_decode"]["split"] += 1
     return out
 
 
@@ -287,8 +335,8 @@ def paged_verify(q: torch.Tensor, cache_k: torch.Tensor,
     return out
 
 
-__all__ = ["BODY_LAUNCHES", "LAUNCHES", "load_library", "paged_decode",
-           "paged_decode_ref",
+__all__ = ["BODY_LAUNCHES", "DecodePlan", "LAUNCHES", "decode_split_plan",
+           "load_library", "paged_decode", "paged_decode_ref",
            "paged_prefill", "paged_prefill_ref", "paged_verify",
            "paged_verify_ref", "prefill_body", "reset_launch_counts",
            "verify_body"]

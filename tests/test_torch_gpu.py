@@ -82,6 +82,79 @@ def test_kernels_match_plain_versions(cuda_device, kv, Hk, G):
     assert ops.LAUNCHES["paged_prefill"] == before["paged_prefill"] + 1
 
 
+def _decode_case(device, kv, Hk, G, q_dtype, d=128, nb=37, bs=16, seed=6):
+    """Five slots at cursors 0, 15, 16, 300 and the table's last position;
+    slots 1.. share slot 0's first two blocks (a radix prefix hit)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    S, shared = 5, 2
+    N = S * nb
+    if kv == torch.int8:
+        ck, cv = (torch.randint(-40, 41, (N, bs, Hk, d), generator=gen,
+                                device=device, dtype=torch.int8)
+                  for _ in range(2))
+    else:
+        ck, cv = (torch.randn((N, bs, Hk, d), generator=gen,
+                              device=device).to(kv) for _ in range(2))
+    perm = torch.randperm(N, generator=gen, device=device).to(torch.int32)
+    rows = [perm[:nb]] + [torch.cat([perm[:shared], perm[nb + i * (nb - shared):
+                                                        nb + (i + 1) * (nb - shared)]])
+                          for i in range(S - 1)]
+    bt = torch.stack(rows).contiguous()
+    pos = torch.tensor([0, 15, 16, 300, nb * bs - 1], dtype=torch.int32,
+                       device=device)
+    q = torch.randn((S, Hk, G, d), generator=gen, device=device).to(q_dtype)
+    return q, ck, cv, bt, pos
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("Hk,G", [(32, 1), (4, 7)])
+def test_decode_split_body_matches_plain_version(cuda_device, Hk, G, kv,
+                                                 q_dtype):
+    """K1's split body at llama2-7b's and qwen2-7b's heads, every (q, KV)
+    dtype pair it takes, cursors that leave splits empty and end mid-block,
+    within ``kernel_tolerance``; a repeat gives the same bits, and each call
+    counts one launch on ``split``."""
+    q, ck, cv, bt, pos = _decode_case(cuda_device, kv, Hk, G, q_dtype)
+    before = ops.BODY_LAUNCHES["paged_decode"]["split"]
+    out = ops.paged_decode(q, ck, cv, bt, pos)
+    again = ops.paged_decode(q, ck, cv, bt, pos)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES["paged_decode"] == {"split": before + 2}
+    assert out.dtype == q_dtype and out.shape == q.shape
+    _assert_within_tolerance(out, ops.paged_decode_ref(q, ck, cv, bt, pos),
+                             cv)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("Hk,G,d", [(2, 16, 128), (1, 10, 256), (8, 4, 64),
+                                    (2, 3, 32), (2, 2, 8)])
+def test_decode_split_body_other_heads(cuda_device, Hk, G, d):
+    """Row groups (G > 8), a head dim of 256 (a key row over the whole
+    warp), 64, 32 and 8, and G = 3 (one row of four unused); on a 9-block
+    table the cursor 300 lies past its 144 keys, and the whole table is
+    attended, as in the plain version."""
+    q, ck, cv, bt, pos = _decode_case(cuda_device, torch.bfloat16, Hk, G,
+                                      torch.bfloat16, d=d, nb=9)
+    out = ops.paged_decode(q, ck, cv, bt, pos)
+    _assert_within_tolerance(out, ops.paged_decode_ref(q, ck, cv, bt, pos),
+                             cv)
+
+
+def test_decode_rejects_a_head_dim_it_does_not_take(cuda_device):
+    q = torch.zeros((2, 2, 1, 12), device=cuda_device, dtype=torch.bfloat16)
+    ck = torch.zeros((4, 4, 2, 12), device=cuda_device, dtype=torch.bfloat16)
+    bt = torch.zeros((2, 2), dtype=torch.int32, device=cuda_device)
+    pos = torch.zeros((2,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.paged_decode(q, ck, ck, bt, pos)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.paged_decode(q[..., :8].contiguous(), ck[..., :8].contiguous(),
+                         ck[..., :8].contiguous(), bt[:, :0].contiguous(),
+                         pos)
+
+
 @pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("Hk,G", [(32, 1), (4, 7)])
 @pytest.mark.parametrize("Q", [1, 5, 19])

@@ -1,6 +1,7 @@
 """The arithmetic of the tensor-core bodies of K5 (int4 dequant-matmul) and
-K3 and K2 (paged verify and prefill, one body), emulated on the CPU and
-held to ``kernel_tolerance``; the grid plan of K4 (grouped LoRA).
+K3 and K2 (paged verify and prefill, one body) and of K1's split-KV body
+(paged decode), emulated on the CPU and held to ``kernel_tolerance``; the
+grid plans of K1 and K4 (grouped LoRA).
 
 A CUDA kernel cannot run here, so each body's rounding is emulated in
 PyTorch: K5's zero-point split (``part = x_g . q_g - rowsum(x_g) *
@@ -13,6 +14,10 @@ tolerance every kernel comparison uses (one bf16 ulp of each output plus
 1e-3 of the mean magnitude).  One case per kernel shows that the design
 with a single bf16 rounding (the weight dequantized to bf16; P rounded to
 bf16) exceeds that limit: the reason the bodies are built as they are.
+K1's split body computes in f32 throughout (every product of its bf16,
+int8 or f32 operands is exact in f32), so its emulation differs from the
+plain version only by where it cuts the sums: per lane group, per warp,
+per split, and the combine in split order.
 The wrappers' choices of body and grid are pure functions, tested here;
 ``tests/test_torch_gpu.py`` holds the bodies themselves on the card.
 """
@@ -22,12 +27,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.paged_attention import paged_decode as pallas_decode
 from repro.kernels.paged_attention import paged_prefill as pallas_prefill
 from repro.kernels.paged_attention import paged_verify as pallas_verify
 from repro.kernels.quant_matmul.ref import quant_matmul_ref as jax_qmm_ref
 from repro_torch.kernels.grouped_lora import ops as lora_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (kernel_tolerance,
+                                                     paged_decode_ref,
                                                      paged_prefill_ref,
                                                      paged_verify_ref)
 from repro_torch.kernels.quant_matmul import ops as qmm_ops
@@ -379,6 +386,180 @@ def test_k2_single_bf16_p_exceeds_the_limit():
 ])
 def test_prefill_body_rule(q_dtype, kv_dtype, d, rows, want):
     assert pa_ops.prefill_body(q_dtype, kv_dtype, d, rows) == want
+
+
+# ---------------------------------------------------------------------------
+# K1
+# ---------------------------------------------------------------------------
+
+def _merge(m, l, acc, m_o, l_o, acc_o):
+    """Two online-softmax states (max, sum, accumulator) as one."""
+    mn = torch.maximum(m, m_o)
+    fa, fb = torch.exp(m - mn), torch.exp(m_o - mn)
+    return mn, l * fa + l_o * fb, acc * fa[..., None] + acc_o * fb[..., None]
+
+
+def k1_split(q, ck, cv, bt, pos, Hk_plan=None, sm_count=132):
+    """The split body's arithmetic, block for block: the table cut into
+    ``decode_split_plan``'s splits; in a split, key i goes to warp
+    (i // chunk) % 4, its step i // (4 * chunk), and the lane group i %
+    kpr, where a key row takes lpk lanes (kpr = 32 / lpk keys per warp
+    load, U of them per lane and step: chunk = kpr * U keys); each lane
+    group runs an f32 online softmax over its keys, one update per step;
+    the groups of a warp merge pairwise (the shuffle butterfly), the four
+    warps in warp order, and the live splits in split order.  ``Hk_plan``
+    is the KV head count the plan sees (a test may compute fewer heads:
+    each is computed on its own)."""
+    S, Hk, G, d = q.shape
+    bs, nb = ck.shape[1], bt.shape[1]
+    plan = pa_ops.decode_split_plan(S, Hk_plan or Hk, G, nb, bs, sm_count)
+    split_keys = plan.split_blocks * bs
+    lpk = 1
+    while 8 * lpk < d:
+        lpk *= 2
+    kpr = 32 // lpk
+    U = 8 if G <= 2 else 4
+    chunk = kpr * U
+    neg = torch.tensor(NEG_INF)
+    out = torch.empty((S, Hk, G, d))
+    for s in range(S):
+        key_lim = max(1, min(int(pos[s]) + 1, nb * bs))
+        keys = ck[bt[s].long()].reshape(-1, Hk, d)[:key_lim].float()
+        vals = cv[bt[s].long()].reshape(-1, Hk, d)[:key_lim].float()
+        parts = []
+        for k0 in range(0, key_lim, split_keys):
+            n = min(split_keys, key_lim - k0)
+            steps = -(-n // (4 * chunk))
+            pad = steps * 4 * chunk
+            live = torch.arange(pad) < n
+            sc = torch.einsum("hgd,thd->hgt", q[s].float(),
+                              keys[k0:k0 + n]) * d ** -0.5
+            sc = torch.cat([sc, torch.zeros((Hk, G, pad - n))], -1)
+            v = torch.cat([vals[k0:k0 + n], torch.zeros((pad - n, Hk, d))])
+            # key i = ((step * 4 + warp) * U + u) * kpr + kg
+            sc = sc.reshape(Hk, G, steps, 4, U, kpr).permute(0, 1, 3, 5, 2, 4)
+            live = live.reshape(steps, 4, U, kpr).permute(1, 3, 0, 2)
+            v = v.reshape(steps, 4, U, kpr, Hk, d).permute(4, 1, 3, 0, 2, 5)
+            m = torch.full((Hk, G, 4, kpr), NEG_INF)
+            l = torch.zeros((Hk, G, 4, kpr))
+            acc = torch.zeros((Hk, G, 4, kpr, d))
+            for t in range(steps):
+                st = torch.where(live[:, :, t], sc[..., t, :], neg)
+                mx = torch.maximum(m, st.max(-1).values)
+                alpha = torch.exp(m - mx)
+                p = torch.where(live[:, :, t], torch.exp(st - mx[..., None]),
+                                torch.tensor(0.0))
+                l = l * alpha + p.sum(-1)
+                acc = (acc * alpha[..., None]
+                       + torch.einsum("hgwku,hwkud->hgwkd", p, v[:, :, :, t]))
+                m = mx
+            o = 1
+            while o < kpr:                      # the lane groups' butterfly
+                perm = torch.arange(kpr) ^ o
+                m, l, acc = _merge(m, l, acc, m[..., perm], l[..., perm],
+                                   acc[..., perm, :])
+                o *= 2
+            m, l, acc = m[..., 0], l[..., 0], acc[..., 0, :]
+            mw, lw, aw = m[..., 0], l[..., 0], acc[..., 0, :] * 0.0
+            mw = m.max(-1).values                  # the warps, in order
+            lw = torch.zeros_like(lw)
+            for w in range(4):
+                f = torch.exp(m[..., w] - mw)
+                lw = lw + l[..., w] * f
+                aw = aw + acc[..., w, :] * f[..., None]
+            parts.append((mw, lw, aw))
+        mx = torch.stack([p[0] for p in parts]).max(0).values
+        tot_l = torch.zeros((Hk, G))
+        tot = torch.zeros((Hk, G, d))
+        for mj, lj, aj in parts:                   # the combine, in order
+            f = torch.exp(mj - mx)
+            tot_l = tot_l + lj * f
+            tot = tot + aj * f[..., None]
+        out[s] = tot / torch.clamp(tot_l, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def _decode_case(S, Hk, G, d, cursors, kv, q_dtype=torch.bfloat16, nb=37,
+                 bs=16, seed=0):
+    q, ck, cv, bt, pos = _verify_case(S, 1, Hk, G, d, cursors, kv=kv, nb=nb,
+                                      bs=bs, seed=seed)
+    return q[:, 0].to(q_dtype), ck, cv, bt, pos
+
+
+def _ratio_v(out, ref, cv):
+    """Largest |out - ref| over ``kernel_tolerance(ref, cv)``: for f32
+    outputs the limit's scale is max|v|, as on the card."""
+    diff = (out.float() - ref.float()).abs()
+    return float((diff / kernel_tolerance(ref, cv)).max())
+
+
+#: a fresh slot, both sides of a block seam, deep in the table, and the
+#: table's last position: some splits empty, some ending mid-block
+DECODE_CURSORS = [0, 15, 16, 300, 37 * 16 - 1]
+#: llama2-7b's (Hk, G) = (32, 1) and qwen2-7b's (4, 7) KV heads at d = 128
+DECODE_HEADS = [(32, 1), (4, 7)]
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("Hk,G", DECODE_HEADS,
+                         ids=[f"Hk{h}-G{g}" for h, g in DECODE_HEADS])
+def test_k1_split_within_tolerance_of_plain_version(Hk, G, kv, q_dtype):
+    q, ck, cv, bt, pos = _decode_case(5, Hk, G, 128, DECODE_CURSORS, kv,
+                                      q_dtype, seed=Hk + G)
+    got = k1_split(q, ck, cv, bt, pos)
+    ref = paged_decode_ref(q, ck, cv, bt, pos)
+    assert got.dtype == ref.dtype
+    assert _ratio_v(got, ref, cv) <= 1.0
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("Hk,G", DECODE_HEADS,
+                         ids=[f"Hk{h}-G{g}" for h, g in DECODE_HEADS])
+def test_k1_split_within_tolerance_of_jax_kernel(Hk, G, kv):
+    """Against the reference's Pallas kernel in interpret mode, as its own
+    tests run it on the CPU; llama2-7b's 32 KV heads are cut to 2 (each
+    head is computed on its own; the split plan still sees 32)."""
+    q, ck, cv, bt, pos = _decode_case(5, min(Hk, 4) if G > 1 else 2, G, 128,
+                                      DECODE_CURSORS, kv, seed=Hk * G)
+    got = k1_split(q, ck, cv, bt, pos, Hk_plan=Hk)
+    kvj = _bf16 if kv == torch.bfloat16 else (lambda t: jnp.asarray(t.numpy()))
+    want = pallas_decode(_bf16(q), kvj(ck), kvj(cv), jnp.asarray(bt.numpy()),
+                         jnp.asarray(pos.numpy()))
+    want = torch.from_numpy(np.asarray(want, np.float32)).bfloat16()
+    assert _ratio_v(got, want, cv) <= 1.0
+
+
+@pytest.mark.parametrize("S,Hk,G,nb,bs", [
+    (4, 32, 1, 37, 16),      # the main path: llama2-7b, 4 slots
+    (4, 4, 7, 37, 16),       # qwen2-7b
+    (1, 32, 1, 37, 16),      # one slot
+    (4, 2, 16, 37, 16),      # G > 8: two row groups
+    (64, 32, 1, 256, 16),    # many slots: the grid is full without splits
+    (2, 2, 2, 5, 8),         # a short table
+    (4, 8, 4, 2048, 16),     # a long table
+])
+def test_decode_split_plan(S, Hk, G, nb, bs):
+    """Splits cover the table in equal runs of whole blocks (the last may
+    be shorter), hold at least 64 keys where the table has them, and fill
+    two blocks per SM wherever that still leaves 64 keys a split; the plan
+    reads shapes only, never a cursor."""
+    plan = pa_ops.decode_split_plan(S, Hk, G, nb, bs, sm_count=132)
+    assert (plan.splits - 1) * plan.split_blocks < nb \
+        <= plan.splits * plan.split_blocks
+    assert plan.split_blocks * bs >= min(64, nb * bs)
+    blocks = plan.splits * S * Hk * -(-G // 8)
+    if nb * bs >= 64 * -(-2 * 132 // (S * Hk * -(-G // 8))):
+        assert blocks >= 2 * 132
+    assert "pos" not in pa_ops.decode_split_plan.__code__.co_varnames
+
+
+def test_decode_split_plan_at_the_main_path():
+    """llama2-7b's 4 slots: 128 (slot, head) pairs, 4 splits of 12 blocks
+    (512 blocks); qwen2-7b's 16 pairs, 10 splits of 4 blocks (160: two
+    per SM would leave splits of 32 keys, which ran slower)."""
+    assert pa_ops.decode_split_plan(4, 32, 1, 37, 16, 132) == (4, 12)
+    assert pa_ops.decode_split_plan(4, 4, 7, 37, 16, 132) == (10, 4)
 
 
 # ---------------------------------------------------------------------------
