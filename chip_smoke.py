@@ -13,9 +13,10 @@ caught and ignored):
               kernels/flash_attention/csrc (K6 forward and backward) and
               kernels/quant_matmul/csrc (K5).
 2. kernels  — every kernel against its plain PyTorch version on the card,
-              at the llama2-7b (Hk=32, G=1) and qwen2-7b (Hk=4, G=7) head
-              shapes, d=128, bs=16, bf16 and int8 KV: decode cursors at 0,
-              mid-block and on block seams, on the split body, a repeat
+              at the llama2-7b (Hk=32, G=1), qwen2-7b (Hk=4, G=7) and
+              qwen2-moe-a2.7b (Hk=16, G=1) head shapes, d=128, bs=16,
+              bf16 and int8 KV: decode cursors at 0, mid-block and on
+              block seams, on the split body, a repeat
               bit-identical; prefill chunks (0, 256), (200,
               77) and (520, 3) over tables that share prefix blocks, every
               row held (padding rows too), bf16 q on the mma body and f32
@@ -68,6 +69,8 @@ caught and ignored):
               bucketed admission gives unbucketed admission's, a
               mixed-tenant batch gives each request's tokens served
               alone, and gather equals paged with LoRA and speculation on.
+              qwen2-moe-a2.7b at full width with 4 of its 24 layers, f32
+              weights: gather == paged tokens in bf16 and int8 KV.
               granite-3-2b at 4 layers, full width, f32 weights: three
               training steps (two microbatches each) through the flash
               kernels equal three through eager attention.
@@ -85,12 +88,29 @@ caught and ignored):
               api.forecast of the same scenario for nvidia-h100, declared
               and replaying the measured trace: TTFT, TPOT and TPS with
               each relative error.
+8. moe      — qwen2-moe-a2.7b at full width and depth (24 layers, 60
+              routed experts of 1408, top-4, 4 shared; random bf16
+              weights from seed 0, 28.6 GB): the engine phase's plain
+              pass (K2, K1) and its speculative pass with four LoRA
+              tenants (K2, K3, K4), each zeroing the launch counts before
+              it and reading them after; TTFT, TPOT, TPS and peak memory;
+              a profile of an admission and a decode block, device time
+              by class (expert products, shared experts, router and
+              dispatch, attention kernels, the rest); then measure
+              against forecast as in phase 7.  The weights are freed.
+9. vlm      — internvl2-26b at full width and depth (48 layers, d=6144,
+              39.8 GB) served as text (K2, K1); one forward over 256
+              vision patches + 256 tokens through K6, each layer's K6
+              output held to its plain version, against the eager
+              forward; the same at 4 layers in f32, flash == eager
+              within 1e-5.
 
 ``--phases profile`` (run only when named) profiles engine steps and one
 training step of the train phase's configuration.
 
-The last lines are the quant/measure, train and engine JSON summaries,
-the kernels' JSON record, the card's name and power limit, and
+The last lines are the quant/measure, moe/vlm, train and engine JSON
+summaries, the kernels' JSON record (K1-K4 launches summed over the
+engine and moe phases), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -107,7 +127,7 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "engine", "train", "parity", "quant",
-          "measure")
+          "measure", "moe", "vlm")
 EXTRA_PHASES = ("profile",)     # run only when named
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
@@ -539,7 +559,8 @@ def check_grouped_lora(device, gen, worst, results):
     from repro_torch.kernels.grouped_lora import ops
 
     R = 16
-    for k, n in ((4096, 4096), (3584, 512)):    # llama2 q/o, qwen2 k/v
+    # llama2 q/o, qwen2 k/v, qwen2-moe q/k/v/o
+    for k, n in ((4096, 4096), (3584, 512), (2048, 2048)):
         A, B = _lora_pool(4, k, n, (8, 16), R, gen, device)
         idx = torch.tensor([2, -1, 0, 2, 3], dtype=torch.int32,
                            device=device)
@@ -555,9 +576,10 @@ def check_grouped_lora(device, gen, worst, results):
                       "got a non-zero delta")
                 check(torch.equal(ops.grouped_lora(x, A, B, idx), out),
                       f"grouped_lora T={T}: a repeat gave other bits")
-    # one launch for a layer's q, k and v: llama2-7b (4096 -> 4096 x 3)
-    # and qwen2-7b (3584 -> 3584, 512, 512)
-    for k, ns in ((4096, (4096, 4096, 4096)), (3584, (3584, 512, 512))):
+    # one launch for a layer's q, k and v: llama2-7b (4096 -> 4096 x 3),
+    # qwen2-7b (3584 -> 3584, 512, 512) and qwen2-moe-a2.7b (2048 x 3)
+    for k, ns in ((4096, (4096, 4096, 4096)), (3584, (3584, 512, 512)),
+                  (2048, (2048, 2048, 2048))):
         pairs = [_lora_pool(4, k, n, (8, 16), R, gen, device) for n in ns]
         idx = torch.tensor([1, -1, 0, 3], dtype=torch.int32, device=device)
         for T in (1, 5, 256):
@@ -916,7 +938,8 @@ def phase_kernels(device, results):
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
     bs, d, nb, N = 16, 128, 37, 512
-    shapes = {"llama2-7b": (32, 1), "qwen2-7b": (4, 7)}
+    shapes = {"llama2-7b": (32, 1), "qwen2-7b": (4, 7),
+              "qwen2-moe-a2.7b": (16, 1)}
     worst = [0.0]
     for arch, (Hk, G) in shapes.items():
         for kv_name, kv_dtype in (("bf16", torch.bfloat16),
@@ -974,7 +997,7 @@ def phase_kernels(device, results):
     pos = torch.tensor([540, 544, 548, 552], dtype=torch.int32, device=device)
     S = pos.numel()
     timed = []
-    for arch in ("llama2-7b", "qwen2-7b"):
+    for arch in shapes:
         Hk, G = shapes[arch]
         ck, cv = _pool(N, bs, Hk, d, torch.bfloat16, gen, device)
         bt = _tables(S, nb, N, 16, gen, device)
@@ -982,7 +1005,8 @@ def phase_kernels(device, results):
             torch.bfloat16)
         timed.append(_time_decode(q, ck, cv, bt, pos, worst, flush,
                                   f"paged_decode main-path shape {arch}"))
-        _sweep_decode(q, ck, cv, bt, pos, flush, arch)
+        if arch != "qwen2-moe-a2.7b":     # the two shapes behind the plan
+            _sweep_decode(q, ck, cv, bt, pos, flush, arch)
         if arch == "llama2-7b":
             main_pool = ck, cv, bt
     check(all(t["body"] == "split" for t in timed),
@@ -1589,7 +1613,34 @@ def phase_parity(device):
     check(same, "gather and paged tokens differ with LoRA and speculation")
     del params
     torch.cuda.empty_cache()
+    _moe_parity(device)
     _train_parity(device)
+
+
+def _moe_parity(device):
+    """qwen2-moe-a2.7b at full width (60 experts of 1408, top-4, 4 shared)
+    with 4 of its 24 layers and f32 weights: gather and paged attention
+    give identical greedy tokens with bf16 and with int8 KV.  (The first
+    token is not held to the dense forward's argmax: the engine routes a
+    prompt in chunks, and capacity counts each chunk's own tokens, as in
+    the reference.)"""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=4)
+    params = init_params(cfg, 0, device=device, dtype=torch.float32)
+    reqs = _requests(cfg.vocab_size, 6, 100, 16, 48, seed=3)
+    for kv in ("bf16", "int8"):
+        toks = {impl: _parity_tokens(cfg, params, reqs, kv, impl, device)
+                for impl in ("gather", "paged")}
+        same = toks["gather"] == toks["paged"]
+        log(f"[parity] {MOE_ARCH} x4 layers f32, kv={kv}: gather == paged "
+            f"tokens: {same}")
+        check(same, f"{MOE_ARCH}: gather and paged tokens differ with {kv} "
+              f"KV")
+    del params
+    torch.cuda.empty_cache()
 
 
 def _train_parity(device):
@@ -1945,6 +1996,12 @@ def phase_quant(device, summary):
 
 def phase_measure(device, summary):
     """``repro_torch.api.measure`` on llama2-7b at full width and depth
+    against ``api.forecast`` for ``nvidia-h100`` (:func:`_measure_vs_forecast`)."""
+    summary["measure"] = _measure_vs_forecast("llama2-7b", device)
+
+
+def _measure_vs_forecast(model, device):
+    """``repro_torch.api.measure`` on ``model`` at full width and depth
     (bf16-bf16, paged attention, 4 slots, 8 requests of 512 + 64 tokens,
     chunk 256, decode block 8, a shared 256-token prefix); K1 and K2 must
     launch.  Then ``api.forecast`` of the same scenario for
@@ -1955,7 +2012,7 @@ def phase_measure(device, summary):
     import torch
     from repro_torch import api
 
-    scn = api.Scenario(model="llama2-7b", variant="bf16-bf16", batch=4,
+    scn = api.Scenario(model=model, variant="bf16-bf16", batch=4,
                        n_requests=8, prompt_len=512, gen_len=64, chunk=256,
                        decode_block=8, attn_impl="paged",
                        shared_prefix_len=256, seed=0)
@@ -1965,7 +2022,7 @@ def phase_measure(device, summary):
     wall = time.perf_counter() - t0
     launches = _launches()                    # ... and ends here
     check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
-          f"measure did not launch K1 and K2: {launches}")
+          f"measure {model} did not launch K1 and K2: {launches}")
     ex = measured.extras
     check(ex["mode"] == "engine" and ex["requests"] == 8
           and ex["tokens"] == 8 * 64, f"measure extras {ex}")
@@ -1987,17 +2044,357 @@ def phase_measure(device, summary):
                                rel_err=m.rel_err)
                     for name, m in (("ttft_s", d.ttft), ("tpot_s", d.tpot),
                                     ("tps", d.tps))}
-        log(f"[measure] llama2-7b {tag} forecast on nvidia-h100 vs measured "
+        log(f"[measure] {model} {tag} forecast on nvidia-h100 vs measured "
             f"on {measured.hardware}: "
             + "; ".join(f"{n} {v['forecast']:.6g} vs {v['measured']:.6g} "
                         f"(rel err {v['rel_err']:+.4f})"
                         for n, v in out[tag].items()))
-    log(f"[measure] launches {out['launches']}; prefix hit rate "
+    log(f"[measure] {model} launches {out['launches']}; prefix hit rate "
         f"{ex['prefix_hit_rate']:.4f}; measured window {ex['wall_s']:.2f} s, "
         f"measure() {wall:.1f} s")
-    summary["measure"] = out
     del measured
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases: the MoE and VLM decoders
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+VLM_ARCH = "internvl2-26b"
+
+
+class _MoeRanges:
+    """While active, torch.profiler ranges around the port's MoE layer
+    (``moe layer``: router, dispatch, experts, combine, shared experts),
+    its routed expert products (``moe experts``) and its shared experts
+    (``moe shared``), wrapped around ``repro_torch.models.blocks``'
+    functions (which look each other up at call time)."""
+
+    NAMES = {"_moe_forward_local": "moe layer", "_experts": "moe experts",
+             "_shared": "moe shared"}
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import blocks
+        self.saved = {f: getattr(blocks, f) for f in self.NAMES}
+        for f, name in self.NAMES.items():
+            def ranged(*a, _real=self.saved[f], _name=name, **kw):
+                with torch.profiler.record_function(_name):
+                    return _real(*a, **kw)
+            setattr(blocks, f, ranged)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+        for f, real in self.saved.items():
+            setattr(blocks, f, real)
+
+
+def _moe_classes(prof):
+    """Device time (us) of one profiled MoE engine step by class: routed
+    expert products, shared experts, router and dispatch (the rest of
+    the MoE layer: routing, slot assignment, scatter, gather and
+    combine), the port's attention kernels (K1-K4), and everything else
+    (attention projections, norms, embedding, lm_head, sampling)."""
+    from torch.autograd import DeviceType
+    kinds, _ = _device_kinds(prof)
+    ranges = dict.fromkeys(_MoeRanges.NAMES.values(), 0.0)
+    for evt in prof.key_averages():
+        if evt.key in ranges and evt.device_type != DeviceType.CUDA:
+            ranges[evt.key] += float(evt.device_time_total)
+    busy = sum(kinds.values())
+    attn = sum(v for k, v in kinds.items()
+               if k.startswith(("paged_", "grouped_lora")))
+    experts, shared = ranges["moe experts"], ranges["moe shared"]
+    return {"expert products": experts, "shared experts": shared,
+            "router and dispatch": ranges["moe layer"] - experts - shared,
+            "attention kernels": attn,
+            "other": busy - ranges["moe layer"] - attn}, busy
+
+
+def _profile_moe(cfg, params, ec, device):
+    """torch.profiler over each step of 4 requests of 512 + 17 tokens (an
+    admission step, then two decode blocks of 8 steps), MoE ranges on:
+    each step's device time by class (:func:`_moe_classes`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.engine import Engine
+
+    reqs = _requests(cfg.vocab_size, 4, 512, 17, 256, seed=4)
+    eng = Engine(cfg, params, ec, device=device)
+    eng.warmup()
+    for r in reqs:
+        eng.submit(r)
+    out = []
+    with _MoeRanges():
+        while not eng.done:
+            n0 = len(eng.trace)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            classes, busy = _moe_classes(prof)
+            events = [e.kind for e in eng.trace[n0:]]
+            kind = "+".join(f"{k}x{events.count(k)}"
+                            for k in dict.fromkeys(events))
+            steps = sum(e.n_steps for e in eng.trace[n0:]
+                        if e.kind == "decode_block")
+            out.append(dict(kind=kind, wall_ms=wall * 1e3,
+                            busy_ms=busy / 1e3, decode_steps=steps,
+                            idle_share=max(0.0, 1 - busy / 1e6 / wall),
+                            classes_ms={k: v / 1e3
+                                        for k, v in classes.items()}))
+            parts = ", ".join(f"{k} {v / 1e3:.2f} ms"
+                              for k, v in classes.items())
+            log(f"[moe] profile step {len(out) - 1} ({kind}): wall "
+                f"{wall * 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+                f"(idle share {out[-1]['idle_share']:.3f}); {parts}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(device, summary):
+    """qwen2-moe-a2.7b at full width and depth (24 layers, 60 routed
+    experts of 1408, top-4, 4 shared; random bf16 weights from seed 0)
+    served by the engine with paged attention: the llama2-7b engine
+    phase's plain pass (K2 admits, K1 decodes) and its speculative pass
+    with four LoRA tenants (K2, K3, K4); a profile of its decode blocks
+    by class; ``api.measure`` against ``api.forecast`` for
+    ``nvidia-h100``.  The weights are freed at the end."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.engine import EngineConfig
+    from repro_torch.models import init_params
+
+    cfg = configs.get(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[moe] {MOE_ARCH}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_experts} experts of {cfg.d_ff_expert} (top-{cfg.top_k}) + "
+        f"{cfg.n_shared_experts} shared; params {n_params / 1e9:.3f} B "
+        f"({n_params * 2 / 1e9:.2f} GB bf16), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompt_len, max_new = 512, 64
+    reqs = _requests(cfg.vocab_size, 8, prompt_len, max_new, 256, seed=1)
+    ec = EngineConfig(max_slots=4, max_len=prompt_len + max_new + 16,
+                      chunk_size=256, decode_block=8, block_size=16,
+                      n_blocks=512, kv_dtype="bf16", attn_impl="paged")
+    out = {"params": n_params}
+    tenants = 4
+    for tag, ec_t, reqs_t, path in (
+            ("plain", ec, reqs, ("paged_prefill", "paged_decode")),
+            ("spec_lora", dataclasses.replace(
+                ec, spec_k=4, lora_tenants=tenants, lora_ranks=(8, 16)),
+             _with_tenants(reqs, tenants),
+             ("paged_prefill", "paged_verify", "grouped_lora"))):
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launches()                     # this path starts here
+        t0 = time.perf_counter()
+        eng, results = _serve(cfg, params, ec_t, reqs_t, device)
+        wall = time.perf_counter() - t0
+        launches = _launches()                # ... and ends here
+        bodies = _engine_bodies()
+        _check_results(cfg, reqs_t, results, f"moe {tag}")
+        check(all(launches[k] > 0 for k in path),
+              f"moe {tag} did not launch {path}: {launches}")
+        _check_engine_bodies(f"moe {tag}", launches, bodies)
+        check(results[1].cached_tokens == 256,
+              f"moe {tag}: request 1 radix hit {results[1].cached_tokens}")
+        r = out[tag] = dict(
+            ttft_p50_ms=float(np.median([x.ttft for x in results]) * 1e3),
+            tpot_p50_ms=float(np.median([x.tpot for x in results]) * 1e3),
+            tps=eng.aggregate_tps(), launches=launches, bodies=bodies,
+            kv_pool_gb=eng.cache.total_bytes() / 1e9, wall_s=wall,
+            peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+        if ec_t.spec_k:
+            r.update(spec_acceptance=eng.spec_acceptance,
+                     spec_tokens_per_step=eng.spec_tokens_per_step,
+                     adapter_hit_rate=eng.adapter_hit_rate)
+            check(eng.adapter_pool.misses == tenants,
+                  f"moe {tag}: adapter pool misses "
+                  f"{eng.adapter_pool.misses}")
+        log(f"[moe] {MOE_ARCH} paged bf16 {tag}: 8 requests x ({prompt_len} "
+            f"+ {max_new}), 4 slots, KV pool {r['kv_pool_gb']:.2f} GB; TTFT "
+            f"p50 {r['ttft_p50_ms']:.2f} ms, TPOT p50 {r['tpot_p50_ms']:.3f} "
+            f"ms, TPS {r['tps']:.1f}, peak memory {r['peak_mem_gb']:.2f} GB"
+            + (f", acceptance {r['spec_acceptance']:.4f}, tokens/step "
+               f"{r['spec_tokens_per_step']:.4f}" if ec_t.spec_k else "")
+            + f"; launches {launches}, by body {bodies}; wall {wall:.1f} s "
+            f"(warm-up included)")
+        del eng
+        torch.cuda.empty_cache()
+    out["launches_total"] = {k: out["plain"]["launches"][k]
+                             + out["spec_lora"]["launches"][k]
+                             for k in ENGINE_KERNELS}
+    check(all(v > 0 for v in out["launches_total"].values()),
+          f"the moe passes did not launch every kernel: "
+          f"{out['launches_total']}")
+    out["bodies_total"] = {
+        w: {b: out["plain"]["bodies"][w][b] + out["spec_lora"]["bodies"][w][b]
+            for b in c} for w, c in out["plain"]["bodies"].items()}
+    out["profile"] = _profile_moe(cfg, params, ec, device)
+    blocks_ = [p for p in out["profile"] if p["kind"] == "decode_blockx1"]
+    check(bool(blocks_), "moe profile: no decode block on its own")
+    for p in blocks_:
+        per_step = {k: v / p["decode_steps"]
+                    for k, v in p["classes_ms"].items()}
+        log(f"[moe] decode block of {p['decode_steps']} steps: device "
+            f"{p['busy_ms'] / p['decode_steps']:.3f} ms per step ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
+            + f"); wall {p['wall_ms'] / p['decode_steps']:.3f} ms per step, "
+            f"idle share {p['idle_share']:.3f}")
+    del params
+    torch.cuda.empty_cache()
+    out["measure"] = _measure_vs_forecast(MOE_ARCH, device)
+    summary["moe"] = out
+
+
+def _vlm_forward(cfg, params, device):
+    """One forward of 1 x (vision prefix + 256 text tokens) through the
+    flash kernel (K6, one launch per layer, on the body ``flash_body``
+    picks), each layer's K6 output held to its plain version on the same
+    q, k, v (``kernel_tolerance``), then the eager forward: the logits'
+    relative norm difference, top-1 agreement and text cross-entropy.  In
+    f32 the two paths must agree within the train phase's f32 limit
+    (1e-5); in bf16 the eager path rounds scores and probabilities to
+    bf16 where K6 keeps them in f32, so there the difference is a
+    finding."""
+    import torch
+    from repro_torch.models import attention, forward
+    from repro_torch.runtime.train import cross_entropy
+
+    fa_ops = _kernel_ops()[2]
+    dtype = params["embed"].dtype
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    P = cfg.vision_prefix_len
+    ve = torch.randn((1, P, cfg.d_model), generator=gen,
+                     device=device).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                         device=device)
+    worst = [0.0]
+    real = attention.flash_attention
+
+    def held(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        ref = fa_ops.attention_ref(q, k, v, **{
+            n: kw[n] for n in ("causal", "window", "q_offset") if n in kw})
+        _compare(out, ref, v, "vlm flash layer", worst, quiet=True)
+        return out
+
+    logits = {}
+    with torch.no_grad():
+        _reset_launches()
+        attention.flash_attention = held
+        try:
+            logits["flash"], _ = forward(cfg, params, toks, vision_embeds=ve,
+                                         use_flash=True)
+        finally:
+            attention.flash_attention = real
+        k6 = (_launches()["flash_fwd"],
+              dict(fa_ops.BODY_LAUNCHES["flash_fwd"]))
+        logits["eager"], _ = forward(cfg, params, toks, vision_embeds=ve)
+    body = fa_ops.flash_body(dtype, cfg.head_dim)
+    check(k6[0] == cfg.n_layers and k6[1][body] == cfg.n_layers,
+          f"vlm forward: K6 launches {k6}, expected one per layer on "
+          f"{body}")
+    fl, ea = logits["flash"].float(), logits["eager"].float()
+    check(fl.shape == (1, P + 256, cfg.vocab_size)
+          and bool(torch.isfinite(fl).all()), f"vlm forward: logits "
+          f"{tuple(fl.shape)}, finite {bool(torch.isfinite(fl).all())}")
+    rel = float((fl - ea).norm() / ea.norm())
+    mask = torch.ones((1, 255), device=device)
+    ce = [float(cross_entropy(x[:, P:-1], toks[:, 1:], mask))
+          for x in (fl, ea)]
+    top1 = float((fl[0].argmax(-1) == ea[0].argmax(-1)).float().mean())
+    limit = 1e-5 if dtype == torch.float32 else None
+    tag = f"{cfg.n_layers} layers {str(dtype)[6:]}"
+    log(f"[vlm] forward {tag}, 1 x ({P} patches + 256 tokens): K6 x "
+        f"{k6[0]} on {body}, each layer's output against its plain version "
+        f"largest err/limit {worst[0]:.3e}; flash vs eager logits relative "
+        f"norm difference {rel:.3e} (limit {limit or 'none: a finding'}), "
+        f"top-1 agreement {top1:.4f}, text cross-entropy {ce[0]:.6f} vs "
+        f"{ce[1]:.6f}")
+    check(worst[0] <= 1.0, f"vlm forward {tag}: a K6 layer output is "
+          f"{worst[0]:.3f} of its limit")
+    if limit is not None:
+        check(rel <= limit, f"vlm forward {tag}: flash and eager logits "
+              f"differ by {rel:.3e} (relative norm)")
+    return dict(rel_norm=rel, limit=limit, top1=top1, ce=ce,
+                k6_launches=k6[0], body=body, layer_err_ratio=worst[0])
+
+
+def phase_vlm(device, summary):
+    """internvl2-26b at full width and depth (48 layers, d=6144; random
+    bf16 weights from seed 0): an engine pass served as text, as both
+    packages serve a VLM (paged, 4 requests of 256 + 16 tokens: K2 and
+    K1); then one forward of 1 x (256 vision patches + 256 text tokens)
+    through the flash kernel (K6) against the eager path
+    (:func:`_vlm_forward`), at full depth in bf16 and, with the train
+    phase's cut and limit, at 4 layers in f32."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.engine import EngineConfig
+    from repro_torch.models import init_params
+
+    cfg = configs.get(VLM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[vlm] {VLM_ARCH}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"params {n_params / 1e9:.3f} B ({n_params * 2 / 1e9:.2f} GB bf16), "
+        f"init {time.perf_counter() - t0:.1f} s")
+    prompt_len, max_new = 256, 16
+    reqs = _requests(cfg.vocab_size, 4, prompt_len, max_new, 128, seed=6)
+    ec = EngineConfig(max_slots=4, max_len=prompt_len + max_new + 16,
+                      chunk_size=256, decode_block=8, block_size=16,
+                      n_blocks=128, kv_dtype="bf16", attn_impl="paged")
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launches()                         # the engine path starts here
+    t0 = time.perf_counter()
+    eng, results = _serve(cfg, params, ec, reqs, device)
+    wall = time.perf_counter() - t0
+    launches = _launches()                    # ... and ends here
+    bodies = _engine_bodies()
+    _check_results(cfg, reqs, results, "vlm engine")
+    check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
+          f"vlm engine did not launch K1 and K2: {launches}")
+    _check_engine_bodies("vlm engine", launches, bodies)
+    out = dict(params=n_params, engine=dict(
+        ttft_p50_ms=float(np.median([r.ttft for r in results]) * 1e3),
+        tpot_p50_ms=float(np.median([r.tpot for r in results]) * 1e3),
+        tps=eng.aggregate_tps(), launches=launches, wall_s=wall,
+        peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9))
+    r = out["engine"]
+    log(f"[vlm] {VLM_ARCH} paged bf16 as text: 4 requests x ({prompt_len} + "
+        f"{max_new}); TTFT p50 {r['ttft_p50_ms']:.2f} ms, TPOT p50 "
+        f"{r['tpot_p50_ms']:.3f} ms, TPS {r['tps']:.1f}, peak memory "
+        f"{r['peak_mem_gb']:.2f} GB; launches {launches}; wall {wall:.1f} s")
+    del eng
+    torch.cuda.empty_cache()
+
+    out["forward"] = _vlm_forward(cfg, params, device)
+    del params
+    torch.cuda.empty_cache()
+    # f32 at the train phase's cut (4 layers, full width): flash (the fma
+    # body) == eager within the train phase's f32 limit
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    params = init_params(cfg4, 0, device=device, dtype=torch.float32)
+    out["forward_f32_4_layers"] = _vlm_forward(cfg4, params, device)
+    del params
+    torch.cuda.empty_cache()
+    summary["vlm"] = out
 
 
 def main() -> int:
@@ -2027,7 +2424,7 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
     t_all = time.perf_counter()
-    kernels, summary, trained, quant_measure = {}, {}, {}, {}
+    kernels, summary, trained, quant_measure, families = {}, {}, {}, {}, {}
     if "build" in phases:
         # one nvcc per source, all started together
         libs = [(mod.SOURCE, mod.LIBRARY_NAME) for mod in kernel_ops]
@@ -2054,6 +2451,10 @@ def main() -> int:
         phase_quant(device, quant_measure)
     if "measure" in phases:
         phase_measure(device, quant_measure)
+    if "moe" in phases:
+        phase_moe(device, families)
+    if "vlm" in phases:
+        phase_vlm(device, families)
     if "profile" in phases:
         phase_profile(device)
     log(f"[done] phases {phases} in {time.perf_counter() - t_all:.1f} s")
@@ -2062,10 +2463,16 @@ def main() -> int:
     # before it and read after it): K1-K4 from the engine phase, K6 from
     # the train phase, K5 from the quant phase; without a phase there is
     # no count of it to report
-    launches = {**summary.get("launches_total", {}),
+    engine = summary.get("launches_total", {})
+    moe = families.get("moe", {}).get("launches_total", {})
+    launches = {**{k: engine.get(k, 0) + moe.get(k, 0)
+                   for k in {*engine, *moe}},
                 **trained.get("train", {}).get("launches", {}),
                 **quant_measure.get("quant", {}).get("launches", {})}
     engine_bodies = summary.get("bodies_total", {})
+    for w, c in families.get("moe", {}).get("bodies_total", {}).items():
+        engine_bodies = {**engine_bodies, w: {
+            b: engine_bodies.get(w, {}).get(b, 0) + n for b, n in c.items()}}
     bodies = {**engine_bodies,
               "quant_matmul": quant_measure.get("quant", {}).get("bodies"),
               **trained.get("train", {}).get("bodies", {})}
@@ -2096,6 +2503,8 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"quant": quant_measure.get("quant"),
                       "measure": quant_measure.get("measure")}))
+    print(json.dumps({"moe": families.get("moe"),
+                      "vlm": families.get("vlm")}))
     print(json.dumps({"train": trained.get("train")}))
     print(json.dumps({"engine": summary}))
     print(json.dumps({"kernels": record}))

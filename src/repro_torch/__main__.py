@@ -18,7 +18,7 @@ Every subcommand prints a human table by default or the Report's stable
 JSON with ``--json`` (pipe into a file to feed ``compare`` later).
 A copy of the JAX package's CLI: ``measure`` runs the port's engine on
 ``--device`` (the card unless ``--device cpu`` is given), and the
-compile-time ``audit`` is not ported (ROADMAP queue 1, item 16).
+compile-time ``audit`` is not ported (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 

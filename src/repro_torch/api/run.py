@@ -425,16 +425,12 @@ def _check_measurable(scenario: Scenario) -> None:
         raise NotImplementedError(
             f"Scenario tp={scenario.tp} × pp={scenario.pp} needs the "
             f"multi-device engine, which is not ported (ROADMAP queue 1, "
-            f"item 15); the port measures on one device")
+            f"item 5); the port measures on one device")
     if not engine_supported(arch):
         raise NotImplementedError(
             f"{arch.name!r} (family {arch.family!r}) is served by the "
             f"lockstep server, which is not ported (ROADMAP queue 1, "
-            f"item 13)")
-    if arch.family != "dense":
-        raise NotImplementedError(
-            f"the port's engine serves dense decoders; {arch.name!r} "
-            f"(family {arch.family!r}) needs ROADMAP queue 1, item 11")
+            f"item 4)")
 
 
 def _measure_hw_name(hw: Optional[HardwareLike], dev) -> str:
@@ -476,9 +472,10 @@ def measure(scenario: Scenario, hw: Optional[HardwareLike] = None, *,
       ``seed + 2``): the port cannot reproduce JAX's PRNG, so the same
       scenario serves other random weights and prompts than the
       reference's run;
-    * ``tp·pp > 1`` raises (ROADMAP queue 1, item 15), and so do families
-      the engine does not serve: the lockstep server (item 13) and the
-      MoE/VLM layers (item 11).
+    * ``tp·pp > 1`` raises (ROADMAP queue 1, item 5), and so do the
+      families the engine does not serve, which the reference measures
+      on its lockstep server (item 4).  MoE and VLM decoders run on the
+      engine, a VLM as text, as in the reference.
     """
     import time
 

@@ -13,7 +13,7 @@ package's ``checkpoint/manager.py``, in its on-disk layout).
 * **GC** — the last ``keep_last_n`` steps are kept; older ones deleted.
 
 Placing restored leaves on another mesh (``restore_sharded``) comes with
-multi-device training (ROADMAP queue 1, item 15).
+multi-device training (ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 

@@ -1,11 +1,13 @@
 """Architecture config registry of the port: ``--arch <id>`` resolution.
 
-The port serves the dense GQA decoders the engine's main path runs:
+The port serves the dense GQA decoders of the engine's main path,
 Llama-2-7B (the paper's study model) and Qwen2-7B (GQA with QKV bias),
-and trains Granite-3.0-2B (the training launcher's example).  The other
-architectures of the JAX package's registry are here as data for the
-analytical half (``core``, ``api``): the port's models and engine do not
-run their families yet (ROADMAP queue 1, items 11 and 13).
+the MoE decoders (Qwen1.5-MoE-A2.7B, DeepSeekMoE-16B) and InternVL2-26B's
+language stack, and trains Granite-3.0-2B (the training launcher's
+example).  The other architectures of the JAX package's registry are
+here as data for the analytical half (``core``, ``api``): the port's
+models and engine do not run their families yet (ROADMAP queue 1,
+item 4).
 """
 from __future__ import annotations
 

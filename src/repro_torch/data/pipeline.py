@@ -30,13 +30,15 @@ class SyntheticTokens:
     """Zipf-ish token stream with optional document packing + EOS resets.
 
     ``batch`` returns int64 ``inputs`` / ``targets`` and f32 ``mask``
-    tensors on ``device`` (default ``"cuda"``)."""
+    tensors on ``device`` (default ``"cuda"``); a VLM's batch also holds
+    bf16 ``vision_embeds`` (b, vision_prefix_len, d), and its text is
+    ``seq_len - vision_prefix_len`` tokens long."""
 
     def __init__(self, cfg: ArchConfig, data: DataConfig, device="cuda"):
-        if cfg.family in ("vlm", "encdec"):
+        if cfg.family == "encdec":
             raise NotImplementedError(
-                f"{cfg.family} batches (vision embeddings, encoder frames) "
-                f"come with the other families (ROADMAP queue 1, item 13)")
+                "encdec batches (encoder frames) come with the encoder-"
+                "decoder family (ROADMAP queue 1, item 4)")
         self.cfg = cfg
         self.data = data
         self.device = resolve_device(device)
@@ -49,6 +51,16 @@ class SyntheticTokens:
         d, cfg = self.data, self.cfg
         rng = np.random.default_rng(np.uint64(d.seed * 1_000_003 + step))
         n_text = d.seq_len
+        out: Dict[str, torch.Tensor] = {}
+        as_t = lambda a: torch.from_numpy(a).to(self.device)
+        if cfg.family == "vlm":
+            n_text = d.seq_len - cfg.vision_prefix_len
+            # drawn before the tokens, as the reference draws them; f64
+            # -> f32 -> bf16, each rounding to nearest even
+            ve = rng.standard_normal(
+                (d.global_batch, cfg.vision_prefix_len, cfg.d_model))
+            out["vision_embeds"] = as_t(ve.astype(np.float32)).to(
+                torch.bfloat16)
         toks = rng.choice(cfg.vocab_size, p=self._probs,
                           size=(d.global_batch, n_text + 1)).astype(np.int32)
         mask = np.ones((d.global_batch, n_text), np.float32)
@@ -56,10 +68,10 @@ class SyntheticTokens:
             # document packing: EOS boundaries drop next-token targets
             boundaries = rng.random((d.global_batch, n_text)) < 1.0 / d.mean_doc_len
             mask[boundaries] = 0.0
-        as_t = lambda a: torch.from_numpy(a).to(self.device)
-        return {"inputs": as_t(toks[:, :-1].astype(np.int64)),
-                "targets": as_t(toks[:, 1:].astype(np.int64)),
-                "mask": as_t(mask)}
+        out.update(inputs=as_t(toks[:, :-1].astype(np.int64)),
+                   targets=as_t(toks[:, 1:].astype(np.int64)),
+                   mask=as_t(mask))
+        return out
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         step = 0

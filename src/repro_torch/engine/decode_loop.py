@@ -59,7 +59,7 @@ from repro_torch.kernels.grouped_lora.ref import (grouped_lora_pregathered,
                                                   pregather)
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import attention as A
-from repro_torch.models.blocks import mlp_forward
+from repro_torch.models.blocks import mlp_forward, moe_forward
 from repro_torch.models.layers import apply_norm
 from repro_torch.models.model import _lm_head, layer_params
 
@@ -149,8 +149,18 @@ def _attn_out(cfg: ArchConfig, p, out, lora, lora_idx, lora_fns):
 
 
 def _channel_mix(cfg: ArchConfig, p, x):
+    """The layer's MLP on the pass's rows.  An MoE layer routes x as the
+    reference's does, per row of the call: capacity counts each row's own
+    tokens, padding rows of a prefill chunk included, and the aux loss is
+    dropped."""
+    if "mlp" not in p:
+        return x
     h = apply_norm(cfg.norm_kind, x, p["ln2"])
-    return x + mlp_forward(cfg, p["mlp"], h)
+    if cfg.family == "moe":
+        y, _ = moe_forward(cfg, p["mlp"], h)
+    else:
+        y = mlp_forward(cfg, p["mlp"], h)
+    return x + y
 
 
 # ---------------------------------------------------------------------------

@@ -210,13 +210,6 @@ class Engine:
                  device="cuda", drafter=None):
         if ec.chunk_size > ec.max_len:
             raise ValueError("chunk_size exceeds max_len")
-        if cfg.family == "moe":
-            # engine_supported stays the reference's (api.measure routes
-            # by it), so the refusal lives here
-            raise NotImplementedError(
-                f"the port's engine has no MoE layers yet: {cfg.name!r} "
-                f"needs ROADMAP.md queue 1 item 3 (MoE and VLM in the "
-                f"engine)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "

@@ -8,14 +8,16 @@
 Mirrors ``python -m repro.launch.train``: random weights from a seeded
 generator, synthetic Zipf tokens, AdamW with a warmup of steps/20, the
 fault-tolerant ``Trainer`` with its checkpoint cadence, and the
-reference's JSON summary.  ``--use-flash`` runs attention through the
+reference's JSON summary (for MoE archs, with the last logged
+load-balance aux loss as ``final_aux``).  A VLM's batches carry random
+vision embeddings, as the reference's do.  ``--use-flash`` runs attention through the
 flash attention kernels (the reference's ``Trainer`` takes ``use_flash``
 but its launcher never sets it); ``--device`` picks the device (the
 default is the card; entry points never fall back to the CPU).  Before
 training it prints the reference's ``[LIFE]`` line, the analytical
 forward pass of one step, here for the card the port runs on
 (``nvidia-h100``), and it has no ``--multi-pod``: multi-device training
-is ROADMAP queue 1, item 15.
+is ROADMAP queue 1, item 5.
 """
 from __future__ import annotations
 
@@ -94,6 +96,10 @@ def main(argv=None) -> dict:
         "final_loss": log[-1]["loss"] if log else None,
         "first_loss": log[0]["loss"] if log else None,
     }
+    if cfg.family == "moe":
+        # the loss above holds 0.01 x the load-balance aux, as the
+        # reference's does; the aux itself beside it
+        summary["final_aux"] = log[-1]["aux"] if log else None
     print(json.dumps(summary, indent=1))
     return summary
 

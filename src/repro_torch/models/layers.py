@@ -80,7 +80,7 @@ ACTIVATIONS: Dict[str, Callable] = {"silu": silu, "gelu": gelu}
 
 
 # ---------------------------------------------------------------------------
-# parameter declaration and initialisation (dense family)
+# parameter declaration and initialisation (dense, MoE and VLM decoders)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -90,34 +90,65 @@ class ParamDef:
     scale: float = 0.02
 
 
+#: the families whose decoder the port builds: one stacked attention
+#: stack each (a VLM's vision prefix goes through ``vision_proj``)
+FAMILIES = ("dense", "moe", "vlm")
+
+
+def _channel_defs(cfg: ArchConfig, L: int) -> Dict:
+    """A layer's MLP, stacked on L: the dense (gated) MLP, or the MoE
+    layer's router, routed experts ``(L, E, ...)`` and shared experts."""
+    d = cfg.d_model
+    if cfg.family == "moe":
+        E, f = cfg.n_experts, cfg.d_ff_expert
+        fs = cfg.n_shared_experts * f
+        mlp = {"router": ParamDef((L, d, E)),
+               "w_gate": ParamDef((L, E, d, f)),
+               "w_up": ParamDef((L, E, d, f)),
+               "w_down": ParamDef((L, E, f, d))}
+        if fs:
+            mlp["shared_gate"] = ParamDef((L, d, fs))
+            mlp["shared_up"] = ParamDef((L, d, fs))
+            mlp["shared_down"] = ParamDef((L, fs, d))
+        return mlp
+    f = cfg.d_ff
+    mlp = {"up": ParamDef((L, d, f)), "down": ParamDef((L, f, d))}
+    if cfg.gated_mlp:
+        mlp["gate"] = ParamDef((L, d, f))
+    return mlp
+
+
 def param_defs(cfg: ArchConfig) -> Dict:
-    """The dense decoder's parameter tree, layers stacked on a leading
-    ``(L, ...)`` axis, in the JAX package's layouts and key names."""
-    if cfg.family != "dense" or cfg.mla is not None:
+    """The decoder's parameter tree, layers stacked on a leading
+    ``(L, ...)`` axis, in the JAX package's layouts and key names.  A
+    layer without a channel mixer (``d_ff == 0`` outside MoE) has no
+    ``ln2``/``mlp``, as in the reference."""
+    if cfg.family not in FAMILIES or cfg.mla is not None:
         raise NotImplementedError(
-            f"the port builds dense GQA decoders only, not {cfg.name!r}")
+            f"the port builds dense, MoE and VLM GQA decoders, not "
+            f"{cfg.name!r} (family {cfg.family!r}): ROADMAP.md queue 1 "
+            f"item 4")
     L, d, H, Hk, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                        cfg.n_kv_heads, cfg.head_dim)
-    f = cfg.d_ff
     attn = {"wq": ParamDef((L, d, H, hd)), "wk": ParamDef((L, d, Hk, hd)),
             "wv": ParamDef((L, d, Hk, hd)), "wo": ParamDef((L, H, hd, d))}
     if cfg.qkv_bias:
         attn["bq"] = ParamDef((L, H, hd), init="zeros")
         attn["bk"] = ParamDef((L, Hk, hd), init="zeros")
         attn["bv"] = ParamDef((L, Hk, hd), init="zeros")
-    mlp = {"up": ParamDef((L, d, f)), "down": ParamDef((L, f, d))}
-    if cfg.gated_mlp:
-        mlp["gate"] = ParamDef((L, d, f))
+    layers = {"ln1": {"gamma": ParamDef((L, d), init="ones")}, "attn": attn}
+    if cfg.d_ff or cfg.family == "moe":
+        layers["ln2"] = {"gamma": ParamDef((L, d), init="ones")}
+        layers["mlp"] = _channel_defs(cfg, L)
     defs = {
         "embed": ParamDef((cfg.vocab_size, d)),
         "ln_f": {"gamma": ParamDef((d,), init="ones")},
-        "layers": {"ln1": {"gamma": ParamDef((L, d), init="ones")},
-                   "attn": attn,
-                   "ln2": {"gamma": ParamDef((L, d), init="ones")},
-                   "mlp": mlp},
+        "layers": layers,
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, cfg.vocab_size))
+    if cfg.family == "vlm":
+        defs["vision_proj"] = ParamDef((d, d))
     return defs
 
 

@@ -10,7 +10,7 @@ counterpart of the JAX package's ``runtime/train.py``).
 
 The reference's step is jit-compiled and sharded over a mesh; this one
 runs eagerly on one device and takes no mesh (multi-device training is
-ROADMAP queue 1, item 15).
+ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -41,9 +41,12 @@ def make_loss_fn(cfg: ArchConfig, *, use_flash: bool = False,
                  remat: bool = True, aux_weight: float = 0.01,
                  remat_policy: str = "full") -> Callable:
     def loss_fn(params: Dict, batch: Dict):
+        ve = batch.get("vision_embeds")
         logits, aux = forward(cfg, params, batch["inputs"],
-                              use_flash=use_flash, remat=remat,
-                              remat_policy=remat_policy)
+                              vision_embeds=ve, use_flash=use_flash,
+                              remat=remat, remat_policy=remat_policy)
+        if cfg.family == "vlm" and ve is not None:
+            logits = logits[:, ve.shape[1]:]       # the text positions
         loss = cross_entropy(logits, batch["targets"], batch["mask"])
         return loss + aux_weight * aux, {"ce": loss, "aux": aux}
     return loss_fn
@@ -57,7 +60,10 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, *, microbatches: int = 1,
     The loss and the gradient of the whole step exist before the
     optimizer touches anything: a fault raised up to then leaves params
     and optimizer state as they were.  The update itself is in place
-    (``AdamW.update``)."""
+    (``AdamW.update``).  ``metrics`` holds the reference's ``loss``
+    (cross-entropy plus 0.01 × the MoE aux loss), ``grad_norm`` and
+    ``lr``, and the aux loss itself under ``aux`` (the microbatches'
+    mean; 0 for dense stacks)."""
     loss_fn = make_loss_fn(cfg, use_flash=use_flash, remat=remat)
 
     def train_step(params: Dict, opt_state, batch: Dict):
@@ -72,26 +78,29 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, *, microbatches: int = 1,
                                 device=p.device) for p in leaves]
             lsum = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
+            asum = torch.zeros_like(lsum)
             for i in range(microbatches):
-                loss, _ = loss_fn(params, {k: v[i] for k, v in mbatch.items()})
+                loss, parts = loss_fn(params,
+                                      {k: v[i] for k, v in mbatch.items()})
                 grads = torch.autograd.grad(loss, leaves)
                 for acc, g in zip(gsum, grads):
                     acc.add_(g)
                 lsum = lsum + loss.detach()
+                asum = asum + parts["aux"].detach()
                 del grads
             grads = [g.div_(microbatches) for g in gsum]
-            loss = lsum / microbatches
+            loss, aux = lsum / microbatches, asum / microbatches
         else:
-            loss, _ = loss_fn(params, batch)
+            loss, parts = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, leaves)
-            loss = loss.detach()
+            loss, aux = loss.detach(), parts["aux"].detach()
         # a named range, so a profile can tell the optimizer's kernels
         # from the other elementwise work
         with torch.profiler.record_function("optimizer"):
             params, opt_state, gnorm = opt.update(tree_like(params, grads),
                                                   opt_state, params)
         metrics = {"loss": loss, "grad_norm": gnorm,
-                   "lr": opt.schedule(opt_state.count)}
+                   "lr": opt.schedule(opt_state.count), "aux": aux}
         return params, opt_state, metrics
 
     return train_step
@@ -119,8 +128,9 @@ class Trainer:
     optimizer's update leaves the live params intact; when a checkpoint
     exists, the retry restarts from it (as the reference does), which is
     also the only recovery from a fault inside the in-place update.
-    ``metrics_log`` entries carry the step's host wall time (``step_s``,
-    the loss read back included) beside the reference's fields.
+    ``metrics_log`` entries carry the MoE aux loss (``aux``) and the
+    step's host wall time (``step_s``, the loss read back included)
+    beside the reference's fields.
     """
 
     def __init__(self, cfg: ArchConfig, opt: AdamW, data, tc: TrainerConfig,
@@ -179,7 +189,7 @@ class Trainer:
                 self.metrics_log.append(
                     {"step": step, "loss": loss,
                      "grad_norm": float(metrics["grad_norm"]),
-                     "step_s": step_s})
+                     "aux": float(metrics["aux"]), "step_s": step_s})
             if (step + 1) % self.tc.ckpt_every == 0:
                 self.ckpt.save(step, (params, opt_state))
             step += 1

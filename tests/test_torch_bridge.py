@@ -11,7 +11,9 @@ from repro.models import init_params as jax_init_params
 from repro_torch import bridge, configs
 from repro_torch.models import init_params
 
-ARCHS = ["llama2-7b", "qwen2-7b"]
+#: dense, MoE (router, routed experts (L, E, ...), shared experts) and
+#: VLM (vision_proj) trees
+ARCHS = ["llama2-7b", "qwen2-7b", "qwen2-moe-a2.7b", "internvl2-26b"]
 
 
 def _flat(tree, prefix=""):

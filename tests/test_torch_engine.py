@@ -212,18 +212,24 @@ def test_engine_config_validation_matches_reference():
             jec.lora_ranks, jec.adapter_pool_slots)
 
 
-def test_moe_config_is_refused_naming_its_roadmap_item():
+def test_moe_config_is_refused_naming_its_roadmap_item(monkeypatch):
     """A MoE stack passes the reference's ``engine_supported`` (which
-    ``api.measure`` routes by), but the port's engine has no MoE layers:
-    it refuses at construction, naming the queue item, instead of
-    failing inside the first step on a missing dense MLP weight."""
+    ``api.measure`` routes by).  The port's engine refused it until its
+    MoE layers were ported (ROADMAP.md queue 1 item 3); it now serves it
+    as the reference's does: the same tokens, trace and cursors on
+    reduced qwen2-moe-a2.7b, paged attention (the MoE engine's full
+    comparison is ``tests/test_torch_moe_engine.py``)."""
+    from test_torch_moe import record_dispatches
     arch = "qwen2-moe-a2.7b"
     assert configs.get(arch).family == "moe"
-    params = bridge.params_from_numpy(_weights(arch), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1 item 3"):
-        Engine(configs.reduced(configs.get(arch)), params,
-               EngineConfig(max_slots=2, max_len=64), device="cpu")
+    dispatches = record_dispatches(monkeypatch)
+    (jeng, jres), (eng, res) = _run_both(
+        arch, dict(GEOMETRY, attn_impl="paged"))
+    assert sum(d for _, d in dispatches) > 0        # tokens were dropped
+    assert [r.tokens for r in res] == [r.tokens for r in jres]
+    assert _as_reference(eng.trace) == jeng.trace
+    np.testing.assert_array_equal(eng.state["pos"].numpy(),
+                                  np.asarray(jeng.state["pos"]))
 
 
 def test_vlm_config_is_served_as_text_like_the_reference():

@@ -116,15 +116,25 @@ def test_int4_variant_measures_bf16_weights_and_int8_kv(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(tp=2), "item 15"),
-    (dict(pp=2), "item 15"),
-    (dict(model="falcon-mamba-7b"), "item 13"),
-    (dict(model="recurrentgemma-2b"), "item 13"),
-    (dict(model="qwen2-moe-a2.7b"), "item 11"),
+    (dict(tp=2), "item 5"),
+    (dict(pp=2), "item 5"),
+    (dict(model="falcon-mamba-7b"), "item 4"),
+    (dict(model="recurrentgemma-2b"), "item 4"),
+    # ported (ROADMAP queue 1 item 3): measured, not refused
+    (dict(model="qwen2-moe-a2.7b"), None),
 ])
 def test_measure_refuses_what_is_not_ported(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        api.measure(api.Scenario(**dict(SCN, **kw)), device="cpu")
+    """Multi-device scenarios (queue 1 item 5) and the lockstep families
+    (item 4) are refused, naming their items; a MoE scenario, refused
+    until its layers were ported, is measured on the engine."""
+    scn = api.Scenario(**dict(SCN, **kw))
+    if item is None:
+        rep = api.measure(scn, device="cpu")
+        assert rep.extras["mode"] == "engine"
+        assert rep.extras["tokens"] == 3 * 6
+        return
+    with pytest.raises(NotImplementedError, match=item + r"\b"):
+        api.measure(scn, device="cpu")
 
 
 def test_measure_without_gpu_raises():
