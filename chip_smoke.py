@@ -73,7 +73,11 @@ caught and ignored):
               weights: gather == paged tokens in bf16 and int8 KV.
               granite-3-2b at 4 layers, full width, f32 weights: three
               training steps (two microbatches each) through the flash
-              kernels equal three through eager attention.
+              kernels equal three through eager attention.  The lockstep
+              Server's greedy tokens equal the engine's (llama2-7b x4,
+              f32); for falcon-mamba-7b, recurrentgemma-2b,
+              llama2-7b-mla and whisper-base at 4 layers in f32, step
+              fed token by token equals forward within 1e-4.
 6. quant    — K5's main path: llama2-7b at full width and depth, random
               bf16 weights from seed 0; quantize_tree on the card (exactly
               embed and lm_head, as in the reference), its storage bytes
@@ -104,13 +108,28 @@ caught and ignored):
               output held to its plain version, against the eager
               forward; the same at 4 layers in f32, flash == eager
               within 1e-5.
+10. lockstep — the lockstep Server (repro_torch.runtime.serve) at full
+              width and depth, random bf16 weights from seed 0, each
+              model freed before the next: falcon-mamba-7b (4 x (512 +
+              64), chunks of 256; a profiled decode step by class;
+              api.measure against api.forecast on nvidia-h100),
+              recurrentgemma-2b (4 x 2048 unchunked: its 8 local layers
+              through K6 on the fma body, the first held to the plain
+              blockwise loop; 32 decode steps on the ring),
+              llama2-7b-mla (4 x (512 + 64), bf16 then int8 KV),
+              whisper-base (4 x (16 + 64), 1500 encoder frames at
+              prefill), llama2-7b (1 x 4096 over a 5120-position cache:
+              32 K6 launches on mma, layer 0 held to the plain loop; 16
+              decode steps); TTFT, TPOT, TPS, peak memory; then K6 timed
+              at the two lockstep shapes beside SDPA with a boolean mask.
 
 ``--phases profile`` (run only when named) profiles engine steps and one
 training step of the train phase's configuration.
 
-The last lines are the quant/measure, moe/vlm, train and engine JSON
-summaries, the kernels' JSON record (K1-K4 launches summed over the
-engine and moe phases), the card's name and power limit, and
+The last lines are the quant/measure, moe/vlm/lockstep, train and
+engine JSON summaries, the kernels' JSON record (K1-K4 launches summed
+over the engine and moe phases, K6's over the train phase and the
+lockstep prefills), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -127,7 +146,7 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "engine", "train", "parity", "quant",
-          "measure", "moe", "vlm")
+          "measure", "moe", "vlm", "lockstep")
 EXTRA_PHASES = ("profile",)     # run only when named
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
@@ -138,6 +157,14 @@ F32_FLOPS_PER_S = 67e12          # f32 on the CUDA cores (no tensor cores)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_name_and_power_limit() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 class CheckFailed(RuntimeError):
@@ -184,9 +211,10 @@ def device_ms(fn, iters: int = 20, tries: int = 3,
 
 def device_ms_by_kernel(fn, iters: int = 20, tries: int = 3) -> dict:
     """Mean device milliseconds per call of each kernel ``fn`` launches
-    (torch.profiler).  A profile that comes back without device events
-    (seen now and then on the card) is taken again, up to ``tries``
-    times; empty if every try came back empty."""
+    (torch.profiler).  A profile that comes back without device events,
+    or with a kernel seen a number of times that is not a multiple of
+    ``iters`` (events lost: seen now and then on the card), is taken
+    again, up to ``tries`` times; empty if no try came back whole."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -198,11 +226,11 @@ def device_ms_by_kernel(fn, iters: int = 20, tries: int = 3) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        ms = {e.key: _self_device_us(e) / 1e3 / iters
-              for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _self_device_us(e) > 0}
-        if ms:
-            return ms
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and _self_device_us(e) > 0]
+        if kernels and all(e.count % iters == 0 for e in kernels):
+            return {e.key: _self_device_us(e) / 1e3 / iters for e in kernels}
     return {}
 
 
@@ -1557,11 +1585,22 @@ def phase_parity(device):
     # with f32 KV nothing is rounded between the two: the engine's first
     # token (paged prefill through the block tables) is the argmax of the
     # dense forward pass over the same prompt
-    firsts = [t[0] for t in _parity_tokens(cfg, params, reqs, "fp32",
-                                           "paged", device)]
+    greedy = _parity_tokens(cfg, params, reqs, "fp32", "paged", device)
+    firsts = [t[0] for t in greedy]
     log(f"[parity] kv=fp32: engine first tokens {firsts}, dense forward "
         f"argmax {first}")
     check(firsts == first, "engine first tokens differ from dense forward")
+    # the lockstep Server's greedy tokens are the engine's on the same
+    # prompts (the relation the reference's tests/test_engine.py asserts)
+    from repro_torch.runtime import ServeConfig, Server
+    lockstep, _ = Server(cfg, params, ServeConfig(
+        batch=len(reqs), max_len=128, kv_dtype="fp32"),
+        device=device).generate(
+        torch.tensor([r.prompt for r in reqs], device=device), 16)
+    same = lockstep.tolist() == greedy
+    log(f"[parity] llama2-7b x4 layers f32: lockstep Server == engine "
+        f"tokens: {same}")
+    check(same, "the lockstep Server's tokens differ from the engine's")
 
     # the reference's invariants of the three features (its tests
     # test_spec_decode.py and test_lora_serving.py).  The runs compared
@@ -1572,7 +1611,6 @@ def phase_parity(device):
         return _parity_tokens(cfg, params, reqs_, "fp32", impl, device,
                               drafter, **extra)
 
-    greedy = tokens(reqs)
     spec = tokens(reqs, spec_k=4)
     log(f"[parity] spec_k=4 (n-gram drafter) at T=0 == greedy tokens: "
         f"{spec == greedy}")
@@ -1615,6 +1653,7 @@ def phase_parity(device):
     torch.cuda.empty_cache()
     _moe_parity(device)
     _train_parity(device)
+    _lockstep_parity(device)
 
 
 def _moe_parity(device):
@@ -2397,6 +2436,422 @@ def phase_vlm(device, summary):
     summary["vlm"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase: the lockstep server and the SSM, hybrid, MLA and encdec families
+# ---------------------------------------------------------------------------
+
+class _Capture:
+    """While active, ``repro_torch.models.attention.lockstep_blockwise``
+    (the step's blockwise branches: K6 on the card) keeps the inputs and
+    output of its first call, so that they can be held to the plain
+    blockwise loop afterwards; the model looks it up at call time."""
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        self.real, self.first = attention.lockstep_blockwise, None
+
+        def keep(q, k, v, **kw):
+            out = self.real(q, k, v, **kw)
+            if self.first is None:
+                self.first = (q, k, v, kw, out)
+            return out
+        attention.lockstep_blockwise = keep
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        attention.lockstep_blockwise = self.real
+
+    def held(self, tag):
+        """The first call's K6 output against the plain blockwise loop
+        on the same q, k, v (``kernel_tolerance``): max|err|, err/limit."""
+        from repro_torch.models import attention
+        q, k, v, kw, out = self.first
+        plain = attention.blockwise_attention(q, k, v, q.shape[-1] ** -0.5,
+                                              causal=True, **kw)
+        worst = [0.0]
+        err = _compare(out, plain, v, f"{tag}: first K6 layer output vs "
+                       f"the plain blockwise loop", worst)
+        return err, worst[0]
+
+
+class _SsmRanges:
+    """While active, a torch.profiler range (``ssm recurrence``) around
+    each position of the selective scan (``blocks._ssm_update``: the
+    recurrence's elementwise work)."""
+
+    NAME = "ssm recurrence"
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import blocks
+        self.real = blocks._ssm_update
+
+        def ranged(*a, _real=self.real):
+            with torch.profiler.record_function(self.NAME):
+                return _real(*a)
+        blocks._ssm_update = ranged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+        blocks._ssm_update = self.real
+
+
+def _serve_lockstep(tag, cfg, params, device, *, batch, prompt_len, n_new,
+                    chunk=None, kv="bf16", max_len=None, extra=None, seed=0,
+                    capture=False):
+    """The port's lockstep ``Server`` on ``batch`` random prompts, greedy:
+    an untimed two-token warm-up (with ``capture``, the first blockwise
+    call is kept for :meth:`_Capture.held`), then a timed run with the
+    launch counts zeroed before it and read after it, in two legs as
+    ``api.measure`` times them: TTFT (prefill and the first token), TPOT
+    (the other tokens), TPS, peak memory.  Returns (record, server,
+    state, last tokens, capture)."""
+    import torch
+    from repro_torch.engine.sampling import sample
+    from repro_torch.runtime import ServeConfig, Server
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=gen, device=device)
+    max_len = max_len or prompt_len + n_new + 8
+    server = Server(cfg, params, ServeConfig(batch=batch, max_len=max_len,
+                                             chunk_size=chunk, kv_dtype=kv),
+                    device=device)
+    cap = _Capture() if capture else None
+    if cap:
+        with cap:
+            server.generate(prompts, 2, extra=extra)
+    else:
+        server.generate(prompts, 2, extra=extra)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launches()                         # the lockstep path starts here
+    t0 = time.perf_counter()
+    state = server.init_state()
+    step = chunk or prompt_len
+    for off in range(0, prompt_len, step):
+        logits, state = server.prefill(state, prompts[:, off:off + step],
+                                       extra if off == 0 else None)
+    tok = sample(logits, 0.0)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    toks = [tok]
+    for _ in range(n_new - 1):
+        logits, state = server.decode(state, tok[:, None])
+        tok = sample(logits, 0.0)
+        toks.append(tok)
+    toks = torch.stack(toks, dim=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()                    # ... and ends here
+    fa_ops = _kernel_ops()[2]
+    bodies = dict(fa_ops.BODY_LAUNCHES["flash_fwd"])
+    finite = finite and bool(torch.isfinite(logits).all())
+    check(finite and tuple(toks.shape) == (batch, n_new)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+          and state["pos"] == prompt_len + n_new - 1,
+          f"lockstep {tag}: tokens {tuple(toks.shape)}, logits finite "
+          f"{finite}, pos {state['pos']}")
+    rec = dict(batch=batch, prompt_len=prompt_len, new_tokens=n_new,
+               chunk=chunk, kv=kv, max_len=max_len,
+               ttft_ms=ttft * 1e3,
+               tpot_ms=(wall - ttft) / max(n_new - 1, 1) * 1e3,
+               tps=batch * n_new / wall, wall_s=wall,
+               peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+               k6_launches=launches["flash_fwd"], k6_bodies=bodies)
+    log(f"[lockstep] {tag}: {batch} x ({prompt_len} + {n_new})"
+        f"{f' in chunks of {chunk}' if chunk else ''}, {kv} KV: TTFT "
+        f"{rec['ttft_ms']:.2f} ms, TPOT {rec['tpot_ms']:.3f} ms, TPS "
+        f"{rec['tps']:.1f}, peak memory {rec['peak_mem_gb']:.2f} GB, K6 "
+        f"launches {launches['flash_fwd']} {bodies}; wall {wall:.2f} s")
+    return rec, server, state, tok, cap
+
+
+def _profile_lockstep_step(tag, server, state, tok):
+    """One more decode step under torch.profiler, the recurrence's range
+    on: wall, device busy, idle share and device time by class
+    (projections: the cuBLAS kernels; the SSM recurrence's elementwise
+    work; the rest: norms, the conv, gates, casts, residuals, copies)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with _SsmRanges():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            server.decode(state, tok[:, None])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kinds, _ = _device_kinds(prof)
+    recurrence = sum(float(e.device_time_total) for e in prof.key_averages()
+                     if e.key == _SsmRanges.NAME
+                     and e.device_type != DeviceType.CUDA)
+    busy = sum(kinds.values())
+    proj = kinds.get("matmul (cuBLAS)", 0.0)
+    classes = {"projections": proj, "recurrence": recurrence,
+               "rest": busy - proj - recurrence}
+    out = dict(wall_ms=wall * 1e3, busy_ms=busy / 1e3,
+               idle_share=max(0.0, 1 - busy / 1e6 / wall),
+               classes_ms={k: v / 1e3 for k, v in classes.items()})
+    log(f"[lockstep] {tag} profile of one decode step: wall "
+        f"{wall * 1e3:.2f} ms, device busy {busy / 1e3:.3f} ms (idle share "
+        f"{out['idle_share']:.3f}); "
+        + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in classes.items()))
+    return out
+
+
+def _lockstep_measure(device):
+    """``api.measure`` on falcon-mamba-7b (the lockstep branch: 4 x (512 +
+    64), chunk 256) beside ``api.forecast(..., "nvidia-h100")`` of the same
+    scenario, each metric's relative error (a finding, not a gate)."""
+    import math
+    from repro_torch import api
+
+    scn = api.Scenario(model="falcon-mamba-7b", variant="bf16-bf16", batch=4,
+                       prompt_len=512, gen_len=64, chunk=256, seed=0)
+    measured = api.measure(scn, device=device)
+    ex = measured.extras
+    check(ex["mode"] == "legacy-lockstep" and ex["tokens"] == 4 * 64
+          and all(map(math.isfinite, (measured.ttft_s, measured.tpot_s,
+                                      measured.tps))),
+          f"lockstep measure: extras {ex}")
+    d = api.compare(api.forecast(scn, "nvidia-h100"), measured)
+    out = {name: dict(forecast=m.forecast, measured=m.measured,
+                      rel_err=m.rel_err)
+           for name, m in (("ttft_s", d.ttft), ("tpot_s", d.tpot),
+                           ("tps", d.tps))}
+    log(f"[measure] falcon-mamba-7b declared forecast on nvidia-h100 vs "
+        f"measured on {measured.hardware} (lockstep): "
+        + "; ".join(f"{n} {v['forecast']:.6g} vs {v['measured']:.6g} "
+                    f"(rel err {v['rel_err']:+.4f})" for n, v in out.items()))
+    return out
+
+
+#: the lockstep phase's K6 shapes: (b, s, L, H, Hk, d, causal, window,
+#: q_offset) — recurrentgemma-2b's local layers at a 2048-token prompt,
+#: llama2-7b's layers at a 4096-token prompt over a 5120-position cache
+K6_LOCKSTEP = {"recurrentgemma-2b": (4, 2048, 2048, 10, 1, 256, True, 2048, 0),
+               "llama2-7b": (1, 4096, 5120, 32, 32, 128, True, None, 0)}
+
+
+def _time_k6_lockstep(case, device):
+    """K6 at a lockstep shape (bf16, the body ``flash_body`` picks) held
+    to the plain blockwise loop, then timed (events and device time)
+    beside the plain loop, SDPA with an explicit boolean mask (its device
+    time too) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import attention
+
+    fa_ops = _kernel_ops()[2]
+    b, s, L, H, Hk, d, causal, window, q_offset = case
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    mk = lambda *shape: torch.randn(shape, generator=gen,
+                                    device=device).to(torch.bfloat16)
+    q, k, v = mk(b, s, H, d), mk(b, L, Hk, d), mk(b, L, Hk, d)
+    q5 = q.view(b, s, Hk, H // Hk, d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    fn = lambda: fa_ops.flash_fwd(q, k, v, **kw)
+    plain = lambda: attention.blockwise_attention(q5, k, v, d ** -0.5,
+                                                  **kw)
+    worst = [0.0]
+    err = _compare(fn()[0].reshape(b, s, H * d), plain(), v,
+                   f"flash_fwd lockstep {case}", worst)
+    qp = q_offset + torch.arange(s, device=device)[:, None]
+    kp = torch.arange(L, device=device)[None, :]
+    mask = kp <= qp
+    if window:
+        mask &= kp > qp - window
+    ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, attn_mask=mask[None, None], enable_gqa=Hk != H)
+    bound, bound_by = flash_bound(case, 2, backward=False)
+    shape = (f"b={b} s={s} L={L} H={H} Hk={Hk} d={d} causal"
+             f"{f' window={window}' if window else ''} q_offset={q_offset} "
+             f"bf16 (lockstep)")
+    rec = dict(ms=time_ms(fn), device_ms=device_ms(fn),
+               body=fa_ops.flash_body(torch.bfloat16, d),
+               plain_ms=time_ms(plain, iters=5, warmup=1),
+               library_ms=time_ms(sdpa), library_device_ms=device_ms(sdpa),
+               bound_ms=bound, bound_by=bound_by, max_abs_err=err,
+               err_ratio=worst[0], shape=shape)
+    log(f"[lockstep] K6 at {shape} on {rec['body']}: {rec['ms']:.4f} ms "
+        f"(device {fmt_ms(rec['device_ms'])}), plain blockwise "
+        f"{rec['plain_ms']:.4f} ms, SDPA with a boolean mask "
+        f"{rec['library_ms']:.4f} ms (device "
+        f"{fmt_ms(rec['library_device_ms'])}), bound {bound:.4f} ms "
+        f"({bound_by})")
+    return rec
+
+
+def phase_lockstep(device, summary, engine_tpot_ms=None):
+    """The lockstep ``Server`` (``repro_torch.runtime.serve``) at full
+    width and depth, random bf16 weights from seed 0, each model freed
+    before the next: falcon-mamba-7b (4 x (512 + 64) in chunks of 256, a
+    profiled decode step, ``api.measure`` against the forecast);
+    recurrentgemma-2b (4 x 2048 unchunked, so its 8 local layers take the
+    blockwise branch through K6, then 32 decode steps on the ring);
+    llama2-7b-mla (4 x (512 + 64) in chunks of 256, bf16 then int8 KV);
+    whisper-base (4 x (16 + 64), 1500 random encoder frames at prefill);
+    llama2-7b (1 x 4096 over a 5120-position cache: 32 K6 launches on the
+    dense branch, 16 decode steps).  K6 launches are zeroed before each
+    timed run and read after it; each checked K6 output is held to the
+    plain blockwise loop; llama2-7b's TPOT is printed beside the engine
+    phase's TPOT p50 (``engine_tpot_ms``) where that phase ran.  Then K6
+    timed at the two lockstep shapes."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import init_params
+
+    fa_ops = _kernel_ops()[2]
+    t_phase = time.perf_counter()
+    out = {"k6_launches": 0, "k6_bodies": {b: 0 for b in fa_ops.BODIES},
+           "card": card_name_and_power_limit()}
+    log(f"[lockstep] on {out['card']}")
+
+    def load(arch):
+        cfg = configs.get(arch)
+        params = init_params(cfg, 0, device=device, dtype=torch.bfloat16)
+        n = sum(t.numel() for t in _leaves(params))
+        log(f"[lockstep] {arch}: {cfg.n_layers} layers, d={cfg.d_model}, "
+            f"params {n / 1e9:.3f} B")
+        return cfg, params
+
+    def count_k6(rec, want, body):
+        check(rec["k6_launches"] == want
+              and rec["k6_bodies"].get(body) == want,
+              f"lockstep: K6 launches {rec['k6_launches']} "
+              f"{rec['k6_bodies']}, expected {want} on {body}")
+        out["k6_launches"] += rec["k6_launches"]
+        for b_, n in rec["k6_bodies"].items():
+            out["k6_bodies"][b_] += n
+
+    # falcon-mamba-7b
+    cfg, params = load("falcon-mamba-7b")
+    rec, server, state, tok, _ = _serve_lockstep(
+        "falcon-mamba-7b", cfg, params, device, batch=4, prompt_len=512,
+        n_new=64, chunk=256)
+    rec["profile"] = _profile_lockstep_step("falcon-mamba-7b", server,
+                                            state, tok)
+    out["falcon-mamba-7b"] = rec
+    del server, state, params
+    torch.cuda.empty_cache()
+    out["falcon-mamba-7b"]["measure"] = _lockstep_measure(device)
+    torch.cuda.empty_cache()
+
+    # recurrentgemma-2b: the local layers' blockwise branch through K6
+    cfg, params = load("recurrentgemma-2b")
+    n_local = cfg.block_kinds().count("attn")
+    rec, server, state, _, cap = _serve_lockstep(
+        "recurrentgemma-2b", cfg, params, device, batch=4, prompt_len=2048,
+        n_new=33, capture=True)
+    count_k6(rec, n_local, fa_ops.flash_body(torch.bfloat16, cfg.head_dim))
+    rec["k6_first_layer"] = cap.held("recurrentgemma-2b")
+    out["recurrentgemma-2b"] = rec
+    del server, state, params, cap
+    torch.cuda.empty_cache()
+
+    # llama2-7b-mla: the latent cache, bf16 then int8
+    cfg, params = load("llama2-7b-mla")
+    out["llama2-7b-mla"] = {}
+    for kv in ("bf16", "int8"):
+        rec, server, state, _, _ = _serve_lockstep(
+            f"llama2-7b-mla {kv}", cfg, params, device, batch=4,
+            prompt_len=512, n_new=64, chunk=256, kv=kv)
+        out["llama2-7b-mla"][kv] = rec
+        del server, state
+    del params
+    torch.cuda.empty_cache()
+
+    # whisper-base: encoder frames at prefill
+    cfg, params = load("whisper-base")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    frames = torch.randn((4, cfg.encoder_len, cfg.d_model), generator=gen,
+                         device=device).to(torch.bfloat16)
+    rec, server, state, _, _ = _serve_lockstep(
+        "whisper-base", cfg, params, device, batch=4, prompt_len=16,
+        n_new=64, extra={"frames": frames})
+    check(bool(state["cross_k"].abs().sum() > 0), "lockstep whisper-base: "
+          "the cross K/V were not encoded from the frames")
+    out["whisper-base"] = rec
+    del server, state, params, frames
+    torch.cuda.empty_cache()
+
+    # llama2-7b: a 4096-token prompt takes the dense blockwise branch
+    cfg, params = load("llama2-7b")
+    rec, server, state, _, cap = _serve_lockstep(
+        "llama2-7b", cfg, params, device, batch=1, prompt_len=4096,
+        n_new=17, max_len=5120, capture=True)
+    count_k6(rec, cfg.n_layers, fa_ops.flash_body(torch.bfloat16,
+                                                  cfg.head_dim))
+    rec["k6_first_layer"] = cap.held("llama2-7b")
+    rec["engine_tpot_p50_ms"] = engine_tpot_ms
+    engine = (f"{engine_tpot_ms:.3f} ms (4 slots, 512 + 64)"
+              if engine_tpot_ms is not None else "not measured (no engine "
+              "phase in this run)")
+    log(f"[lockstep] llama2-7b lockstep TPOT {rec['tpot_ms']:.3f} ms (1 x "
+        f"4096, 5120-position cache) beside the engine phase's TPOT p50 "
+        f"{engine} in this run")
+    out["llama2-7b"] = rec
+    del server, state, params, cap
+    torch.cuda.empty_cache()
+
+    out["k6_shapes"] = {arch: _time_k6_lockstep(case, device)
+                        for arch, case in K6_LOCKSTEP.items()}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[lockstep] K6 launches {out['k6_launches']} {out['k6_bodies']}; "
+        f"phase wall {out['wall_s']:.1f} s")
+    summary["lockstep"] = out
+
+
+def _lockstep_parity(device):
+    """Each lockstep family at full width with 4 layers (recurrentgemma-2b:
+    rglru, rglru, attn, rglru) and f32 weights: the logits of ``step``
+    fed one token at a time (f32 KV) equal ``forward``'s last-position
+    logits within 1e-4 (relative norm)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import forward, init_decode_state, init_params, step
+
+    for arch in ("falcon-mamba-7b", "recurrentgemma-2b", "llama2-7b-mla",
+                 "whisper-base"):
+        cfg = dataclasses.replace(configs.get(arch), n_layers=4)
+        params = init_params(cfg, 0, device=device, dtype=torch.float32)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(9)
+        toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
+                             device=device)
+        extra = {}
+        if cfg.family == "encdec":
+            extra["frames"] = torch.randn(
+                (2, cfg.encoder_len, cfg.d_model), generator=gen,
+                device=device)
+        with torch.no_grad():
+            full, _ = forward(cfg, params, toks, **extra)
+            state = init_decode_state(cfg, 2, 24, torch.float32,
+                                      device=device)
+            for t in range(toks.shape[1]):
+                last, state = step(cfg, params, toks[:, t:t + 1], state,
+                                   **(extra if t == 0 else {}))
+        want = full[:, -1].double()
+        rel = float((last.double() - want).norm() / want.norm())
+        log(f"[parity] {arch} x4 layers f32: token-by-token step vs "
+            f"forward last-position logits, relative norm {rel:.3e} "
+            f"(limit 1e-4)")
+        check(rel <= 1e-4, f"{arch}: step and forward logits differ by "
+              f"{rel:.3e}")
+        del params, state, full
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -2455,20 +2910,27 @@ def main() -> int:
         phase_moe(device, families)
     if "vlm" in phases:
         phase_vlm(device, families)
+    if "lockstep" in phases:
+        phase_lockstep(device, families, summary.get(
+            "engine_bf16", {}).get("tpot_p50_ms"))
     if "profile" in phases:
         phase_profile(device)
     log(f"[done] phases {phases} in {time.perf_counter() - t_all:.1f} s")
 
     # launch counts come from the main path's passes only (each zeroed
-    # before it and read after it): K1-K4 from the engine phase, K6 from
-    # the train phase, K5 from the quant phase; without a phase there is
-    # no count of it to report
+    # before it and read after it): K1-K4 from the engine and moe phases,
+    # K6 from the train phase and the lockstep phase's prefills, K5 from
+    # the quant phase; without a phase there is no count of it to report
     engine = summary.get("launches_total", {})
     moe = families.get("moe", {}).get("launches_total", {})
     launches = {**{k: engine.get(k, 0) + moe.get(k, 0)
                    for k in {*engine, *moe}},
                 **trained.get("train", {}).get("launches", {}),
                 **quant_measure.get("quant", {}).get("launches", {})}
+    lockstep = families.get("lockstep")
+    if lockstep:
+        launches["flash_fwd"] = (launches.get("flash_fwd", 0)
+                                 + lockstep["k6_launches"])
     engine_bodies = summary.get("bodies_total", {})
     for w, c in families.get("moe", {}).get("bodies_total", {}).items():
         engine_bodies = {**engine_bodies, w: {
@@ -2476,6 +2938,13 @@ def main() -> int:
     bodies = {**engine_bodies,
               "quant_matmul": quant_measure.get("quant", {}).get("bodies"),
               **trained.get("train", {}).get("bodies", {})}
+    if lockstep:
+        fwd = bodies.get("flash_fwd") or {}
+        bodies["flash_fwd"] = {b: fwd.get(b, 0) + n
+                               for b, n in lockstep["k6_bodies"].items()}
+        if "flash_fwd" in kernels:
+            kernels["flash_fwd"].setdefault("more_shapes", []).extend(
+                lockstep["k6_shapes"].values())
     record = []
     for name, source, replaces in KERNELS:
         if name not in kernels:
@@ -2497,14 +2966,12 @@ def main() -> int:
             **({"more_shapes": r["more_shapes"]} if "more_shapes" in r
                else {}),
         })
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card_name_and_power_limit()
     print(json.dumps({"quant": quant_measure.get("quant"),
                       "measure": quant_measure.get("measure")}))
     print(json.dumps({"moe": families.get("moe"),
-                      "vlm": families.get("vlm")}))
+                      "vlm": families.get("vlm"),
+                      "lockstep": families.get("lockstep")}))
     print(json.dumps({"train": trained.get("train")}))
     print(json.dumps({"engine": summary}))
     print(json.dumps({"kernels": record}))

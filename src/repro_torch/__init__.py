@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of the LIFE reproduction.
 
 The JAX package ``repro`` stays the reference; this package runs the
-continuous-batching serving engine, the trainer and quantized linears on
-an NVIDIA H100 with hand-written Hopper kernels, and carries a copy of
+continuous-batching serving engine, the lockstep server, the trainer and
+quantized linears on an NVIDIA H100 with hand-written Hopper kernels, and carries a copy of
 LIFE's analytical half (``configs``, ``core``, ``traffic``, ``api``) so
 that forecasts for the card sit beside measurements on it.  It imports
 ``torch`` and numpy only, never ``jax`` and nothing of ``repro``.

@@ -419,18 +419,11 @@ def forecast(scenario: Scenario, hw: HardwareLike, *,
 
 def _check_measurable(scenario: Scenario) -> None:
     """Refuse what the port cannot measure yet, naming its ROADMAP item."""
-    from repro_torch.engine import engine_supported
-    arch = scenario.arch
     if scenario.tp * scenario.pp > 1:
         raise NotImplementedError(
             f"Scenario tp={scenario.tp} × pp={scenario.pp} needs the "
             f"multi-device engine, which is not ported (ROADMAP queue 1, "
             f"item 5); the port measures on one device")
-    if not engine_supported(arch):
-        raise NotImplementedError(
-            f"{arch.name!r} (family {arch.family!r}) is served by the "
-            f"lockstep server, which is not ported (ROADMAP queue 1, "
-            f"item 4)")
 
 
 def _measure_hw_name(hw: Optional[HardwareLike], dev) -> str:
@@ -460,11 +453,17 @@ def measure(scenario: Scenario, hw: Optional[HardwareLike] = None, *,
     Measured TTFT is admission → first token (queue-exclusive), like the
     forecast's (see ``repro_torch.engine.forecast_twin``).
 
+    Families the engine does not serve (SSM, hybrid, MLA,
+    encoder-decoder) run on the lockstep ``Server`` instead, timed in two
+    legs as the reference times them: prefill plus the first token, then
+    the remaining decode steps.  As in the reference, that branch passes
+    no encoder frames, so an encoder-decoder's cross K/V stay zeros.
+
     The port's counterpart of the JAX package's ``measure``, with the same
     ``extras`` keys and ``mode`` values (``"engine"``,
-    ``"engine-traffic"``) and the same KV-dtype mapping (int4 variants
-    measure as int8).  Weights stay bf16 whatever ``dtype_w`` says, as in
-    the reference.  Differences:
+    ``"engine-traffic"``, ``"legacy-lockstep"``) and the same KV-dtype
+    mapping (int4 variants measure as int8).  Weights stay bf16 whatever
+    ``dtype_w`` says, as in the reference.  Differences:
 
     * params come from the port's seeded ``init_params`` (a
       ``torch.Generator``) and prompts from
@@ -472,17 +471,18 @@ def measure(scenario: Scenario, hw: Optional[HardwareLike] = None, *,
       ``seed + 2``): the port cannot reproduce JAX's PRNG, so the same
       scenario serves other random weights and prompts than the
       reference's run;
-    * ``tp·pp > 1`` raises (ROADMAP queue 1, item 5), and so do the
-      families the engine does not serve, which the reference measures
-      on its lockstep server (item 4).  MoE and VLM decoders run on the
-      engine, a VLM as text, as in the reference.
+    * ``tp·pp > 1`` raises (ROADMAP queue 1, item 5).  MoE and VLM
+      decoders run on the engine, a VLM as text, as in the reference;
+    * temperature draws on the lockstep branch come from a
+      ``torch.Generator`` seeded with ``seed``.
     """
     import time
 
     import numpy as np
 
     from repro_torch import resolve_device
-    from repro_torch.engine import Engine, EngineConfig, Request
+    from repro_torch.engine import (Engine, EngineConfig, Request,
+                                    engine_supported)
     from repro_torch.models import init_params
 
     _check_measurable(scenario)
@@ -495,6 +495,9 @@ def measure(scenario: Scenario, hw: Optional[HardwareLike] = None, *,
     tp, pp = scenario.tp, scenario.pp
     params = init_params(arch, scenario.seed, device=dev)
     if scenario.has_traffic:
+        if not engine_supported(arch):
+            raise ValueError(f"traffic scenarios need an engine-supported "
+                             f"family, not {arch.family!r}")
         return _measure_traffic(scenario, hw_name, arch, variant, totals,
                                 kv_dtype, params, dev)
     gen_lens = scenario.request_gen_lens
@@ -515,6 +518,9 @@ def measure(scenario: Scenario, hw: Optional[HardwareLike] = None, *,
         prompts = np.tile(prompts[:, :scenario.prompt_motif_len],
                           (1, reps))[:, :scenario.prompt_len]
 
+    if not engine_supported(arch):
+        return _measure_lockstep(scenario, hw_name, arch, variant, totals,
+                                 kv_dtype, params, prompts, max_len, dev)
     extras: Dict[str, object] = {}
     ec = EngineConfig(max_slots=scenario.batch, max_len=max_len,
                       chunk_size=scenario.chunk or scenario.prompt_len,
@@ -583,6 +589,60 @@ def measure(scenario: Scenario, hw: Optional[HardwareLike] = None, *,
         hardware=hw_name, ttft_s=ttft_s, tpot_s=tpot_s, tps=tps,
         phases=_phase_stats(totals), scenario=scenario.to_dict(),
         extras=extras, trace=trace)
+
+
+def _measure_lockstep(scenario: Scenario, hw_name: str, arch, variant,
+                      totals, kv_dtype: str, params, prompts, max_len: int,
+                      dev) -> Report:
+    """The reference's legacy lockstep branch: whole-batch generation on
+    the ``Server``, timed in two legs (prefill plus the first token, then
+    the remaining decode steps), after an untimed two-token warm-up."""
+    import time
+
+    import torch
+
+    from repro_torch.engine.sampling import sample
+    from repro_torch.runtime import ServeConfig, Server
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    gen_lens = scenario.request_gen_lens
+    n_req = len(gen_lens)
+    sc = ServeConfig(batch=n_req, max_len=max_len, chunk_size=scenario.chunk,
+                     kv_dtype=kv_dtype, temperature=scenario.temperature)
+    n_new = max(gen_lens)
+    server = Server(arch, params, sc, device=dev)
+    prompts = torch.as_tensor(prompts, device=dev)
+    server.generate(prompts, 2)              # kernel builds, allocator
+    sync()
+    t0 = time.perf_counter()
+    state = server.init_state()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(scenario.seed)
+    chunk = sc.chunk_size or scenario.prompt_len
+    logits = None
+    for off in range(0, scenario.prompt_len, chunk):
+        logits, state = server.prefill(state, prompts[:, off:off + chunk])
+    tok = sample(logits, sc.temperature, gen)
+    sync()
+    ttft_s = time.perf_counter() - t0
+    n_toks = n_req
+    for _ in range(n_new - 1):
+        logits, state = server.decode(state, tok[:, None])
+        tok = sample(logits, sc.temperature, gen)
+        n_toks += n_req
+    sync()
+    wall = time.perf_counter() - t0
+    tpot_s = (wall - ttft_s) / max(n_new - 1, 1)
+    extras = dict(mode="legacy-lockstep", wall_s=wall, tokens=n_toks,
+                  requests=n_req)
+    return Report(
+        source="measured", model=arch.name, variant=variant.name,
+        hardware=hw_name, ttft_s=ttft_s, tpot_s=tpot_s, tps=n_toks / wall,
+        phases=_phase_stats(totals), scenario=scenario.to_dict(),
+        extras=extras, trace=None)
 
 
 def _lora_extras(scenario: Scenario, ec, eng) -> Dict[str, object]:

@@ -1,13 +1,13 @@
 """Architecture config registry of the port: ``--arch <id>`` resolution.
 
-The port serves the dense GQA decoders of the engine's main path,
+The port's engine serves the dense GQA decoders of its main path,
 Llama-2-7B (the paper's study model) and Qwen2-7B (GQA with QKV bias),
 the MoE decoders (Qwen1.5-MoE-A2.7B, DeepSeekMoE-16B) and InternVL2-26B's
-language stack, and trains Granite-3.0-2B (the training launcher's
-example).  The other architectures of the JAX package's registry are
-here as data for the analytical half (``core``, ``api``): the port's
-models and engine do not run their families yet (ROADMAP queue 1,
-item 4).
+language stack; its lockstep server also serves the SSM, hybrid, MLA and
+encoder-decoder families (Falcon-Mamba-7B, RecurrentGemma-2B,
+Llama-2-7B-MLA, Whisper-base).  It trains Granite-3.0-2B (the training
+launcher's example).  Every architecture of the JAX package's registry
+is here, for the models and for the analytical half (``core``, ``api``).
 """
 from __future__ import annotations
 

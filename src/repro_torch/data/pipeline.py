@@ -32,13 +32,10 @@ class SyntheticTokens:
     ``batch`` returns int64 ``inputs`` / ``targets`` and f32 ``mask``
     tensors on ``device`` (default ``"cuda"``); a VLM's batch also holds
     bf16 ``vision_embeds`` (b, vision_prefix_len, d), and its text is
-    ``seq_len - vision_prefix_len`` tokens long."""
+    ``seq_len - vision_prefix_len`` tokens long; an encoder-decoder's
+    holds bf16 encoder ``frames`` (b, encoder_len, d)."""
 
     def __init__(self, cfg: ArchConfig, data: DataConfig, device="cuda"):
-        if cfg.family == "encdec":
-            raise NotImplementedError(
-                "encdec batches (encoder frames) come with the encoder-"
-                "decoder family (ROADMAP queue 1, item 4)")
         self.cfg = cfg
         self.data = data
         self.device = resolve_device(device)
@@ -61,6 +58,12 @@ class SyntheticTokens:
                 (d.global_batch, cfg.vision_prefix_len, cfg.d_model))
             out["vision_embeds"] = as_t(ve.astype(np.float32)).to(
                 torch.bfloat16)
+        if cfg.family == "encdec":
+            # after any vision embeds and before the tokens, as drawn by
+            # the reference, rounded as the vision embeds are
+            fr = rng.standard_normal(
+                (d.global_batch, cfg.encoder_len, cfg.d_model))
+            out["frames"] = as_t(fr.astype(np.float32)).to(torch.bfloat16)
         toks = rng.choice(cfg.vocab_size, p=self._probs,
                           size=(d.global_batch, n_text + 1)).astype(np.int32)
         mask = np.ones((d.global_batch, n_text), np.float32)

@@ -44,7 +44,8 @@ def check_supported(cfg: ArchConfig) -> None:
         raise ValueError(
             f"engine does not support arch {cfg.name!r} "
             f"(family={cfg.family}, mla={cfg.mla is not None}, "
-            f"local_window={cfg.local_window})")
+            f"local_window={cfg.local_window}); it is served by the "
+            f"lockstep repro_torch.runtime.serve.Server")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,6 +7,9 @@
         --reduced --device cpu --requests 3 --max-slots 2 --prompt-len 16 \
         --new-tokens 6 --chunk 8 --spec-k 2 --prefill-batch 2 \
         --lora-tenants 2 --lora-ranks 4,8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch falcon-mamba-7b --reduced --device cpu --legacy --batch 2 \
+        --prompt-len 16 --new-tokens 4
 
 Mirrors the engine path of ``python -m repro.launch.serve``: random weights
 from a seeded generator, a synthetic request stream, warm-up outside the
@@ -18,11 +21,17 @@ fields ``repro.api.measure`` passes to the reference engine); tenants are
 assigned round-robin, and the last request uses the base model.  It
 prints measured numbers only; the analytical twin's forecast needs the
 analytical half, which the port does not have yet.
+
+``--legacy`` runs the single-shot lockstep ``Server`` instead (a batch of
+``--batch`` prompts generated together); it is also the path for the
+families the engine does not serve (SSM, hybrid, encoder-decoder, MLA),
+which the launcher routes there as the reference's does.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 import torch
@@ -30,8 +39,37 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.configs import Variant
 from repro_torch.core import hardware
-from repro_torch.engine import Engine, EngineConfig, ForecastTwin, Request
+from repro_torch.engine import (Engine, EngineConfig, ForecastTwin, Request,
+                                engine_supported)
 from repro_torch.models import init_params
+from repro_torch.runtime import ServeConfig, Server
+
+
+def _device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def run_legacy(args, cfg, params, device) -> dict:
+    """The lockstep ``Server`` over ``--batch`` random prompts."""
+    max_len = args.max_len or (args.prompt_len + args.new_tokens + 16)
+    sc = ServeConfig(batch=args.batch, max_len=max_len,
+                     chunk_size=args.chunk or None, kv_dtype=args.kv_dtype,
+                     temperature=args.temperature)
+    prompt = np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len))
+    server = Server(cfg, params, sc, device=device)
+    t0 = time.perf_counter()
+    tokens, stats = server.generate(prompt, args.new_tokens, seed=args.seed)
+    tokens = tokens.cpu()            # waits for the device
+    wall = time.perf_counter() - t0
+    summary = {
+        "mode": "legacy", "arch": cfg.name, "device": _device_name(device),
+        "generated": tokens[0][:8].tolist(), "shape": list(tokens.shape),
+        "wall_s": round(wall, 2),
+        "host_tps": round(args.new_tokens * args.batch / wall, 1), **stats}
+    print(json.dumps(summary, indent=1))
+    return summary
 
 
 def main(argv=None) -> dict:
@@ -39,6 +77,9 @@ def main(argv=None) -> dict:
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--arch", choices=sorted(configs.ARCHS), required=True)
     p.add_argument("--reduced", action="store_true")
+    p.add_argument("--legacy", action="store_true",
+                   help="single-shot lockstep Server path")
+    p.add_argument("--batch", type=int, default=4, help="legacy batch size")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--max-slots", type=int, default=4)
     p.add_argument("--decode-block", type=int, default=8)
@@ -69,6 +110,11 @@ def main(argv=None) -> dict:
     full_cfg = configs.get(args.arch)
     cfg = configs.reduced(full_cfg) if args.reduced else full_cfg
     params = init_params(cfg, args.seed, device=device)
+    if args.legacy or not engine_supported(cfg):
+        if not args.legacy:
+            print(f"({cfg.name}: family not engine-supported; "
+                  f"using legacy lockstep path)")
+        return run_legacy(args, cfg, params, device)
     max_len = args.max_len or (args.prompt_len + args.new_tokens + 16)
     ec = EngineConfig(max_slots=args.max_slots, max_len=max_len,
                       chunk_size=args.chunk or args.prompt_len,
@@ -110,8 +156,7 @@ def main(argv=None) -> dict:
         "mode": "engine", "arch": cfg.name, "attn_impl": args.attn_impl,
         "kv_dtype": args.kv_dtype, "requests": args.requests,
         "max_slots": args.max_slots,
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
+        "device": _device_name(device),
         "ttft_p50_ms": float(np.median([r.ttft for r in results]) * 1e3),
         "tpot_p50_ms": float(np.median([r.tpot for r in results]) * 1e3),
         "tps": eng.aggregate_tps(),

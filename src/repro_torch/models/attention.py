@@ -1,6 +1,7 @@
-"""Grouped-query attention (MHA / GQA / MQA, no KV repeat): the PyTorch
-counterparts of the JAX package's ``models/attention.py`` for the dense
-decoders the port serves and trains."""
+"""Attention: grouped-query (MHA / GQA / MQA, no KV repeat), MLA
+(compressed-latent cache, decompressed on every call), cross-attention
+for the encoder-decoder, and the static caches of the lockstep step —
+the PyTorch counterparts of the JAX package's ``models/attention.py``."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -8,8 +9,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.flash_attention import flash_attention
-from .layers import apply_rope
+from repro_torch.kernels.flash_attention import flash_attention, flash_fwd
+from .layers import apply_rope, dense, rmsnorm
 
 #: sequences at or above this length use blockwise (flash-style) attention
 #: on the eager path, as the reference does
@@ -112,11 +113,9 @@ def blockwise_attention(q, k, v, scale, *, causal: bool = True,
     (b, s, Hk*G*d) in q's dtype."""
     b, s, Hk, G, d = q.shape
     L = k.shape[1]
+    _check_blocks(s, L, block_q, block_k)
     block_q = min(block_q, s)
     block_k = min(block_k, L)
-    if s % block_q or L % block_k:
-        raise ValueError(f"blockwise attention needs s={s} and L={L} to be "
-                         f"multiples of the blocks {block_q}, {block_k}")
     dev = q.device
     outs = []
     for i0 in range(0, s, block_q):
@@ -152,3 +151,178 @@ def blockwise_attention(q, k, v, scale, *, causal: bool = True,
         outs.append(out_i.permute(0, 3, 1, 2, 4).reshape(
             b, block_q, Hk * G * d).to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def _check_blocks(s: int, L: int, block_q: int = BLOCK_Q,
+                  block_k: int = BLOCK_K) -> None:
+    """:func:`blockwise_attention`'s precondition (the reference's assert)."""
+    bq, bk = min(block_q, s), min(block_k, L)
+    if s % bq or L % bk:
+        raise ValueError(f"blockwise attention needs s={s} and L={L} to be "
+                         f"multiples of the blocks {bq}, {bk}")
+
+
+def lockstep_blockwise(q, k, v, *, window: Optional[int],
+                       q_offset: int) -> torch.Tensor:
+    """The lockstep step's flash-schedule branches (a long prompt chunk
+    over the dense cache, a chunk of at least a window over itself):
+    q (b,s,Hk,G,d); k, v (b,L,Hk,d) in q's dtype; causal, scores scaled
+    by d**-0.5; returns (b, s, Hk*G*d).
+
+    On the card the flash attention forward kernel (K6) computes it
+    (head h reads KV head h // G, the reference's (Hk, G) order); on the
+    CPU the plain :func:`blockwise_attention`.  Both take what the
+    reference's blockwise loop takes (s and L multiples of its blocks)."""
+    b, s, Hk, G, d = q.shape
+    _check_blocks(s, k.shape[1])
+    if not q.is_cuda:
+        return blockwise_attention(q, k, v, d ** -0.5, causal=True,
+                                   window=window, q_offset=q_offset)
+    o, _ = flash_fwd(q.reshape(b, s, Hk * G, d).contiguous(),
+                     k.contiguous(), v.contiguous(), causal=True,
+                     window=window, q_offset=q_offset)
+    return o.reshape(b, s, Hk * G * d)
+
+
+# ---------------------------------------------------------------------------
+# static caches of the lockstep step
+# ---------------------------------------------------------------------------
+
+def kv_cache_shape(cfg: ArchConfig, batch: int, max_len: int) -> Tuple:
+    """(k, v) buffer shapes of one attention layer: MLA keeps the latent
+    and the rotary key part."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return ((batch, max_len, m.kv_lora_rank),
+                (batch, max_len, m.qk_rope_head_dim))
+    return ((batch, max_len, cfg.n_kv_heads, cfg.head_dim),) * 2
+
+
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Activations into cache storage: the engine's ``to_kv`` (int8
+    saturates, then truncates, as XLA's cast does)."""
+    # imported here: the engine package imports the models at its import
+    from repro_torch.engine.sampling import to_kv
+    return to_kv(x, dtype)
+
+
+def _write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """``dynamic_update_slice(cache, new, (0, pos, ...))`` in place: the
+    start is clamped to [0, L - s] as XLA clamps it, so a write past the
+    end lands on the last s positions instead of raising (both packages
+    do this)."""
+    s, L = new.shape[1], cache.shape[1]
+    start = max(0, min(pos, L - s))
+    cache[:, start:start + s] = to_cache(new, cache.dtype)
+
+
+def cached_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                     *, window: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill (s = chunk) or decode (s = 1) against a static cache of
+    L positions, ``pos`` tokens already in it.  The caches are written in
+    place and returned.  Chunks of at least ``BLOCKWISE_THRESHOLD``
+    tokens attend through :func:`lockstep_blockwise` over the whole
+    cache; shorter ones through the eager masked path."""
+    b, s, _ = x.shape
+    L = cache_k.shape[1]
+    positions = pos + torch.arange(s, dtype=torch.int32,
+                                   device=x.device)[None, :]
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    _write(cache_k, k_new, pos)
+    _write(cache_v, v_new, pos)
+    k, v = cache_k.to(x.dtype), cache_v.to(x.dtype)
+    if s >= BLOCKWISE_THRESHOLD:
+        out = lockstep_blockwise(q, k, v, window=window, q_offset=pos)
+    else:
+        k_pos = torch.arange(L, dtype=torch.int32, device=x.device)
+        mask = _mask(positions[0], k_pos, causal=True, window=window)
+        out = _gqa_scores_softmax_out(q, k, v, mask, cfg.head_dim ** -0.5)
+    return out_proj(cfg, p, out), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA
+# ---------------------------------------------------------------------------
+
+def _mla_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor, positions):
+    m = cfg.mla
+    cq = rmsnorm(dense(x, p["q_down"]), p["q_norm"])
+    q = torch.einsum("bsr,rhk->bshk", cq, p["q_up"])
+    q_nope, q_pe = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    c_latent, k_pe = dense(x, p["kv_down"]).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_latent = rmsnorm(c_latent, p["kv_norm"])
+    k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_pe, c_latent, k_pe
+
+
+def _mla_core(cfg: ArchConfig, p: Dict, q_nope, q_pe, c_latent, k_pe, mask):
+    """Decompress the latent of every cached position and attend."""
+    m = cfg.mla
+    kv = torch.einsum("blr,rhk->blhk", c_latent, p["kv_up"])
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    scores = (torch.einsum("bshk,blhk->bhsl", q_nope, k_nope)
+              + torch.einsum("bshk,blk->bhsl", q_pe, k_pe)) * scale
+    scores = torch.where(mask[:, :, 0], scores.float(),
+                         torch.tensor(-1e30, dtype=torch.float32,
+                                      device=scores.device))
+    probs = torch.softmax(scores, dim=-1).to(q_nope.dtype)
+    out = torch.einsum("bhsl,blhk->bshk", probs, v)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def mla_self_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
+                       causal: bool = True) -> torch.Tensor:
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    q_nope, q_pe, c_latent, k_pe = _mla_qkv(cfg, p, x, positions)
+    mask = _mask(positions[0], positions[0], causal=causal)
+    return _mla_core(cfg, p, q_nope, q_pe, c_latent, k_pe, mask)
+
+
+def mla_cached_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                         cache_latent: torch.Tensor, cache_kpe: torch.Tensor,
+                         pos: int):
+    """MLA against its latent cache (written in place and returned)."""
+    s = x.shape[1]
+    L = cache_latent.shape[1]
+    positions = pos + torch.arange(s, dtype=torch.int32,
+                                   device=x.device)[None, :]
+    q_nope, q_pe, c_latent, k_pe = _mla_qkv(cfg, p, x, positions)
+    _write(cache_latent, c_latent, pos)
+    _write(cache_kpe, k_pe, pos)
+    mask = _mask(positions[0], torch.arange(L, dtype=torch.int32,
+                                            device=x.device), causal=True)
+    y = _mla_core(cfg, p, q_nope, q_pe, cache_latent.to(x.dtype),
+                  cache_kpe.to(x.dtype), mask)
+    return y, cache_latent, cache_kpe
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (the encoder-decoder's decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """Decoder queries against encoder K/V (b, F, H, hd), unmasked.  K/V
+    stored in another dtype (a bf16 or int8 cache) meet q in their
+    promoted dtype, as ``jnp.einsum`` promotes them."""
+    hd = cfg.head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    dt = torch.promote_types(q.dtype, enc_k.dtype)
+    scores = torch.einsum("bshk,bfhk->bhsf", q.to(dt), enc_k.to(dt)) \
+        * hd ** -0.5
+    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    dt = torch.promote_types(probs.dtype, enc_v.dtype)
+    out = torch.einsum("bhsf,bfhk->bshk", probs.to(dt), enc_v.to(dt))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def encode_cross_kv(cfg: ArchConfig, p: Dict, enc_out: torch.Tensor):
+    k = torch.einsum("bfd,dhk->bfhk", enc_out, p["wk"])
+    v = torch.einsum("bfd,dhk->bfhk", enc_out, p["wv"])
+    return k, v

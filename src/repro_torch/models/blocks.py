@@ -1,16 +1,27 @@
-"""Channel-mixing blocks: the dense MLP and the MoE layer (top-k routing,
-capacity-bounded scatter dispatch, shared experts) — the PyTorch
-counterparts of ``blocks.mlp_forward`` and ``blocks.moe_forward``."""
+"""Per-family blocks: the dense MLP, the MoE layer (top-k routing,
+capacity-bounded scatter dispatch, shared experts), the Mamba-1
+selective SSM and the RG-LRU (Griffin) recurrence — the PyTorch
+counterparts of the JAX package's ``models/blocks.py``, each recurrence
+with a sequence forward and a cached step.
+
+The recurrences run as a loop over positions in the reference's order
+(its ``lax.scan``), not as a parallel scan, whose sums round otherwise."""
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from .layers import dense, gelu, silu
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0), with no
+    linear cut-off."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def mlp_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -130,3 +141,178 @@ def _moe_forward_global(cfg, p, x, capacity_factor):
     if "shared_gate" in p:
         y = y + _shared(p, xt)
     return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective SSM
+# ---------------------------------------------------------------------------
+
+#: sequences longer than this, and a multiple of it, stream through the
+#: SSM in pieces of this many tokens, as the reference's forward does
+SSM_CHUNK = 1024
+
+
+def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor,
+                           state: Optional[torch.Tensor] = None):
+    """x: (b, s, C); w: (C, K).  Returns (y, new state (b, K-1, C)).
+
+    The state and x are joined in their promoted dtype, as
+    ``jnp.concatenate`` joins them: a bf16 state meets f32 activations
+    of an f32 tree and comes back f32."""
+    K = w.shape[1]
+    if state is None:
+        state = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    dt = torch.promote_types(state.dtype, x.dtype)
+    xp = torch.cat([state.to(dt), x.to(dt)], dim=1)      # (b, K-1+s, C)
+    s = x.shape[1]
+    y = sum(xp[:, i:i + s, :] * w[:, i] for i in range(K)) + b
+    new_state = xp[:, -(K - 1):, :] if K > 1 else state
+    return y, new_state
+
+
+def _ssm_params(cfg: ArchConfig, p: Dict, x_c: torch.Tensor):
+    """dt (softplus, f32), A = -exp(A_log), and B, C in f32."""
+    dtr = cfg.ssm_dt_rank or max(1, cfg.d_model // 16)
+    n = cfg.ssm_d_state
+    dt_raw, B, C = dense(x_c, p["x_proj"]).split([dtr, n, n], dim=-1)
+    dt = _softplus(dense(dt_raw, p["dt_proj"]).float()
+                   + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"])                              # (di, n)
+    return dt, A, B.float(), C.float()
+
+
+def _ssm_update(h, dt_t, A, B_t, C_t, x_t):
+    """One position of the selective scan: h (b, di, n) <- h * exp(dt A)
+    + dt B x; returns (h, y = h . C (b, di)), all f32."""
+    dA = torch.exp(dt_t[..., None] * A)
+    h = h * dA + dt_t[..., None] * B_t[:, None, :] * x_t[..., None]
+    return h, (h * C_t[:, None, :]).sum(-1)
+
+
+def _mamba_seq(cfg: ArchConfig, p: Dict, x: torch.Tensor, conv_state,
+               ssm_state):
+    """One contiguous piece; threads (conv_state, ssm_state) through."""
+    x_in, z = dense(x, p["in_proj"]).chunk(2, dim=-1)
+    x_c, conv_state = _causal_depthwise_conv(x_in, p["conv_w"], p["conv_b"],
+                                             conv_state)
+    x_c = silu(x_c)
+    dt, A, B, C = _ssm_params(cfg, p, x_c)
+    xf = x_c.float()
+    ys = []
+    for t in range(x.shape[1]):
+        ssm_state, y_t = _ssm_update(ssm_state, dt[:, t], A, B[:, t],
+                                     C[:, t], xf[:, t])
+        ys.append(y_t)
+    y = torch.stack(ys, dim=1) + xf * p["D"]
+    out = y.to(x.dtype) * silu(z)
+    return dense(out, p["out_proj"]), conv_state, ssm_state
+
+
+def mamba_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Sequence forward; long sequences stream in ``SSM_CHUNK`` pieces."""
+    b, s, d = x.shape
+    di = cfg.ssm_expand * d
+    conv = x.new_zeros((b, cfg.ssm_conv_kernel - 1, di))
+    ssm = torch.zeros((b, di, cfg.ssm_d_state), dtype=torch.float32,
+                      device=x.device)
+    if s <= SSM_CHUNK or s % SSM_CHUNK:
+        return _mamba_seq(cfg, p, x, conv, ssm)[0]
+    ys = []
+    for x_i in x.split(SSM_CHUNK, dim=1):
+        y_i, conv, ssm = _mamba_seq(cfg, p, x_i, conv, ssm)
+        ys.append(y_i)
+    return torch.cat(ys, dim=1)
+
+
+def mamba_step(cfg: ArchConfig, p: Dict, x_t: torch.Tensor,
+               conv_state: torch.Tensor, ssm_state: torch.Tensor):
+    """The cached step, as the reference's: the conv state takes all s
+    tokens of x_t (b, s, d), but the SSM state takes the first token only
+    and its output is broadcast over the s positions (a chunked prefill
+    thereby differs from ``mamba_forward``; both packages do this)."""
+    x_in, z = dense(x_t, p["in_proj"]).chunk(2, dim=-1)
+    x_c, conv_state = _causal_depthwise_conv(x_in, p["conv_w"], p["conv_b"],
+                                             conv_state)
+    x_c = silu(x_c)
+    dt, A, B, C = _ssm_params(cfg, p, x_c)
+    xf = x_c.float()[:, 0]
+    ssm_state, y = _ssm_update(ssm_state, dt[:, 0], A, B[:, 0], C[:, 0], xf)
+    y = y + xf * p["D"]
+    out = y[:, None, :].to(x_t.dtype) * silu(z)
+    return dense(out, p["out_proj"]), conv_state, ssm_state
+
+
+def mamba_state_shapes(cfg: ArchConfig, batch: int):
+    di = cfg.ssm_expand * cfg.d_model
+    return ((batch, cfg.ssm_conv_kernel - 1, di),      # conv state (bf16)
+            (batch, di, cfg.ssm_d_state))              # ssm state (f32)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma recurrent block)
+# ---------------------------------------------------------------------------
+
+_RGLRU_C = 8.0
+
+
+def _rglru_gates(p: Dict, x_c: torch.Tensor):
+    """Input gate i (f32), decay a = exp(-c softplus(a_param) r) and the
+    input scale sqrt(1 - a^2) (f32)."""
+    i = torch.sigmoid(x_c * p["gate_i_w"] + p["gate_i_b"])
+    r = torch.sigmoid(x_c * p["gate_r_w"] + p["gate_r_b"])
+    log_a = -_RGLRU_C * _softplus(p["a_param"]) * r.float()
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - a.square(), min=1e-6))
+    return i.float(), a, mult
+
+
+def _rglru_seq(cfg: ArchConfig, p: Dict, x: torch.Tensor, conv_state,
+               h_state):
+    xb = dense(x, p["linear_x"])
+    yb = gelu(dense(x, p["linear_y"]))
+    x_c, conv_state = _causal_depthwise_conv(xb, p["conv_w"], p["conv_b"],
+                                             conv_state)
+    i, a, mult = _rglru_gates(p, x_c)
+    gated = (i * x_c.float()) * mult
+    hs = []
+    for t in range(x.shape[1]):
+        h_state = a[:, t] * h_state + gated[:, t]
+        hs.append(h_state)
+    h = torch.stack(hs, dim=1).to(x.dtype)
+    return dense(h * yb, p["linear_out"]), conv_state, h_state
+
+
+def rglru_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    b, s, d = x.shape
+    w = cfg.lru_width or d
+    conv = x.new_zeros((b, cfg.ssm_conv_kernel - 1, w))
+    h = torch.zeros((b, w), dtype=torch.float32, device=x.device)
+    if s <= SSM_CHUNK or s % SSM_CHUNK:
+        return _rglru_seq(cfg, p, x, conv, h)[0]
+    ys = []
+    for x_i in x.split(SSM_CHUNK, dim=1):
+        y_i, conv, h = _rglru_seq(cfg, p, x_i, conv, h)
+        ys.append(y_i)
+    return torch.cat(ys, dim=1)
+
+
+def rglru_step(cfg: ArchConfig, p: Dict, x_t: torch.Tensor,
+               conv_state: torch.Tensor, h_state: torch.Tensor):
+    """The cached step; as :func:`mamba_step`, the recurrent state takes
+    the first of the s tokens and its output is broadcast over them."""
+    xb = dense(x_t, p["linear_x"])
+    yb = gelu(dense(x_t, p["linear_y"]))
+    x_c, conv_state = _causal_depthwise_conv(xb, p["conv_w"], p["conv_b"],
+                                             conv_state)
+    i, a, mult = _rglru_gates(p, x_c)
+    h_state = (a[:, 0] * h_state
+               + (i[:, 0] * x_c.float()[:, 0]) * mult[:, 0])
+    out = h_state[:, None, :].to(x_t.dtype) * yb
+    return dense(out, p["linear_out"]), conv_state, h_state
+
+
+def rglru_state_shapes(cfg: ArchConfig, batch: int):
+    w = cfg.lru_width or cfg.d_model
+    return ((batch, cfg.ssm_conv_kernel - 1, w),   # conv state
+            (batch, w))                            # recurrent state (f32)

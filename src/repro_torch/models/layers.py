@@ -8,8 +8,9 @@ so a tree converted by ``repro_torch.bridge`` and one drawn by
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -33,9 +34,20 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * gamma
 
 
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    # statistics in f32, the affine part in the working dtype (as the
+    # reference)
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * gamma + beta
+
+
 def apply_norm(kind: str, x: torch.Tensor, p: Dict) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm kind {kind!r} is not ported")
+    if kind == "layernorm":
+        return layernorm(x, p["gamma"], p["beta"])
     return rmsnorm(x, p["gamma"])
 
 
@@ -80,75 +92,175 @@ ACTIVATIONS: Dict[str, Callable] = {"silu": silu, "gelu": gelu}
 
 
 # ---------------------------------------------------------------------------
-# parameter declaration and initialisation (dense, MoE and VLM decoders)
+# parameter declaration and initialisation
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"                 # normal | zeros | ones
+    init: str = "normal"                 # normal | zeros | ones | mamba_a
     scale: float = 0.02
+    #: None: the tree's dtype (``init_params``' ``dtype``); the leaves the
+    #: reference declares f32 (Mamba's ``A_log`` and ``D``, RG-LRU's
+    #: ``a_param``) stay f32 in a bf16 tree
+    dtype: Optional[torch.dtype] = None
 
 
-#: the families whose decoder the port builds: one stacked attention
-#: stack each (a VLM's vision prefix goes through ``vision_proj``)
-FAMILIES = ("dense", "moe", "vlm")
+def norm_defs(kind: str, dim: int) -> Dict:
+    d = {"gamma": ParamDef((dim,), init="ones")}
+    if kind == "layernorm":
+        d["beta"] = ParamDef((dim,), init="zeros")
+    return d
 
 
-def _channel_defs(cfg: ArchConfig, L: int) -> Dict:
-    """A layer's MLP, stacked on L: the dense (gated) MLP, or the MoE
-    layer's router, routed experts ``(L, E, ...)`` and shared experts."""
-    d = cfg.d_model
-    if cfg.family == "moe":
-        E, f = cfg.n_experts, cfg.d_ff_expert
-        fs = cfg.n_shared_experts * f
-        mlp = {"router": ParamDef((L, d, E)),
-               "w_gate": ParamDef((L, E, d, f)),
-               "w_up": ParamDef((L, E, d, f)),
-               "w_down": ParamDef((L, E, f, d))}
-        if fs:
-            mlp["shared_gate"] = ParamDef((L, d, fs))
-            mlp["shared_up"] = ParamDef((L, d, fs))
-            mlp["shared_down"] = ParamDef((L, fs, d))
-        return mlp
-    f = cfg.d_ff
-    mlp = {"up": ParamDef((L, d, f)), "down": ParamDef((L, f, d))}
+def mlp_defs(cfg: ArchConfig) -> Dict:
+    d, f = cfg.d_model, cfg.d_ff
+    defs = {"up": ParamDef((d, f)), "down": ParamDef((f, d))}
     if cfg.gated_mlp:
-        mlp["gate"] = ParamDef((L, d, f))
-    return mlp
+        defs["gate"] = ParamDef((d, f))
+    return defs
+
+
+def moe_defs(cfg: ArchConfig) -> Dict:
+    """The router, the routed experts ``(E, ...)`` and the shared ones."""
+    d, f, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    fs = cfg.n_shared_experts * f
+    defs = {"router": ParamDef((d, E)), "w_gate": ParamDef((E, d, f)),
+            "w_up": ParamDef((E, d, f)), "w_down": ParamDef((E, f, d))}
+    if fs:
+        defs["shared_gate"] = ParamDef((d, fs))
+        defs["shared_up"] = ParamDef((d, fs))
+        defs["shared_down"] = ParamDef((fs, d))
+    return defs
+
+
+def attention_defs(cfg: ArchConfig) -> Dict:
+    """GQA projections, or MLA's low-rank q and compressed KV latent."""
+    d, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {
+            "q_down": ParamDef((d, m.q_lora_rank)),
+            "q_norm": ParamDef((m.q_lora_rank,), init="ones"),
+            "q_up": ParamDef((m.q_lora_rank, H, qk)),
+            "kv_down": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+            "kv_norm": ParamDef((m.kv_lora_rank,), init="ones"),
+            "kv_up": ParamDef((m.kv_lora_rank, H,
+                               m.qk_nope_head_dim + m.v_head_dim)),
+            "wo": ParamDef((H, m.v_head_dim, d)),
+        }
+    defs = {"wq": ParamDef((d, H, hd)), "wk": ParamDef((d, Hk, hd)),
+            "wv": ParamDef((d, Hk, hd)), "wo": ParamDef((H, hd, d))}
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((H, hd), init="zeros")
+        defs["bk"] = ParamDef((Hk, hd), init="zeros")
+        defs["bv"] = ParamDef((Hk, hd), init="zeros")
+    return defs
+
+
+def cross_attention_defs(cfg: ArchConfig) -> Dict:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {"wq": ParamDef((d, H, hd)), "wk": ParamDef((d, H, hd)),
+            "wv": ParamDef((d, H, hd)), "wo": ParamDef((H, hd, d))}
+
+
+def mamba_defs(cfg: ArchConfig) -> Dict:
+    d = cfg.d_model
+    di, n = cfg.ssm_expand * d, cfg.ssm_d_state
+    dtr = cfg.ssm_dt_rank or max(1, d // 16)
+    return {
+        "in_proj": ParamDef((d, 2 * di)),
+        "conv_w": ParamDef((di, cfg.ssm_conv_kernel)),
+        "conv_b": ParamDef((di,), init="zeros"),
+        "x_proj": ParamDef((di, dtr + 2 * n)),
+        "dt_proj": ParamDef((dtr, di)),
+        "dt_bias": ParamDef((di,), init="zeros"),
+        "A_log": ParamDef((di, n), init="mamba_a", dtype=torch.float32),
+        "D": ParamDef((di,), init="ones", dtype=torch.float32),
+        "out_proj": ParamDef((di, d)),
+    }
+
+
+def rglru_defs(cfg: ArchConfig) -> Dict:
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    return {
+        "linear_x": ParamDef((d, w)),
+        "linear_y": ParamDef((d, w)),
+        "conv_w": ParamDef((w, cfg.ssm_conv_kernel)),
+        "conv_b": ParamDef((w,), init="zeros"),
+        "gate_i_w": ParamDef((w,), init="ones"),
+        "gate_i_b": ParamDef((w,), init="zeros"),
+        "gate_r_w": ParamDef((w,), init="ones"),
+        "gate_r_b": ParamDef((w,), init="zeros"),
+        "a_param": ParamDef((w,), init="ones", dtype=torch.float32),
+        "linear_out": ParamDef((w, d)),
+    }
+
+
+def _layer_defs(cfg: ArchConfig, kind: str) -> Dict:
+    """One decoder layer of the given temporal-mixer kind (``attn``,
+    ``ssm`` or ``rglru``); an encoder-decoder's attention layer adds
+    cross-attention.  A layer without a channel mixer (an SSM layer, or
+    ``d_ff == 0`` outside MoE) has no ``ln2``/``mlp``."""
+    d = {"ln1": norm_defs(cfg.norm_kind, cfg.d_model)}
+    if kind == "attn":
+        d["attn"] = attention_defs(cfg)
+        if cfg.n_encoder_layers:
+            d["ln_x"] = norm_defs(cfg.norm_kind, cfg.d_model)
+            d["xattn"] = cross_attention_defs(cfg)
+    elif kind == "ssm":
+        d["ssm"] = mamba_defs(cfg)
+    elif kind == "rglru":
+        d["rglru"] = rglru_defs(cfg)
+    if kind != "ssm" and (cfg.d_ff or cfg.family == "moe"):
+        d["ln2"] = norm_defs(cfg.norm_kind, cfg.d_model)
+        d["mlp"] = moe_defs(cfg) if cfg.family == "moe" else mlp_defs(cfg)
+    return d
+
+
+def _stack_defs(defs: Dict, n: int) -> Dict:
+    """Prepend a stacked layer axis of n to every leaf."""
+    return {k: (_stack_defs(v, n) if isinstance(v, dict)
+                else dataclasses.replace(v, shape=(n,) + v.shape))
+            for k, v in defs.items()}
+
+
+#: families whose decoder layers are stacked on a leading ``(L, ...)``
+#: axis; the others (hybrid patterns, encoder-decoders) are unrolled as
+#: ``layers["l{i}"]``, as in the reference
+STACKED_FAMILIES = ("dense", "vlm", "moe", "ssm")
 
 
 def param_defs(cfg: ArchConfig) -> Dict:
-    """The decoder's parameter tree, layers stacked on a leading
-    ``(L, ...)`` axis, in the JAX package's layouts and key names.  A
-    layer without a channel mixer (``d_ff == 0`` outside MoE) has no
-    ``ln2``/``mlp``, as in the reference."""
-    if cfg.family not in FAMILIES or cfg.mla is not None:
-        raise NotImplementedError(
-            f"the port builds dense, MoE and VLM GQA decoders, not "
-            f"{cfg.name!r} (family {cfg.family!r}): ROADMAP.md queue 1 "
-            f"item 4")
-    L, d, H, Hk, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
-                       cfg.n_kv_heads, cfg.head_dim)
-    attn = {"wq": ParamDef((L, d, H, hd)), "wk": ParamDef((L, d, Hk, hd)),
-            "wv": ParamDef((L, d, Hk, hd)), "wo": ParamDef((L, H, hd, d))}
-    if cfg.qkv_bias:
-        attn["bq"] = ParamDef((L, H, hd), init="zeros")
-        attn["bk"] = ParamDef((L, Hk, hd), init="zeros")
-        attn["bv"] = ParamDef((L, Hk, hd), init="zeros")
-    layers = {"ln1": {"gamma": ParamDef((L, d), init="ones")}, "attn": attn}
-    if cfg.d_ff or cfg.family == "moe":
-        layers["ln2"] = {"gamma": ParamDef((L, d), init="ones")}
-        layers["mlp"] = _channel_defs(cfg, L)
-    defs = {
-        "embed": ParamDef((cfg.vocab_size, d)),
-        "ln_f": {"gamma": ParamDef((d,), init="ones")},
-        "layers": layers,
+    """The model's parameter tree in the JAX package's layouts and key
+    names: homogeneous stacks (dense, VLM, MoE, SSM) stacked on a leading
+    ``(L, ...)`` axis, hybrid and encoder-decoder stacks unrolled as
+    ``layers["l{i}"]``; an encoder-decoder adds the stacked ``encoder``."""
+    defs: Dict = {
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model)),
+        "ln_f": norm_defs(cfg.norm_kind, cfg.d_model),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((d, cfg.vocab_size))
+        defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size))
+    kinds = cfg.block_kinds()
+    if cfg.family in STACKED_FAMILIES:
+        defs["layers"] = _stack_defs(_layer_defs(cfg, kinds[0]),
+                                     cfg.n_layers)
+    else:
+        defs["layers"] = {f"l{i}": _layer_defs(cfg, k)
+                          for i, k in enumerate(kinds)}
     if cfg.family == "vlm":
-        defs["vision_proj"] = ParamDef((d, d))
+        defs["vision_proj"] = ParamDef((cfg.d_model, cfg.d_model))
+    if cfg.family == "encdec":
+        enc_layer = {"ln1": norm_defs(cfg.norm_kind, cfg.d_model),
+                     "attn": attention_defs(cfg),
+                     "ln2": norm_defs(cfg.norm_kind, cfg.d_model),
+                     "mlp": mlp_defs(cfg)}
+        defs["encoder"] = {
+            "layers": _stack_defs(enc_layer, cfg.n_encoder_layers),
+            "ln_f": norm_defs(cfg.norm_kind, cfg.d_model)}
     return defs
 
 
@@ -159,13 +271,20 @@ def _materialize(defs: Dict, gen: torch.Generator, device: torch.device,
         d = defs[k]
         if isinstance(d, dict):
             out[k] = _materialize(d, gen, device, dtype)
-        elif d.init == "zeros":
-            out[k] = torch.zeros(d.shape, dtype=dtype, device=device)
+            continue
+        dt = d.dtype or dtype
+        if d.init == "zeros":
+            out[k] = torch.zeros(d.shape, dtype=dt, device=device)
         elif d.init == "ones":
-            out[k] = torch.ones(d.shape, dtype=dtype, device=device)
+            out[k] = torch.ones(d.shape, dtype=dt, device=device)
+        elif d.init == "mamba_a":
+            # Mamba's A_log: log(1..d_state) broadcast over the channels
+            n = d.shape[-1]
+            a = np.tile(np.arange(1, n + 1, dtype=np.float32),
+                        d.shape[:-1] + (1,))
+            out[k] = torch.from_numpy(np.log(a)).to(device=device, dtype=dt)
         else:
-            w = torch.randn(d.shape, generator=gen, dtype=dtype,
-                            device=device)
+            w = torch.randn(d.shape, generator=gen, dtype=dt, device=device)
             out[k] = w.mul_(d.scale)
     return out
 
@@ -173,9 +292,10 @@ def _materialize(defs: Dict, gen: torch.Generator, device: torch.device,
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda",
                 dtype: torch.dtype = torch.bfloat16) -> Dict:
     """Random weights from a seeded generator on ``device``: normal with
-    std 0.02, norm gains ones, biases zeros (the reference's init rule;
-    the draws differ from ``jax.random``'s, so tests that compare the two
-    implementations convert one tree with ``repro_torch.bridge``)."""
+    std 0.02, norm gains ones, biases zeros, Mamba's ``A_log`` its
+    log(1..d_state) (the reference's init rule; the draws differ from
+    ``jax.random``'s, so tests that compare the two implementations
+    convert one tree with ``repro_torch.bridge``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

@@ -1,10 +1,13 @@
-"""Decoder assembly (dense, MoE and VLM stacks): uncached ``forward``
-and the LM head (the PyTorch counterparts of the JAX package's
-``models/model.py``).
+"""Model assembly for every family of the reference (dense, VLM, MoE,
+SSM, hybrid RG-LRU / local attention, encoder-decoder; MLA attention
+where the config has it): the uncached ``forward``, the cached lockstep
+``step`` with its decode state, and the LM head (the PyTorch
+counterparts of the JAX package's ``models/model.py``).
 
-The layer stack is stored stacked on a leading ``(L, ...)`` axis as in the
-reference; where the reference scans over it, the port loops over
-:func:`layer_params` views (no copies).  Per-layer remat is
+Homogeneous stacks are stored stacked on a leading ``(L, ...)`` axis as
+in the reference; where the reference scans over it, the port loops over
+:func:`layer_params` views (no copies).  Hybrid and encoder-decoder
+stacks are unrolled as ``layers["l{i}"]``.  Per-layer remat is
 ``torch.utils.checkpoint`` around each layer (the reference's
 ``jax.checkpoint`` with policy ``"full"``: nothing but the layer's input
 is saved, and the backward recomputes the layer).
@@ -16,12 +19,14 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from . import attention as A
-from .blocks import mlp_forward, moe_forward
-from .layers import FAMILIES, apply_norm, init_params
+from . import blocks as B
+from .layers import apply_norm, init_params
 
-__all__ = ["forward", "init_params", "layer_params", "_lm_head"]
+__all__ = ["forward", "init_decode_state", "init_params", "layer_params",
+           "step", "_lm_head"]
 
 
 def _take(tree: Dict, i: int) -> Dict:
@@ -30,9 +35,13 @@ def _take(tree: Dict, i: int) -> Dict:
 
 
 def layer_params(params: Dict) -> List[Dict]:
-    """Per-layer views ``[params["layers"][...][i] for i in range(L)]``."""
-    n = params["layers"]["ln1"]["gamma"].shape[0]
-    return [_take(params["layers"], i) for i in range(n)]
+    """Per-layer parameter dicts: views ``[...][i]`` of a stacked tree,
+    or the ``layers["l{i}"]`` of an unrolled one."""
+    layers = params["layers"]
+    if "l0" in layers:
+        return [layers[f"l{i}"] for i in range(len(layers))]
+    n = layers["ln1"]["gamma"].shape[0]
+    return [_take(layers, i) for i in range(n)]
 
 
 def _lm_head(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -41,63 +50,10 @@ def _lm_head(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"]
 
 
-def _seq_block(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
-               use_flash: bool = False
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer: attention, then the channel mixer (if the layer has
-    one).  Returns (x, the layer's MoE aux loss; 0 for a dense MLP)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = apply_norm(cfg.norm_kind, x, p["ln1"])
-    x = x + A.self_attention(cfg, p["attn"], h, causal=True,
-                             window=cfg.local_window or None,
-                             use_flash=use_flash)
-    if "mlp" in p:
-        h = apply_norm(cfg.norm_kind, x, p["ln2"])
-        if cfg.family == "moe":
-            y, aux = moe_forward(cfg, p["mlp"], h)
-        else:
-            y = mlp_forward(cfg, p["mlp"], h)
-        x = x + y
-    return x, aux
-
-
-def _run_stack(cfg: ArchConfig, params: Dict, x: torch.Tensor, *,
-               use_flash: bool, remat: bool
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Iterate the stacked decoder layers, each under checkpoint if
-    ``remat``; the layers' aux losses are summed."""
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in layer_params(params):
-        if remat:
-            x, aux = checkpoint(_seq_block, cfg, p, x, use_flash=use_flash,
-                                use_reentrant=False)
-        else:
-            x, aux = _seq_block(cfg, p, x, use_flash=use_flash)
-        aux_total = aux_total + aux
-    return x, aux_total
-
-
-def forward(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor, *,
-            vision_embeds: Optional[torch.Tensor] = None,
-            use_flash: bool = False, remat: bool = False,
-            remat_policy: str = "full"
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (b, s, V), aux loss): the MoE layers' load-balance
-    losses summed, 0 for dense stacks.
-
-    A VLM's ``vision_embeds`` (b, P, d) go through ``vision_proj`` and are
-    prepended to the text embeddings, so the logits cover P + s
-    positions.  ``use_flash`` runs attention through the flash attention
-    kernels; ``remat`` recomputes each layer in the backward (policy
-    ``"full"``)."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP.md queue 1 "
-            f"item 4)")
-    if remat_policy != "full":
-        raise NotImplementedError(
-            f"remat policy {remat_policy!r} (saving matmul outputs) serves "
-            f"the dry-run cells, not ported yet (ROADMAP.md queue 1, item 6)")
+def _embed(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor,
+           vision_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings; a VLM's ``vision_embeds`` (b, P, d) go through
+    ``vision_proj`` and are prepended."""
     x = params["embed"][token_ids]
     if cfg.family == "vlm" and vision_embeds is not None:
         # the reference's dense() promotes mixed dtypes (bf16 embeddings
@@ -106,6 +62,283 @@ def forward(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor, *,
         dt = torch.promote_types(vision_embeds.dtype, w.dtype)
         vp = vision_embeds.to(dt) @ w.to(dt)
         x = torch.cat([vp.to(x.dtype), x], dim=1)
-    x, aux = _run_stack(cfg, params, x, use_flash=use_flash, remat=remat)
+    return x
+
+
+def _channel_mix(cfg: ArchConfig, p: Dict, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's MLP (dense or MoE) with its residual, if it has one;
+    returns (x, the MoE aux loss; 0 otherwise)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "mlp" in p:
+        h = apply_norm(cfg.norm_kind, x, p["ln2"])
+        if cfg.family == "moe":
+            y, aux = B.moe_forward(cfg, p["mlp"], h)
+        else:
+            y = B.mlp_forward(cfg, p["mlp"], h)
+        x = x + y
+    return x, aux
+
+
+def _seq_block(cfg: ArchConfig, kind: str, p: Dict, x: torch.Tensor, *,
+               use_flash: bool = False, enc_kv=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer over the whole sequence: its temporal mixer (attention,
+    MLA, Mamba or RG-LRU; cross-attention after self-attention when
+    ``enc_kv`` is given), then the channel mixer.  Returns (x, the layer's
+    MoE aux loss; 0 otherwise)."""
+    h = apply_norm(cfg.norm_kind, x, p["ln1"])
+    if kind == "attn":
+        if cfg.mla is not None:
+            y = A.mla_self_attention(cfg, p["attn"], h)
+        else:
+            y = A.self_attention(cfg, p["attn"], h, causal=True,
+                                 window=cfg.local_window or None,
+                                 use_flash=use_flash)
+        x = x + y
+        if cfg.n_encoder_layers and enc_kv is not None:
+            hx = apply_norm(cfg.norm_kind, x, p["ln_x"])
+            x = x + A.cross_attention(cfg, p["xattn"], hx, *enc_kv)
+    elif kind == "ssm":
+        x = x + B.mamba_forward(cfg, p["ssm"], h)
+    elif kind == "rglru":
+        x = x + B.rglru_forward(cfg, p["rglru"], h)
+    return _channel_mix(cfg, p, x)
+
+
+def _run_stack(cfg: ArchConfig, params: Dict, x: torch.Tensor, *,
+               use_flash: bool, remat: bool, enc_out=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Iterate the decoder layers, each under checkpoint if ``remat``;
+    the layers' aux losses are summed.  With ``enc_out`` (an
+    encoder-decoder) each layer first projects its cross K/V from it."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p in zip(cfg.block_kinds(), layer_params(params)):
+        kw = dict(use_flash=use_flash, enc_kv=None if enc_out is None else
+                  A.encode_cross_kv(cfg, p["xattn"], enc_out))
+        if remat:
+            x, aux = checkpoint(_seq_block, cfg, kind, p, x,
+                                use_reentrant=False, **kw)
+        else:
+            x, aux = _seq_block(cfg, kind, p, x, **kw)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
+def _encoder_block(cfg: ArchConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
+    z = apply_norm(cfg.norm_kind, h, p["ln1"])
+    h = h + A.self_attention(cfg, p["attn"], z, causal=False)
+    z = apply_norm(cfg.norm_kind, h, p["ln2"])
+    return h + B.mlp_forward(cfg, p["mlp"], z)
+
+
+def _encoder_forward(cfg: ArchConfig, params: Dict, frames: torch.Tensor,
+                     remat: bool = False) -> torch.Tensor:
+    """The Whisper-style encoder over precomputed frame embeddings
+    (b, F, d): bidirectional self-attention layers, then its norm."""
+    x = frames
+    for p in layer_params(params["encoder"]):
+        x = (checkpoint(_encoder_block, cfg, p, x, use_reentrant=False)
+             if remat else _encoder_block(cfg, p, x))
+    return apply_norm(cfg.norm_kind, x, params["encoder"]["ln_f"])
+
+
+def forward(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor, *,
+            vision_embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
+            use_flash: bool = False, remat: bool = False,
+            remat_policy: str = "full"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (b, s, V), aux loss): the MoE layers' load-balance
+    losses summed, 0 for other stacks.
+
+    A VLM's ``vision_embeds`` (b, P, d) are prepended, so the logits
+    cover P + s positions; an encoder-decoder needs its encoder
+    ``frames`` (b, F, d).  ``use_flash`` runs the decoder's (non-MLA)
+    self-attention through the flash attention kernels; ``remat``
+    recomputes each layer in the backward (policy ``"full"``)."""
+    if remat_policy != "full":
+        raise NotImplementedError(
+            f"remat policy {remat_policy!r} (saving matmul outputs) serves "
+            f"the dry-run cells, not ported yet (ROADMAP.md queue 1, item 6)")
+    x = _embed(cfg, params, token_ids, vision_embeds)
+    enc_out = None
+    if cfg.family == "encdec":
+        if frames is None:
+            raise ValueError("an encoder-decoder forward needs encoder "
+                             "frames")
+        enc_out = _encoder_forward(cfg, params, frames, remat=remat)
+        use_flash = False           # the reference's encdec stack is eager
+    x, aux = _run_stack(cfg, params, x, use_flash=use_flash, remat=remat,
+                        enc_out=enc_out)
     x = apply_norm(cfg.norm_kind, x, params["ln_f"])
     return _lm_head(cfg, params, x), aux
+
+
+# ---------------------------------------------------------------------------
+# decode state and the cached step (the lockstep server's model calls)
+# ---------------------------------------------------------------------------
+
+#: each layer kind's slices of the stacked decode state
+_STATE_KEYS = {"attn": ("cache_k", "cache_v", "cache_pos"),
+               "ssm": ("conv_state", "ssm_state"),
+               "rglru": ("rg_conv", "rg_h")}
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
+                      kv_dtype: torch.dtype = torch.bfloat16, *,
+                      device="cuda") -> Dict:
+    """The reference's decode state, stacked per layer kind:
+    ``cache_k``/``cache_v`` (MLA: the latent and the rotary key part; a
+    local window: a ring of min(max_len, window) positions with
+    ``cache_pos``, -1 where empty), Mamba's ``conv_state`` (bf16) and
+    ``ssm_state`` (f32), RG-LRU's ``rg_conv`` (bf16) and ``rg_h`` (f32),
+    an encoder-decoder's ``cross_k``/``cross_v``.  ``pos``, the tokens
+    cached, is a host int (the reference's device scalar), so no step
+    reads the device back to learn it."""
+    dev = resolve_device(device)
+    kinds = cfg.block_kinds()
+    state: Dict = {"pos": 0}
+    n_attn, n_ssm, n_rg = (kinds.count(k) for k in ("attn", "ssm", "rglru"))
+    zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+    if n_attn:
+        kv_len = (min(max_len, cfg.local_window) if cfg.local_window
+                  else max_len)
+        ks, vs = A.kv_cache_shape(cfg, batch, kv_len)
+        state["cache_k"] = zeros((n_attn,) + ks, kv_dtype)
+        state["cache_v"] = zeros((n_attn,) + vs, kv_dtype)
+        if cfg.local_window:
+            state["cache_pos"] = torch.full((n_attn, batch, kv_len), -1,
+                                            dtype=torch.int32, device=dev)
+    if n_ssm:
+        cs, ss = B.mamba_state_shapes(cfg, batch)
+        state["conv_state"] = zeros((n_ssm,) + cs, torch.bfloat16)
+        state["ssm_state"] = zeros((n_ssm,) + ss, torch.float32)
+    if n_rg:
+        cs, hs = B.rglru_state_shapes(cfg, batch)
+        state["rg_conv"] = zeros((n_rg,) + cs, torch.bfloat16)
+        state["rg_h"] = zeros((n_rg,) + hs, torch.float32)
+    if cfg.family == "encdec":
+        shape = (cfg.n_layers, batch, cfg.encoder_len, cfg.n_heads,
+                 cfg.head_dim)
+        state["cross_k"] = zeros(shape, kv_dtype)
+        state["cross_v"] = zeros(shape, kv_dtype)
+    return state
+
+
+def _local_cached_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                            cache_k, cache_v, cache_pos, pos: int
+                            ) -> torch.Tensor:
+    """Ring-buffer local attention (a W-position ring, masked by global
+    position), the caches written in place.
+
+    A chunk of s >= W tokens attends over itself only, through
+    :func:`attention.lockstep_blockwise` with window W, and writes its
+    last W tokens to the ring.  Its first W - 1 queries thereby miss the
+    keys of an earlier chunk that lie inside their window: the
+    reference's behaviour, kept."""
+    b, s, _ = x.shape
+    W = cache_k.shape[1]
+    dev = x.device
+    positions = pos + torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+    q, k_new, v_new = A._project_qkv(cfg, p, x, positions)
+    if s >= W:
+        out = A.lockstep_blockwise(q, k_new, v_new, window=W, q_offset=0)
+        slots = (pos + torch.arange(s - W, s, device=dev)) % W
+        cache_k[:, slots] = A.to_cache(k_new[:, -W:], cache_k.dtype)
+        cache_v[:, slots] = A.to_cache(v_new[:, -W:], cache_v.dtype)
+        cache_pos[:, slots] = positions[:, -W:].expand(b, W)
+    else:
+        slots = (pos + torch.arange(s, device=dev)) % W
+        cache_k[:, slots] = A.to_cache(k_new, cache_k.dtype)
+        cache_v[:, slots] = A.to_cache(v_new, cache_v.dtype)
+        cache_pos[:, slots] = positions.expand(b, s)
+        kp = cache_pos[:, None, None, None, :]               # (b,1,1,1,W)
+        qp = positions[:, None, None, :, None]               # (1,1,1,s,1)
+        mask = (kp >= 0) & (kp <= qp) & (kp > qp - W)
+        out = A._gqa_scores_softmax_out(q, cache_k.to(x.dtype),
+                                        cache_v.to(x.dtype), mask,
+                                        cfg.head_dim ** -0.5)
+    return A.out_proj(cfg, p, out)
+
+
+def _cached_block(cfg: ArchConfig, kind: str, p: Dict, x: torch.Tensor,
+                  pos: int, ls: Dict, cross_kv=None
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """One layer against its slices ``ls`` of the decode state.  The
+    attention caches are written in place; returns (x, the layer's new
+    recurrent states by state key)."""
+    new: Dict = {}
+    h = apply_norm(cfg.norm_kind, x, p["ln1"])
+    if kind == "attn":
+        if cfg.mla is not None:
+            y, _, _ = A.mla_cached_attention(cfg, p["attn"], h, ls["cache_k"],
+                                             ls["cache_v"], pos)
+        elif cfg.local_window:
+            y = _local_cached_attention(cfg, p["attn"], h, ls["cache_k"],
+                                        ls["cache_v"], ls["cache_pos"], pos)
+        else:
+            y, _, _ = A.cached_attention(cfg, p["attn"], h, ls["cache_k"],
+                                         ls["cache_v"], pos)
+        x = x + y
+        if cross_kv is not None:
+            hx = apply_norm(cfg.norm_kind, x, p["ln_x"])
+            x = x + A.cross_attention(cfg, p["xattn"], hx, *cross_kv)
+    elif kind == "ssm":
+        y, new["conv_state"], new["ssm_state"] = B.mamba_step(
+            cfg, p["ssm"], h, ls["conv_state"], ls["ssm_state"])
+        return x + y, new
+    elif kind == "rglru":
+        y, new["rg_conv"], new["rg_h"] = B.rglru_step(
+            cfg, p["rglru"], h, ls["rg_conv"], ls["rg_h"])
+        x = x + y
+    return _channel_mix(cfg, p, x)[0], new
+
+
+def _store(state: Dict, key: str, i: int, value: torch.Tensor) -> None:
+    """Layer i's new recurrent state into the stacked ``state[key]``.  An
+    f32 tree promotes the bf16 conv states of ``init_decode_state`` to
+    f32 in the first step; the reference then carries f32 states, and so
+    does the port (the stack is recast, exactly, before the write)."""
+    if state[key].dtype != value.dtype:
+        state[key] = state[key].to(value.dtype)
+    state[key][i].copy_(value)
+
+
+def step(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor,
+         state: Dict, *, vision_embeds: Optional[torch.Tensor] = None,
+         frames: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, Dict]:
+    """Cached model step: a prefill chunk (s tokens) or a decode step
+    (s = 1) against ``state`` from :func:`init_decode_state`.
+
+    Returns (logits of the last position (b, V), state).  The state is
+    updated in place (the reference's server donates it) and returned.
+    A VLM's ``vision_embeds`` are prepended and advance ``pos`` with the
+    tokens; an encoder-decoder given ``frames`` encodes them and stores
+    every layer's cross K/V (otherwise they stay as they are: zeros
+    before any frames)."""
+    pos = state["pos"]
+    x = _embed(cfg, params, token_ids, vision_embeds)
+    layers = layer_params(params)
+    if cfg.family == "encdec" and frames is not None:
+        enc_out = _encoder_forward(cfg, params, frames)
+        for i, p in enumerate(layers):
+            k, v = A.encode_cross_kv(cfg, p["xattn"], enc_out)
+            state["cross_k"][i] = A.to_cache(k, state["cross_k"].dtype)
+            state["cross_v"][i] = A.to_cache(v, state["cross_v"].dtype)
+    seen = dict.fromkeys(_STATE_KEYS, 0)
+    for i, (kind, p) in enumerate(zip(cfg.block_kinds(), layers)):
+        j = seen[kind]
+        seen[kind] += 1
+        ls = {k: state[k][j] for k in _STATE_KEYS[kind] if k in state}
+        cross = ((state["cross_k"][i], state["cross_v"][i])
+                 if cfg.family == "encdec" else None)
+        x, new = _cached_block(cfg, kind, p, x, pos, ls, cross_kv=cross)
+        for k, v in new.items():
+            _store(state, k, j, v)
+    x = apply_norm(cfg.norm_kind, x[:, -1:], params["ln_f"])
+    state["pos"] = pos + token_ids.shape[1] + (
+        vision_embeds.shape[1] if (cfg.family == "vlm"
+                                   and vision_embeds is not None) else 0)
+    return _lm_head(cfg, params, x)[:, 0], state

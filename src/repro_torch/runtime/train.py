@@ -43,8 +43,9 @@ def make_loss_fn(cfg: ArchConfig, *, use_flash: bool = False,
     def loss_fn(params: Dict, batch: Dict):
         ve = batch.get("vision_embeds")
         logits, aux = forward(cfg, params, batch["inputs"],
-                              vision_embeds=ve, use_flash=use_flash,
-                              remat=remat, remat_policy=remat_policy)
+                              vision_embeds=ve, frames=batch.get("frames"),
+                              use_flash=use_flash, remat=remat,
+                              remat_policy=remat_policy)
         if cfg.family == "vlm" and ve is not None:
             logits = logits[:, ve.shape[1]:]       # the text positions
         loss = cross_entropy(logits, batch["targets"], batch["mask"])

@@ -560,6 +560,38 @@ def test_flash_training_step_equals_eager(cuda_device):
         assert rel <= 1e-4, rel
 
 
+#: the lockstep step's blockwise branches: (b, s, L, Hk, G, d, window,
+#: q_offset) — a dense chunk over a longer cache (llama2-7b's heads, the
+#: mma body), a local chunk of its window (recurrentgemma-2b's, fma)
+LOCKSTEP_CASES = {"dense": (1, 4096, 5120, 32, 1, 128, None, 1024),
+                  "local": (2, 2048, 2048, 1, 10, 256, 2048, 0)}
+
+
+@pytest.mark.parametrize("case", sorted(LOCKSTEP_CASES))
+def test_lockstep_blockwise_runs_the_flash_kernel(cuda_device, case):
+    """``attention.lockstep_blockwise`` on the card launches the flash
+    forward kernel once, on ``flash_body``'s body, and agrees with the
+    plain blockwise loop on the same q, k, v within ``kernel_tolerance``;
+    it refuses what the plain loop refuses."""
+    from repro_torch.models import attention
+    b, s, L, Hk, G, d, window, q_offset = LOCKSTEP_CASES[case]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4)
+    mk = lambda *shape: torch.randn(shape, generator=gen,
+                                    device=cuda_device).to(torch.bfloat16)
+    q, k, v = mk(b, s, Hk, G, d), mk(b, L, Hk, d), mk(b, L, Hk, d)
+    kw = dict(window=window, q_offset=q_offset)
+    body = fa_ops.flash_body(torch.bfloat16, d)
+    before = fa_ops.BODY_LAUNCHES["flash_fwd"][body]
+    out = attention.lockstep_blockwise(q, k, v, **kw)
+    assert fa_ops.BODY_LAUNCHES["flash_fwd"][body] == before + 1
+    ref = attention.blockwise_attention(q, k, v, d ** -0.5, causal=True, **kw)
+    _assert_within_tolerance(out, ref, v)
+    with pytest.raises(ValueError, match="multiples of the blocks"):
+        attention.lockstep_blockwise(q[:, :1500], k[:, :1500], v[:, :1500],
+                                     **kw)
+
+
 def _flash_inputs(case, device, seed=3, dtype=torch.bfloat16):
     b, s, L, H, Hk, d = case[:6]
     gen = torch.Generator(device=device)

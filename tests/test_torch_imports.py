@@ -51,6 +51,7 @@ def test_port_modules_cover_the_slice():
                 "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.optim.adamw", "repro_torch.data.pipeline",
                 "repro_torch.checkpoint.manager", "repro_torch.runtime.train",
+                "repro_torch.runtime.serve",
                 "repro_torch.launch.serve", "repro_torch.launch.train",
                 "repro_torch.kernels.quant_matmul.ref",
                 "repro_torch.kernels.quant_matmul.ops",
@@ -65,6 +66,16 @@ def test_port_modules_cover_the_slice():
                 "repro_torch.api.scenario", "repro_torch.api.report",
                 "repro_torch.api.run", "repro_torch.__main__"):
         assert mod in names
+    # the lockstep slice's model functions
+    from repro_torch import models
+    from repro_torch.models import attention, blocks
+    for fn in ("step", "init_decode_state", "forward", "init_params"):
+        assert callable(getattr(models, fn))
+    for fn in ("cached_attention", "mla_cached_attention", "cross_attention",
+               "encode_cross_kv", "lockstep_blockwise"):
+        assert callable(getattr(attention, fn))
+    for fn in ("mamba_forward", "mamba_step", "rglru_forward", "rglru_step"):
+        assert callable(getattr(blocks, fn))
 
 
 @pytest.mark.parametrize("path", sorted(

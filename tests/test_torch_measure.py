@@ -4,7 +4,7 @@
 for event: no EOS, so the schedule depends on lengths, not on the random
 weights and prompts, which the two PRNGs draw differently), and that
 trace replays through both twins to the same forecast.  Then the
-refusals, traffic and the CLI."""
+refusals and the lockstep branch, traffic and the CLI."""
 import dataclasses
 import json
 import os
@@ -115,26 +115,42 @@ def test_int4_variant_measures_bf16_weights_and_int8_kv(monkeypatch):
     assert rep.variant == "bf16-int4-kv4"
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(tp=2), "item 5"),
-    (dict(pp=2), "item 5"),
-    (dict(model="falcon-mamba-7b"), "item 4"),
-    (dict(model="recurrentgemma-2b"), "item 4"),
-    # ported (ROADMAP queue 1 item 3): measured, not refused
-    (dict(model="qwen2-moe-a2.7b"), None),
-])
-def test_measure_refuses_what_is_not_ported(kw, item):
-    """Multi-device scenarios (queue 1 item 5) and the lockstep families
-    (item 4) are refused, naming their items; a MoE scenario, refused
-    until its layers were ported, is measured on the engine."""
-    scn = api.Scenario(**dict(SCN, **kw))
-    if item is None:
-        rep = api.measure(scn, device="cpu")
-        assert rep.extras["mode"] == "engine"
+@pytest.mark.parametrize("kw,mode", [
+    (dict(tp=2), None),
+    (dict(pp=2), None),
+    # ported (ROADMAP queue 1 item 4): measured on the lockstep server
+    (dict(model="falcon-mamba-7b"), "legacy-lockstep"),
+    (dict(model="recurrentgemma-2b"), "legacy-lockstep"),
+    # ported (item 3): measured on the engine
+    (dict(model="qwen2-moe-a2.7b"), "engine"),
+], ids=["kw0-item 5", "kw1-item 5", "kw2-item 4", "kw3-item 4", "kw4-None"])
+def test_measure_refuses_what_is_not_ported(kw, mode):
+    """Multi-device scenarios (queue 1 item 5) are refused, naming their
+    item.  The families the engine does not serve, refused until item 4
+    ported the lockstep server, are measured there as the reference
+    measures them: the same extras keys, mode and token counts, no
+    trace; a MoE scenario (item 3) is measured on the engine."""
+    scn = dict(SCN, **kw)
+    if mode is None:
+        with pytest.raises(NotImplementedError, match=r"item 5\b"):
+            api.measure(api.Scenario(**scn), device="cpu")
+        return
+    rep = api.measure(api.Scenario(**scn), device="cpu")
+    assert rep.extras["mode"] == mode
+    if mode == "engine":
         assert rep.extras["tokens"] == 3 * 6
         return
-    with pytest.raises(NotImplementedError, match=item + r"\b"):
-        api.measure(scn, device="cpu")
+    ref = rapi.measure(rapi.Scenario(**scn))
+    assert sorted(rep.extras) == sorted(ref.extras)
+    for key in ("mode", "tokens", "requests"):
+        assert rep.extras[key] == ref.extras[key], key
+    assert rep.extras["tokens"] == 3 * 6
+    assert rep.trace is None and ref.trace is None
+    want, got = ref.to_dict(), rep.to_dict()
+    assert got["phases"] == want["phases"]
+    assert got["scenario"] == want["scenario"]
+    for metric in ("ttft_s", "tpot_s", "tps"):
+        assert got[metric] > 0
 
 
 def test_measure_without_gpu_raises():

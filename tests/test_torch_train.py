@@ -108,11 +108,24 @@ def test_synthetic_tokens_match_reference(arch, mean_doc_len):
 
 
 def test_synthetic_tokens_refuse_other_families():
-    """encdec batches (encoder frames) come with queue 1 item 4; VLM
-    batches are ported (``tests/test_torch_moe.py``)."""
-    with pytest.raises(NotImplementedError, match=r"item 4\b"):
-        SyntheticTokens(configs.reduced(configs.get("whisper-base")),
-                        DataConfig(2, 8), device="cpu")
+    """encdec batches, refused until ROADMAP queue 1 item 4 ported the
+    encoder-decoder, equal the reference's bit for bit: bf16 encoder
+    frames drawn after any vision embeds and before the tokens.  (VLM
+    batches are in ``tests/test_torch_moe.py``.)"""
+    arch = "whisper-base"
+    cfg = configs.reduced(configs.get(arch))
+    td = SyntheticTokens(cfg, DataConfig(2, 8, seed=3), device="cpu")
+    jd = JaxSyntheticTokens(jconfigs.reduced(jconfigs.get(arch)),
+                            JaxDataConfig(2, 8, seed=3))
+    for step in (0, 5):
+        got, ref = td.batch(step), jd.batch(step)
+        assert sorted(got) == sorted(ref) == ["frames", "inputs", "mask",
+                                              "targets"]
+        assert got["frames"].dtype == torch.bfloat16
+        assert tuple(got["frames"].shape) == (2, cfg.encoder_len, cfg.d_model)
+        for k in ref:
+            np.testing.assert_array_equal(bridge.tensor_to_numpy(got[k]),
+                                          np.asarray(ref[k]))
 
 
 # ---------------------------------------------------------------------------
