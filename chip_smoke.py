@@ -123,14 +123,33 @@ caught and ignored):
               decode steps); TTFT, TPOT, TPS, peak memory; then K6 timed
               at the two lockstep shapes beside SDPA with a boolean mask.
 
+11. multidevice — tensor- and pipeline-parallel serving with every rank
+              on this one card (gloo on CUDA tensors, the explicit
+              share_device opt-in; NCCL puts no two ranks on one card),
+              each world spawned, its ranks' launches summed and freed
+              before the next: llama2-7b at full width and depth at tp=2
+              (the engine phase's plain pass, then its speculative pass
+              with four LoRA tenants: K1 on split and bf16 K2/K3 on mma
+              over 16 heads a rank, K4 on 8 rank lanes), pp=2 and tp=2 x
+              pp=2, qwen2-moe-a2.7b at tp=2 (32 of 64 padded experts a
+              rank); TTFT, TPOT, TPS, each rank's shard and peak memory,
+              ms per gloo collective, the share of bf16 tokens equal to
+              tp=1's; at 4 layers in f32 weights every plan's tokens
+              equal tp=1's with f32 KV (with bf16 and int8 KV too at pp;
+              at tp their share is reported); then api.measure at tp=2
+              against api.forecast for 2 x nvidia-h100.  The kernels
+              phase holds K1-K4 to their plain versions at a tp=2 rank's
+              shapes too.
+
 ``--phases profile`` (run only when named) profiles engine steps and one
 training step of the train phase's configuration.
 
-The last lines are the quant/measure, moe/vlm/lockstep, train and
-engine JSON summaries, the kernels' JSON record (K1-K4 launches summed
-over the engine and moe phases, K6's over the train phase and the
-lockstep prefills), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+The last lines are the quant/measure, moe/vlm/lockstep, multidevice,
+train and engine JSON summaries, the kernels' JSON record (K1-K4
+launches summed over the engine, moe and multidevice phases, K6's over
+the train phase and the lockstep prefills), the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.  A phase that fails prints
+``[fail] <phase>: ...`` on stdout; the script exits non-zero.
 """
 from __future__ import annotations
 
@@ -146,7 +165,7 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "engine", "train", "parity", "quant",
-          "measure", "moe", "vlm", "lockstep")
+          "measure", "moe", "vlm", "lockstep", "multidevice")
 EXTRA_PHASES = ("profile",)     # run only when named
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
@@ -196,25 +215,38 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, tries: int = 3,
-              skip: tuple = ()) -> Optional[float]:
+def device_ms(fn, iters: int = 20, tries: int = 3, skip: tuple = (),
+              miss: Optional[dict] = None) -> Optional[float]:
     """Mean device milliseconds per call from torch.profiler: the kernels'
     own durations summed, without the host's launch gaps that
     :func:`time_ms` includes when a call's host work outlasts its
     kernels, and without the device events whose names start with one of
-    ``skip``.  None (null in the record) if every profile came back
-    empty: not measured."""
-    ms = device_ms_by_kernel(fn, iters, tries)
+    ``skip``.  None (null in the record) if no profile came back whole:
+    not measured, and ``miss`` then says why (:func:`device_ms_by_kernel`)."""
+    ms = device_ms_by_kernel(fn, iters, tries, miss)
     kept = [v for k, v in ms.items() if not k.startswith(skip)]
     return sum(kept) if kept else None
 
 
-def device_ms_by_kernel(fn, iters: int = 20, tries: int = 3) -> dict:
+def device_rec(key: str, fn, **kw) -> dict:
+    """``{key: device_ms(fn)}`` for a record; a null comes with
+    ``key + "_why"``: each kernel's event count in every try, against the
+    calls profiled."""
+    miss: dict = {}
+    ms = device_ms(fn, miss=miss, **kw)
+    return {key: ms} if ms is not None else {key: None, key + "_why": miss}
+
+
+def device_ms_by_kernel(fn, iters: int = 20, tries: int = 3,
+                        miss: Optional[dict] = None) -> dict:
     """Mean device milliseconds per call of each kernel ``fn`` launches
     (torch.profiler).  A profile that comes back without device events,
     or with a kernel seen a number of times that is not a multiple of
     ``iters`` (events lost: seen now and then on the card), is taken
-    again, up to ``tries`` times; empty if no try came back whole."""
+    again, up to ``tries`` times; empty if no try came back whole, and
+    then ``miss`` (if given) gets ``iters`` and each try's event count by
+    kernel name.  (Late in a long run the profiler has dropped whole
+    calls' events, every kernel's alike: 17 of 20 calls.)"""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -231,6 +263,10 @@ def device_ms_by_kernel(fn, iters: int = 20, tries: int = 3) -> dict:
                    and _self_device_us(e) > 0]
         if kernels and all(e.count % iters == 0 for e in kernels):
             return {e.key: _self_device_us(e) / 1e3 / iters for e in kernels}
+        if miss is not None:
+            miss.setdefault("iters", iters)
+            miss.setdefault("tries", []).append(
+                {e.key: e.count for e in kernels})
     return {}
 
 
@@ -262,7 +298,7 @@ def cold_times(fn, flush) -> dict:
     copy = lambda: dst.copy_(src)
     both = lambda: (copy(), fn())
     return dict(cold_ms=time_ms(both) - time_ms(copy),
-                cold_device_ms=device_ms(both, skip=("Memcpy",)))
+                **device_rec("cold_device_ms", both, skip=("Memcpy",)))
 
 
 def fmt_ms(ms: Optional[float]) -> str:
@@ -426,10 +462,11 @@ def _time_verify(q, ck, cv, bt, pos, worst, what):
     bound, by = verify_bound(q, ck, bt, pos, bs)
     return dict(
         ms=time_ms(lambda: ops.paged_verify(q, ck, cv, bt, pos)),
-        device_ms=device_ms(lambda: ops.paged_verify(q, ck, cv, bt, pos)),
+        **device_rec("device_ms",
+                     lambda: ops.paged_verify(q, ck, cv, bt, pos)),
         plain_ms=time_ms(lambda: ops.paged_verify_ref(q, ck, cv, bt, pos)),
         bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
-        library_device_ms=device_ms(lib), max_abs_err=err, body=body,
+        **device_rec("library_device_ms", lib), max_abs_err=err, body=body,
         shape=f"S={S} Q={Q} Hk={Hk} G={G} d={d} bs={bs} nb={nb} "
               f"pos={pos.tolist()} kv=bf16")
 
@@ -465,16 +502,54 @@ def _time_decode(q, ck, cv, bt, pos, worst, flush, what):
     bound, by = decode_bound(q, ck, bt, pos, bs)
     lib_cold = cold_times(lib, flush)
     return dict(
-        ms=time_ms(run), device_ms=device_ms(run), **cold_times(run, flush),
+        ms=time_ms(run), **device_rec("device_ms", run),
+        **cold_times(run, flush),
         plain_ms=time_ms(lambda: ops.paged_decode_ref(q, ck, cv, bt, pos)),
         bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
-        library_device_ms=device_ms(lib),
-        library_cold_ms=lib_cold["cold_ms"],
-        library_cold_device_ms=lib_cold["cold_device_ms"],
+        **device_rec("library_device_ms", lib),
+        **{"library_" + k: v for k, v in lib_cold.items()},
         max_abs_err=err, body=body,
         shape=f"S={S} Hk={Hk} G={G} d={d} bs={bs} nb={nb} "
               f"pos={pos.tolist()} kv=bf16 split="
               f"{tuple(ops.decode_split_plan(S, Hk, G, nb, bs, _sm_count(q)))}")
+
+
+def _time_prefill(qp, ck, cv, table, start, valid, worst, what):
+    """K2 against its plain version at one chunk (it must run on the mma
+    body), then its time, bound, plain version's time and SDPA's with a
+    causal mask over K/V gathered once outside the timing."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
+
+    C, Hk, G, d = qp.shape
+    bs, nb = ck.shape[1], table.shape[0]
+    device = qp.device
+    before = dict(ops.BODY_LAUNCHES["paged_prefill"])
+    err = _compare(ops.paged_prefill(qp, ck, cv, table, start, valid),
+                   ops.paged_prefill_ref(qp, ck, cv, table, start, valid),
+                   cv, what, worst)
+    body = _body_of(ops.BODY_LAUNCHES["paged_prefill"], before)
+    check(body == "mma", f"{what} ran {body}")
+    L = start + valid
+    kg = ck[table.long()].reshape(nb * bs, Hk, d)[:L].transpose(0, 1)[None]
+    vg = cv[table.long()].reshape(nb * bs, Hk, d)[:L].transpose(0, 1)[None]
+    kg, vg = kg.contiguous(), vg.contiguous()
+    qs = qp.permute(1, 2, 0, 3).reshape(1, Hk * G, C, d)
+    k_pos = torch.arange(L, device=device)
+    q_pos = start + torch.arange(C, device=device)
+    mask = (k_pos[None, :] <= q_pos[:, None])[None, None]
+    lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
+    bound, by = prefill_bound(qp, ck, start, valid, bs)
+    run = lambda: ops.paged_prefill(qp, ck, cv, table, start, valid)
+    return dict(
+        ms=time_ms(run), **device_rec("device_ms", run),
+        plain_ms=time_ms(lambda: ops.paged_prefill_ref(qp, ck, cv, table,
+                                                       start, valid)),
+        bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
+        **device_rec("library_device_ms", lib), max_abs_err=err, body=body,
+        shape=f"C={C} start={start} valid={valid} Hk={Hk} G={G} d={d} "
+              f"bs={bs} nb={nb} kv=bf16")
 
 
 def _sm_count(t) -> int:
@@ -574,6 +649,39 @@ def _lora_pool(P, k, n, ranks, R, gen, device):
     return A.bfloat16().contiguous(), B.bfloat16().contiguous()
 
 
+def _time_lora(x, factors, ix, worst, what):
+    """K4's times at one call: the wrapper (one launch for every factor
+    pair in ``factors``), the plain version, two torch.bmm per pair on
+    factors gathered once (holes pointed at zeroed factors) outside the
+    timing; each output held to its plain version."""
+    import torch
+    from repro_torch.kernels.grouped_lora import ops
+
+    S, T, k = x.shape
+    R, n = factors[0][1].shape[1:]
+    if len(factors) == 1:
+        run = lambda: ops.grouped_lora(x, *factors[0], ix)
+    else:
+        run = lambda: ops.grouped_lora_qkv(x, *factors, ix)
+    plain = lambda: [ops.grouped_lora_ref(x, A_, B_, ix)
+                     for A_, B_ in factors]
+    gathered = [(A_[ix.long().clamp(min=0)] * (ix >= 0)[:, None, None],
+                 B_[ix.long().clamp(min=0)]) for A_, B_ in factors]
+    lib = lambda: [torch.bmm(torch.bmm(x, a), b) for a, b in gathered]
+    outs = run()
+    outs = [outs] if len(factors) == 1 else outs
+    err = max(_compare(o, ref, ref, what, worst) for o, ref in
+              zip(outs, plain()))
+    bound, by = lora_bound(x, factors, ix)
+    return dict(ms=time_ms(run), **device_rec("device_ms", run),
+                plain_ms=time_ms(plain), bound_ms=bound, bound_by=by,
+                library_ms=time_ms(lib),
+                **device_rec("library_device_ms", lib),
+                max_abs_err=err,
+                shape=f"S={S} T={T} k={k} n={n} x {len(factors)} R={R} "
+                      f"ranks=(8,16) idx={ix.tolist()} bf16")
+
+
 def check_grouped_lora(device, gen, worst, results):
     """K4 against its plain version (the elementwise limit of
     ``kernel_tolerance``: one bf16 ulp plus f32 summation slack for bf16
@@ -626,33 +734,9 @@ def check_grouped_lora(device, gen, worst, results):
     idx = torch.tensor([0, 1, 2, -1], dtype=torch.int32, device=device)
 
     def timed(S, T, factors, what):
-        """One call's times at (S, T) through llama2-7b's widths: the
-        wrapper (one launch for every factor pair in ``factors``), the
-        plain version, two torch.bmm per pair on factors gathered once
-        (holes pointed at zeroed factors) outside the timing."""
         x = torch.randn((S, T, k), generator=gen, device=device).to(
             torch.bfloat16)
-        ix = idx[:S].contiguous()
-        if len(factors) == 1:
-            run = lambda: ops.grouped_lora(x, *factors[0], ix)
-        else:
-            run = lambda: ops.grouped_lora_qkv(x, *factors, ix)
-        plain = lambda: [ops.grouped_lora_ref(x, A_, B_, ix)
-                         for A_, B_ in factors]
-        gathered = [(A_[ix.long().clamp(min=0)] * (ix >= 0)[:, None, None],
-                     B_[ix.long().clamp(min=0)]) for A_, B_ in factors]
-        lib = lambda: [torch.bmm(torch.bmm(x, a), b) for a, b in gathered]
-        outs = run()
-        outs = [outs] if len(factors) == 1 else outs
-        err = max(_compare(o, ref, ref, what, worst) for o, ref in
-                  zip(outs, plain()))
-        bound, by = lora_bound(x, factors, ix)
-        return dict(ms=time_ms(run), device_ms=device_ms(run),
-                    plain_ms=time_ms(plain), bound_ms=bound, bound_by=by,
-                    library_ms=time_ms(lib), library_device_ms=device_ms(lib),
-                    max_abs_err=err,
-                    shape=f"S={S} T={T} k={k} n={n} x {len(factors)} R={R} "
-                          f"ranks=(8,16) idx={ix.tolist()} bf16")
+        return _time_lora(x, factors, idx[:S].contiguous(), worst, what)
 
     main = timed(4, 5, [(A, B)], "grouped_lora main-path shape")
     # a layer's q, k and v: one launch against three single ones
@@ -803,12 +887,12 @@ def check_flash(device, gen, worst, results):
     fwd_common = dict(
         plain_ms=time_ms(lambda: ops.attention_ref(q, k, v)),
         library_ms=time_ms(lambda: sdpa(ql, kl, vl)),
-        library_device_ms=device_ms(lambda: sdpa(ql, kl, vl)))
+        **device_rec("library_device_ms", lambda: sdpa(ql, kl, vl)))
     fwd_common["bound_ms"], fwd_common["bound_by"] = flash_bound(
         FA_MAIN, 2, backward=False)
     bwd_common = dict(plain_ms=time_ms(plain_bwd),
                       library_ms=time_ms(lib_bwd),
-                      library_device_ms=device_ms(lib_bwd))
+                      **device_rec("library_device_ms", lib_bwd))
     bwd_common["bound_ms"], bwd_common["bound_by"] = flash_bound(
         FA_MAIN, 2, backward=True)
     bwd_shape = (shape + " (backward alone; plain and library: autograd "
@@ -819,7 +903,7 @@ def check_flash(device, gen, worst, results):
             fn = lambda: ops.flash_fwd(q, k, v, body=body)
         else:
             fn = lambda: ops.flash_bwd(q, k, v, o, lse, do, body=body)
-        return dict(ms=time_ms(fn), device_ms=device_ms(fn), body=body)
+        return dict(ms=time_ms(fn), **device_rec("device_ms", fn), body=body)
 
     results["flash_fwd"] = dict(
         **timed("mma", True), **fwd_common, max_abs_err=err, shape=shape,
@@ -884,11 +968,12 @@ def _time_qmm(x, q, worst, what):
     bound, by = qmm_bound(x, q)
     res = dict(
         ms=time_ms(lambda: ops.quant_matmul(*args, group_size=g)),
-        device_ms=device_ms(lambda: ops.quant_matmul(*args, group_size=g)),
+        **device_rec("device_ms",
+                     lambda: ops.quant_matmul(*args, group_size=g)),
         plain_ms=time_ms(lambda: ops.quant_matmul_ref(*args, g)),
         bound_ms=bound, bound_by=by,
         library_ms=time_ms(lambda: torch.matmul(x, w)),
-        library_device_ms=device_ms(lambda: torch.matmul(x, w)),
+        **device_rec("library_device_ms", lambda: torch.matmul(x, w)),
         max_abs_err=err, body=body,
         shape=f"m={x.shape[0]} k={x.shape[1]} n={q.w_q.shape[1]} "
               f"g={g} int{q.bits} x={str(x.dtype)[6:]}")
@@ -956,6 +1041,75 @@ def check_quant_matmul(device, gen, worst, results):
     results["quant_matmul"] = dict(
         main, more_shapes=[r for r in timed if r is not main])
     torch.cuda.empty_cache()
+
+
+def _sharded_kernel_shapes(device, flush):
+    """K1-K4 held to their plain versions, and timed, at the shapes a
+    tp = 2 rank gives them: llama2-7b's 16 and qwen2-moe-a2.7b's 8 KV heads
+    per rank (K1 at the decode cursors, K2 at the second 256-token chunk,
+    K3 at the speculative pass), and K4 on 8 of 16 rank lanes through
+    llama2-7b's widths (the o projection's input is gathered whole, so
+    every projection has k = 4096).  Part of the kernels phase, with its
+    L2 flush; the records join each kernel's ``more_shapes``."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4321)
+    bs, d, nb, N = 16, 128, 37, 512
+    worst = [0.0]
+    pos = torch.tensor([540, 544, 548, 552], dtype=torch.int32,
+                       device=device)
+    out = {k: [] for k in ENGINE_KERNELS}
+
+    def tagged(name, rec, arch):
+        out[name].append(dict(rec, shape=f"{rec['shape']} ({arch}, a tp=2 "
+                                         f"rank)"))
+
+    for arch, Hk in (("llama2-7b", 16), (MOE_ARCH, 8)):
+        ck, cv = _pool(N, bs, Hk, d, torch.bfloat16, gen, device)
+        bt = _tables(4, nb, N, 16, gen, device)
+        q = torch.randn((4, Hk, 1, d), generator=gen, device=device).to(
+            torch.bfloat16)
+        rec = _time_decode(q, ck, cv, bt, pos, worst, flush,
+                           f"paged_decode {arch} tp=2 rank")
+        check(rec["body"] == "split", f"paged_decode ran {rec['body']}")
+        tagged("paged_decode", rec, arch)
+        qp = torch.randn((256, Hk, 1, d), generator=gen, device=device).to(
+            torch.bfloat16)
+        tagged("paged_prefill", _time_prefill(
+            qp, ck, cv, bt[0].contiguous(), 256, 256, worst,
+            f"paged_prefill {arch} tp=2 rank"), arch)
+        if arch == "llama2-7b":
+            qv = torch.randn((4, 5, Hk, 1, d), generator=gen,
+                             device=device).to(torch.bfloat16)
+            rec = _time_verify(qv, ck, cv, bt, pos, worst,
+                               f"paged_verify {arch} tp=2 rank")
+            check(rec["body"] == "mma", f"paged_verify ran {rec['body']}")
+            tagged("paged_verify", rec, arch)
+    k = n = 4096
+    lanes = 8
+    pairs = [_lora_pool(4, k, n, (8, 16), 16, gen, device) for _ in "qkv"]
+    idx = torch.tensor([0, 1, 2, -1], dtype=torch.int32, device=device)
+    for r in range(2):                        # each rank's 8 lanes
+        cut = [(A[..., r * lanes:(r + 1) * lanes].contiguous(),
+                B[:, r * lanes:(r + 1) * lanes].contiguous())
+               for A, B in pairs]
+        for T in (1, 5, 256):
+            x = torch.randn((4, T, k), generator=gen, device=device).to(
+                torch.bfloat16)
+            got = _kernel_ops()[1].grouped_lora_qkv(x, *cut, idx)
+            for name, o, (A, B) in zip("qkv", got, cut):
+                _compare(o, _kernel_ops()[1].grouped_lora_ref(x, A, B, idx),
+                         o, f"grouped_lora_qkv {name} lanes {r} T={T}", worst)
+        x = torch.randn((4, 5, k), generator=gen, device=device).to(
+            torch.bfloat16)
+        if r == 0:
+            tagged("grouped_lora", _time_lora(
+                x, cut, idx, worst, "grouped_lora_qkv tp=2 rank lanes"),
+                "llama2-7b")
+    log(f"[kernels] at a tp=2 rank's shapes held to their plain "
+        f"versions: largest err/limit {worst[0]:.3e}")
+    return out
 
 
 def phase_kernels(device, results):
@@ -1040,44 +1194,24 @@ def phase_kernels(device, results):
     check(all(t["body"] == "split" for t in timed),
           f"paged_decode left the split body: {[t['body'] for t in timed]}")
     results["paged_decode"] = dict(timed[0], more_shapes=timed[1:])
+    sharded = _sharded_kernel_shapes(device, flush)
     del flush
     Hk, G = shapes["llama2-7b"]
     ck, cv, bt = main_pool
 
     # prefill: the second 256-token chunk of a 512-token prompt
-    C, start, valid = 256, 256, 256
-    table = bt[0].contiguous()
-    qp = torch.randn((C, Hk, G, d), generator=gen, device=device).to(
+    qp = torch.randn((256, Hk, G, d), generator=gen, device=device).to(
         torch.bfloat16)
-    before = dict(ops.BODY_LAUNCHES["paged_prefill"])
-    err = _compare(ops.paged_prefill(qp, ck, cv, table, start, valid),
-                   ops.paged_prefill_ref(qp, ck, cv, table, start, valid),
-                   cv, "paged_prefill main-path shape", worst)
-    body = _body_of(ops.BODY_LAUNCHES["paged_prefill"], before)
-    check(body == "mma", f"paged_prefill main-path shape ran {body}")
-    L = start + valid
-    kg = ck[table.long()].reshape(nb * bs, Hk, d)[:L].transpose(0, 1)[None]
-    vg = cv[table.long()].reshape(nb * bs, Hk, d)[:L].transpose(0, 1)[None]
-    kg, vg = kg.contiguous(), vg.contiguous()
-    qs = qp.permute(1, 2, 0, 3).reshape(1, Hk * G, C, d)
-    k_pos = torch.arange(L, device=device)
-    q_pos = start + torch.arange(C, device=device)
-    mask = (k_pos[None, :] <= q_pos[:, None])[None, None]
-    lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
-    bound, by = prefill_bound(qp, ck, start, valid, bs)
-    run = lambda: ops.paged_prefill(qp, ck, cv, table, start, valid)
-    results["paged_prefill"] = dict(
-        ms=time_ms(run), device_ms=device_ms(run),
-        plain_ms=time_ms(lambda: ops.paged_prefill_ref(qp, ck, cv, table,
-                                                       start, valid)),
-        bound_ms=bound, bound_by=by, library_ms=time_ms(lib),
-        library_device_ms=device_ms(lib), max_abs_err=err, body=body,
-        shape=f"C={C} start={start} valid={valid} Hk={Hk} G={G} d={d} "
-              f"bs={bs} nb={nb} kv=bf16")
+    results["paged_prefill"] = _time_prefill(qp, ck, cv, bt[0].contiguous(),
+                                             256, 256, worst,
+                                             "paged_prefill main-path shape")
     check_verify(device, gen, shapes, worst, results)
     check_grouped_lora(device, gen, worst, results)
     check_flash(device, gen, worst, results)
     check_quant_matmul(device, gen, worst, results)
+    for name, recs in sharded.items():   # a tp = 2 rank's shapes
+        results[name]["more_shapes"] = (results[name].get("more_shapes", [])
+                                        + recs)
     log(f"[kernels] largest err/limit over every comparison: "
         f"{worst[0]:.3e}")
     for name, res in results.items():
@@ -1093,6 +1227,7 @@ def phase_kernels(device, results):
                 f"library_ms={r['library_ms']:.4f}"
                 + extra('library_device_ms', 'library_cold_ms',
                         'library_cold_device_ms'))
+            _log_misses("kernels", r)
 
 
 # ---------------------------------------------------------------------------
@@ -1246,6 +1381,7 @@ def phase_engine(device, summary):
     launches = _launches()                    # ... and ends here
     bodies = _engine_bodies()
     _check_results(cfg, reqs, results, "engine bf16")
+    TP1_TOKENS["llama2-7b"] = [r.tokens for r in results]
     check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
           f"main path did not launch both kernels: {launches}")
     _check_engine_bodies("engine bf16", launches, bodies)
@@ -2039,13 +2175,16 @@ def phase_measure(device, summary):
     summary["measure"] = _measure_vs_forecast("llama2-7b", device)
 
 
-def _measure_vs_forecast(model, device):
+def _measure_vs_forecast(model, device, tp: int = 1):
     """``repro_torch.api.measure`` on ``model`` at full width and depth
     (bf16-bf16, paged attention, 4 slots, 8 requests of 512 + 64 tokens,
     chunk 256, decode block 8, a shared 256-token prefix); K1 and K2 must
     launch.  Then ``api.forecast`` of the same scenario for
     ``nvidia-h100``, declared and replaying the measured trace, and each
-    metric's relative error (findings, not gates)."""
+    metric's relative error (findings, not gates).  At ``tp > 1`` the
+    ranks share this one card (gloo): they launch the kernels in their
+    own processes, so the check is the report's plan instead, and the
+    forecast is of ``tp`` cards."""
     import math
 
     import torch
@@ -2054,14 +2193,19 @@ def _measure_vs_forecast(model, device):
     scn = api.Scenario(model=model, variant="bf16-bf16", batch=4,
                        n_requests=8, prompt_len=512, gen_len=64, chunk=256,
                        decode_block=8, attn_impl="paged",
-                       shared_prefix_len=256, seed=0)
+                       shared_prefix_len=256, seed=0, tp=tp)
     _reset_launches()                         # the main path starts here
     t0 = time.perf_counter()
-    measured = api.measure(scn, device=device)
+    measured = api.measure(scn, device=device, share_device=tp > 1)
     wall = time.perf_counter() - t0
     launches = _launches()                    # ... and ends here
-    check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
-          f"measure {model} did not launch K1 and K2: {launches}")
+    if tp == 1:
+        check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
+              f"measure {model} did not launch K1 and K2: {launches}")
+    else:
+        check(measured.extras["tp"] == tp and measured.trace[0].tp == tp,
+              f"measure {model} at tp={tp}: its report says tp="
+              f"{measured.extras['tp']}, its trace {measured.trace[0].tp}")
     ex = measured.extras
     check(ex["mode"] == "engine" and ex["requests"] == 8
           and ex["tokens"] == 8 * 64, f"measure extras {ex}")
@@ -2075,7 +2219,9 @@ def _measure_vs_forecast(model, device):
                              tps=measured.tps, hardware=measured.hardware,
                              prefix_hit_rate=ex["prefix_hit_rate"],
                              wall_s=ex["wall_s"]),
-               launches={k: launches[k] for k in ENGINE_KERNELS},
+               # a sharded run's launches are counted in its ranks
+               launches=({k: launches[k] for k in ENGINE_KERNELS}
+                         if tp == 1 else None),
                wall_s=wall)
     for tag, fc in (("declared", declared), ("trace_replay", replay)):
         d = api.compare(fc, measured)
@@ -2083,8 +2229,12 @@ def _measure_vs_forecast(model, device):
                                rel_err=m.rel_err)
                     for name, m in (("ttft_s", d.ttft), ("tpot_s", d.tpot),
                                     ("tps", d.tps))}
-        log(f"[measure] {model} {tag} forecast on nvidia-h100 vs measured "
-            f"on {measured.hardware}: "
+        head = (f"{model} {tag} forecast on nvidia-h100 vs measured on "
+                f"{measured.hardware}" if tp == 1 else
+                f"{model} tp={tp} {tag} forecast on {tp} x nvidia-h100 vs "
+                f"measured by {tp} ranks sharing one {measured.hardware} "
+                f"over gloo (not a {tp}-card measurement)")
+        log(f"[measure] {head}: "
             + "; ".join(f"{n} {v['forecast']:.6g} vs {v['measured']:.6g} "
                         f"(rel err {v['rel_err']:+.4f})"
                         for n, v in out[tag].items()))
@@ -2243,6 +2393,8 @@ def phase_moe(device, summary):
         launches = _launches()                # ... and ends here
         bodies = _engine_bodies()
         _check_results(cfg, reqs_t, results, f"moe {tag}")
+        if tag == "plain":
+            TP1_TOKENS[MOE_ARCH] = [r.tokens for r in results]
         check(all(launches[k] > 0 for k in path),
               f"moe {tag} did not launch {path}: {launches}")
         _check_engine_bodies(f"moe {tag}", launches, bodies)
@@ -2676,10 +2828,11 @@ def _time_k6_lockstep(case, device):
     shape = (f"b={b} s={s} L={L} H={H} Hk={Hk} d={d} causal"
              f"{f' window={window}' if window else ''} q_offset={q_offset} "
              f"bf16 (lockstep)")
-    rec = dict(ms=time_ms(fn), device_ms=device_ms(fn),
+    rec = dict(ms=time_ms(fn), **device_rec("device_ms", fn),
                body=fa_ops.flash_body(torch.bfloat16, d),
                plain_ms=time_ms(plain, iters=5, warmup=1),
-               library_ms=time_ms(sdpa), library_device_ms=device_ms(sdpa),
+               library_ms=time_ms(sdpa),
+               **device_rec("library_device_ms", sdpa),
                bound_ms=bound, bound_by=bound_by, max_abs_err=err,
                err_ratio=worst[0], shape=shape)
     log(f"[lockstep] K6 at {shape} on {rec['body']}: {rec['ms']:.4f} ms "
@@ -2688,7 +2841,18 @@ def _time_k6_lockstep(case, device):
         f"{rec['library_ms']:.4f} ms (device "
         f"{fmt_ms(rec['library_device_ms'])}), bound {bound:.4f} ms "
         f"({bound_by})")
+    _log_misses("lockstep", rec)
     return rec
+
+
+def _log_misses(tag: str, rec: dict) -> None:
+    """A log line for each device time of ``rec`` that is null, with
+    the event counts of every profile taken (:func:`device_rec`)."""
+    for key, why in rec.items():
+        if key.endswith("_why"):
+            log(f"[{tag}] {key[:-4]} not measured at {rec.get('shape')}: "
+                f"{why.get('iters')} calls profiled; event counts by "
+                f"kernel, per try: {why.get('tries')}")
 
 
 def phase_lockstep(device, summary, engine_tpot_ms=None):
@@ -2852,7 +3016,357 @@ def _lockstep_parity(device):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 11: tensor- and pipeline-parallel serving, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: each plain pass's tp = 1 tokens, kept by the engine and moe phases for
+#: the multidevice phase's bf16 agreement share
+TP1_TOKENS: dict = {}
+
+#: the multidevice worlds, in order: (arch, tp, pp, serving passes at full
+#: width and depth in bf16, parity jobs at 4 layers in f32 weights: a KV
+#: dtype, or ``spec_lora`` with f32 KV)
+MD_WORLDS = (
+    ("llama2-7b", 2, 1, ("plain", "spec_lora"), ("fp32", "bf16", "int8",
+                                                  "spec_lora")),
+    ("llama2-7b", 1, 2, ("plain",), ("fp32", "bf16", "int8")),
+    ("llama2-7b", 2, 2, ("plain",), ("fp32", "bf16", "int8")),
+    (MOE_ARCH, 2, 1, ("plain",), ("fp32", "bf16", "int8")),
+)
+MD_PARITY_LAYERS = 4
+
+
+def _md_exact(tag: str, tp: int) -> bool:
+    """Whether a parity job must give tp = 1's tokens exactly.  Stages
+    run tp = 1's op sequence, so every job must at pp.  Tensor
+    parallelism sums the row-parallel products in another order; in f32
+    that moves a logit by ~1e-6, but a bf16 or int8 KV cache rounds the
+    moved K/V to another value now and then (on the card, llama2-7b x4:
+    logits 3.8e-3 apart with bf16 KV, 6.8e-2 with int8, 0 at pp = 2), so
+    exactness is required of the f32 caches only, as the parity phase
+    requires it of runs that batch their rows differently; the others
+    report the share of equal tokens."""
+    return tp == 1 or tag in ("fp32", "spec_lora")
+
+
+def _md_config(tag: str, parity: bool):
+    """The engine phase's passes (``plain``, ``spec_lora``) at full size,
+    or the parity phase's geometry with a KV dtype (``fp32``, ``bf16``,
+    ``int8``) or the speculative LoRA features (``spec_lora``, f32 KV)."""
+    from repro_torch.engine import EngineConfig
+    if parity:
+        ec = EngineConfig(max_slots=4, max_len=128, chunk_size=64,
+                          decode_block=4, block_size=16, attn_impl="paged",
+                          kv_dtype=tag if tag in ("bf16", "int8")
+                          else "fp32")
+    else:
+        ec = EngineConfig(max_slots=4, max_len=512 + 64 + 16, chunk_size=256,
+                          decode_block=8, block_size=16, n_blocks=512,
+                          kv_dtype="bf16", attn_impl="paged")
+    if tag == "spec_lora":
+        ec = dataclasses.replace(ec, spec_k=4, lora_tenants=4,
+                                 lora_ranks=(8, 16))
+    return ec
+
+
+def _md_requests(cfg, tag: str, parity: bool):
+    reqs = (_requests(cfg.vocab_size, 6, 100, 16, 48, seed=3) if parity
+            else _requests(cfg.vocab_size, 8, 512, 64, 256, seed=1))
+    return _with_tenants(reqs, 4) if tag == "spec_lora" else reqs
+
+
+def _md_tokens(cfg, params, tag: str, device, mesh=None):
+    """A parity job's greedy tokens, on one device or on ``mesh``."""
+    from repro_torch.engine import Engine
+    eng = Engine(cfg, params, _md_config(tag, True), device=device,
+                 mesh=mesh)
+    return [r.tokens for r in eng.run(_md_requests(cfg, tag, True))]
+
+
+def _md_rank(mesh, arch, passes, parity):
+    """One rank of a multidevice world (every rank on the one card): its
+    shard of the seed-0 bf16 weights at full width and depth, the
+    serving passes, each with this process's launch counts zeroed before
+    it and read after it; then its shard of the f32 weights at 4 layers
+    and the parity jobs' tokens.  Returns what the parent checks."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.engine import Engine
+    from repro_torch.runtime.sharding import init_shard
+
+    dev = mesh.device
+    cfg = configs.get(arch)
+    out = dict(rank=mesh.rank, coords=dict(mesh.coords),
+               backend=mesh.backend, passes={}, parity={})
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_shard(cfg, 0, mesh, device=dev)
+    torch.cuda.synchronize(dev)
+    out["init_s"] = time.perf_counter() - t0
+    out["params_gb"] = sum(t.numel() * t.element_size()
+                           for t in _leaves(params)) / 1e9
+    out["init_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    for tag in passes:
+        ec = _md_config(tag, False)
+        reqs = _md_requests(cfg, tag, False)
+        _reset_launches()                     # this rank's path starts here
+        t0 = time.perf_counter()
+        eng = Engine(cfg, params, ec, mesh=mesh)
+        eng.warmup()
+        results = eng.run(reqs)
+        wall = time.perf_counter() - t0
+        launches, bodies = _launches(), _engine_bodies()   # ... ends here
+        _check_results(cfg, reqs, results, f"{arch} rank {mesh.rank} {tag}")
+        out["passes"][tag] = dict(
+            launches=launches, bodies=bodies, wall_s=wall,
+            tokens=[r.tokens for r in results],
+            cached=[r.cached_tokens for r in results],
+            ttft_p50_ms=float(np.median([r.ttft for r in results]) * 1e3),
+            tpot_p50_ms=float(np.median([r.tpot for r in results]) * 1e3),
+            tps=eng.aggregate_tps(),
+            pool=list(eng.state["cache_k"].shape),
+            pool_gb=eng.cache.total_bytes() / 1e9,
+            lanes=(int(eng.state["lora_A_q"].shape[-1])
+                   if ec.lora_tenants else 0),
+            spec_acceptance=eng.spec_acceptance if ec.spec_k else None)
+        del eng
+        torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["collectives"] = _md_collectives(mesh, cfg.d_model)
+    del params
+    torch.cuda.empty_cache()
+    if parity:
+        cfg4 = dataclasses.replace(cfg, n_layers=MD_PARITY_LAYERS)
+        params = init_shard(cfg4, 0, mesh, device=dev, dtype=torch.float32)
+        for tag in parity:
+            out["parity"][tag] = _md_tokens(cfg4, params, tag, dev, mesh)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _md_collectives(mesh, width: int) -> dict:
+    """Wall milliseconds per collective on this rank (50 calls after 5,
+    the stream synchronised after them), at a decode step's (4, 1, d) and
+    a prefill chunk's (1, 256, d) bf16 activation: the tp group's
+    all_reduce, or at tp = 1 the broadcast along the pipeline column."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for name, shape in (("decode", (4, 1, width)), ("chunk", (1, 256, width))):
+        x = torch.zeros(shape, dtype=torch.bfloat16, device=mesh.device)
+        if mesh.groups["model"] is not None:
+            key, fn = "all_reduce", lambda: dist.all_reduce(
+                x, group=mesh.groups["model"])
+        else:
+            key, fn = "broadcast", lambda: mesh.from_last_stage(x)
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize(mesh.device)
+        out[f"{key}_{name}_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+    return out
+
+
+def phase_multidevice(device, summary):
+    """Tensor- and pipeline-parallel serving with every rank on this one
+    card (``share_device``: gloo on CUDA tensors; one card cannot run
+    NCCL's two ranks): the worlds of ``MD_WORLDS``, each freed before the
+    next, their launches summed over ranks; then ``api.measure`` at
+    tp = 2 against ``api.forecast`` on nvidia-h100.  The f32 4-layer
+    parity jobs must give this process's one-rank tokens as
+    ``_md_exact`` says; the bf16 full-depth share equal to tp = 1's is a
+    finding (the all_reduce sums in another order)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import init_params
+
+    t_phase = time.perf_counter()
+    card = card_name_and_power_limit()
+    out = dict(card=card, worlds={},
+               launches_total={k: 0 for k in ENGINE_KERNELS})
+    bodies_total: dict = {}
+    # the one-rank references: every parity job at 4 layers in f32, and
+    # the bf16 full-depth plain tokens if no earlier phase kept them
+    refs = {}
+    for arch in dict.fromkeys(w[0] for w in MD_WORLDS):
+        cfg4 = dataclasses.replace(configs.get(arch),
+                                   n_layers=MD_PARITY_LAYERS)
+        params = init_params(cfg4, 0, device=device, dtype=torch.float32)
+        refs[arch] = {tag: _md_tokens(cfg4, params, tag, device)
+                      for w in MD_WORLDS if w[0] == arch for tag in w[4]}
+        del params
+        torch.cuda.empty_cache()
+        if arch not in TP1_TOKENS:          # the engine or moe phase's
+            cfg = configs.get(arch)
+            params = init_params(cfg, 0, device=device)
+            reqs = _md_requests(cfg, "plain", False)
+            eng, results = _serve(cfg, params, _md_config("plain", False),
+                                  reqs, device)
+            TP1_TOKENS[arch] = [r.tokens for r in results]
+            tp1 = out.setdefault("tp1", {})[arch] = dict(
+                ttft_p50_ms=float(np.median([r.ttft for r in results]) * 1e3),
+                tpot_p50_ms=float(np.median([r.tpot for r in results]) * 1e3),
+                tps=eng.aggregate_tps())
+            log(f"[multidevice] {arch} tp=1 plain (one rank, the same "
+                f"requests): TTFT p50 {tp1['ttft_p50_ms']:.2f} ms, TPOT p50 "
+                f"{tp1['tpot_p50_ms']:.3f} ms, TPS {tp1['tps']:.1f}")
+            del eng, params
+            torch.cuda.empty_cache()
+
+    for arch, tp, pp, passes, parity in MD_WORLDS:
+        label = f"{arch} tp={tp} x pp={pp}"
+        cfg = configs.get(arch)
+        t0 = time.perf_counter()
+        ranks = spawn(_md_rank, (arch, passes, parity), model=tp, pipe=pp,
+                      device=device, share_device=True)
+        world = dict(wall_s=time.perf_counter() - t0, backend=ranks[0][
+            "backend"], ranks=[{k: r[k] for k in (
+                "coords", "init_s", "params_gb", "init_peak_gb", "peak_gb",
+                "collectives")} for r in ranks], passes={})
+        check(all(r["backend"] == "gloo" for r in ranks),
+              f"{label}: ranks sharing a card must run gloo")
+        for tag in passes:
+            recs = [r["passes"][tag] for r in ranks]
+            first = recs[0]
+            for r, rec in zip(ranks, recs):
+                where = f"{label} {tag} rank {r['rank']}"
+                check(rec["tokens"] == first["tokens"]
+                      and rec["cached"] == first["cached"],
+                      f"{where}: its tokens are not rank 0's")
+                check(rec["pool"][3] == cfg.n_kv_heads // tp
+                      and rec["pool"][0] == cfg.n_layers // pp,
+                      f"{where}: pool {rec['pool']}")
+                if tag == "spec_lora":
+                    check(rec["lanes"] == 16 // tp,
+                          f"{where}: K4 on {rec['lanes']} lanes")
+                _check_engine_bodies(where, rec["launches"], rec["bodies"])
+                path = (("paged_prefill", "paged_decode") if tag == "plain"
+                        else ("paged_prefill", "paged_verify",
+                              "grouped_lora"))
+                check(all(rec["launches"][k] > 0 for k in path),
+                      f"{where} did not launch {path}: {rec['launches']}")
+            check(first["cached"][1] == 256 and first["cached"][3] == 511,
+                  f"{label} {tag}: radix hit / fork {first['cached']}")
+            launches = {k: sum(r["launches"][k] for r in recs)
+                        for k in ENGINE_KERNELS}
+            bodies = {w: {b: sum(r["bodies"][w][b] for r in recs)
+                          for b in c} for w, c in first["bodies"].items()}
+            for k, v in launches.items():
+                out["launches_total"][k] += v
+            for w, c in bodies.items():
+                tot = bodies_total.setdefault(w, {})
+                for b, v in c.items():
+                    tot[b] = tot.get(b, 0) + v
+            same = None
+            if tag == "plain":
+                want = TP1_TOKENS[arch]
+                pairs = [(a, b) for g, w_ in zip(first["tokens"], want)
+                         for a, b in zip(g, w_)]
+                same = sum(a == b for a, b in pairs) / len(pairs)
+            world["passes"][tag] = dict(
+                {k: first[k] for k in ("ttft_p50_ms", "tpot_p50_ms", "tps",
+                                       "pool", "pool_gb", "lanes",
+                                       "spec_acceptance")},
+                launches=launches, bodies=bodies,
+                wall_s=[r["wall_s"] for r in recs],
+                same_tokens_as_tp1=same)
+            p = world["passes"][tag]
+            log(f"[multidevice] {label} {tag}: 8 requests x (512 + 64), 4 "
+                f"slots, {tp * pp} ranks on one card ({card}), gloo: TTFT "
+                f"p50 {p['ttft_p50_ms']:.2f} ms, TPOT p50 "
+                f"{p['tpot_p50_ms']:.3f} ms, TPS {p['tps']:.1f}; pool "
+                f"{p['pool']} per rank ({p['pool_gb']:.2f} GB)"
+                + (f"; K4 on {p['lanes']} lanes per rank, acceptance "
+                   f"{p['spec_acceptance']:.4f}" if p["lanes"] else "")
+                + (f"; bf16 tokens equal to tp=1's: {same:.4f}"
+                   if same is not None else "")
+                + f"; launches over its ranks {launches}, by body {bodies}")
+        world["parity"] = {}
+        for tag in parity:
+            want = refs[arch][tag]
+            for r in ranks:
+                check(r["parity"][tag] == ranks[0]["parity"][tag],
+                      f"{label} parity {tag}: rank {r['rank']}'s tokens "
+                      f"are not rank 0's")
+            got = ranks[0]["parity"][tag]
+            pairs = [(a, b) for g, w_ in zip(got, want)
+                     for a, b in zip(g, w_)]
+            share = sum(a == b for a, b in pairs) / len(pairs)
+            first = [next((i for i, (a, b) in enumerate(zip(g, w_))
+                           if a != b), None) for g, w_ in zip(got, want)]
+            world["parity"][tag] = dict(share=share, first_diff=first)
+            what = (f"{label} parity {tag} (f32 weights, "
+                    f"{MD_PARITY_LAYERS} layers, full width)")
+            if _md_exact(tag, tp):
+                check(got == want, f"{what}: tokens differ from tp=1's at "
+                      f"{first}")
+            log(f"[multidevice] {what}: greedy tokens "
+                + ("== tp=1's" if got == want else
+                   f"equal to tp=1's: {share:.4f} (first difference per "
+                   f"request {first}; a finding, not a gate)"))
+        for r in world["ranks"]:
+            log(f"[multidevice] {label} rank {r['coords']}: shard "
+                f"{r['params_gb']:.2f} GB, drawn in {r['init_s']:.1f} s "
+                f"(peak while drawing {r['init_peak_gb']:.2f} GB), peak "
+                f"memory {r['peak_gb']:.2f} GB; gloo on the shared card, "
+                f"ms per call: " + ", ".join(
+                    f"{k[:-3]} {v:.3f}" for k, v in r["collectives"].items()))
+        log(f"[multidevice] {label}: world of {tp * pp} ranks in "
+            f"{world['wall_s']:.1f} s")
+        out["worlds"][label] = world
+    out["bodies_total"] = bodies_total
+    out["measure_tp2"] = _measure_vs_forecast("llama2-7b", device, tp=2)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[multidevice] launches over every world and rank "
+        f"{out['launches_total']}, by body {bodies_total}; phase "
+        f"{out['wall_s']:.1f} s")
+    summary["multidevice"] = out
+
+
+def run_phase(name: str, fn, *args):
+    """Run one phase: a failure prints ``[fail] <phase>: <type>:
+    <message>`` on stdout and is raised on (the exit stays non-zero;
+    nothing is swallowed)."""
+    try:
+        return fn(*args)
+    except BaseException as e:
+        print(f"[fail] {name}: {type(e).__name__}: {e}", flush=True)
+        raise
+
+
+def phase_build():
+    """One nvcc per kernel source, all started together."""
+    from repro_torch.kernels import build as kbuild
+    libs = [(mod.SOURCE, mod.LIBRARY_NAME) for mod in _kernel_ops()]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        builds = list(pool.map(
+            lambda lib: kbuild.build(*lib, force=True), libs))
+    log(f"[build] {len(libs)} libraries in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for res in builds:
+        log(f"[build] nvcc {res.path.name} in {res.seconds:.1f} s")
+        for line in res.log.splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
+
+
 def main() -> int:
+    # before anything else: the package this script drives
+    package = ROOT / "src" / "repro_torch"
+    if not package.is_dir():
+        print(f"chip_smoke: {package} is missing: run this script from a "
+              f"checkout of the repository", flush=True)
+        return 1
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2869,8 +3383,7 @@ def main() -> int:
               "runs on a CUDA device only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build as kbuild
-    kernel_ops = _kernel_ops()
+    run_phase("setup", _kernel_ops)
 
     torch.backends.cuda.matmul.allow_tf32 = False     # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2880,51 +3393,36 @@ def main() -> int:
         f"x{torch.cuda.device_count()}")
     t_all = time.perf_counter()
     kernels, summary, trained, quant_measure, families = {}, {}, {}, {}, {}
-    if "build" in phases:
-        # one nvcc per source, all started together
-        libs = [(mod.SOURCE, mod.LIBRARY_NAME) for mod in kernel_ops]
-        t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-            builds = list(pool.map(
-                lambda lib: kbuild.build(*lib, force=True), libs))
-        log(f"[build] {len(libs)} libraries in "
-            f"{time.perf_counter() - t0:.1f} s")
-        for res in builds:
-            log(f"[build] nvcc {res.path.name} in {res.seconds:.1f} s")
-            for line in res.log.splitlines():
-                if "Used" in line or "spill" in line:
-                    log(f"[build] {line.strip()}")
-    if "kernels" in phases:
-        phase_kernels(device, kernels)
-    if "engine" in phases:
-        phase_engine(device, summary)
-    if "train" in phases:
-        phase_train(device, trained)
-    if "parity" in phases:
-        phase_parity(device)
-    if "quant" in phases:
-        phase_quant(device, quant_measure)
-    if "measure" in phases:
-        phase_measure(device, quant_measure)
-    if "moe" in phases:
-        phase_moe(device, families)
-    if "vlm" in phases:
-        phase_vlm(device, families)
-    if "lockstep" in phases:
-        phase_lockstep(device, families, summary.get(
-            "engine_bf16", {}).get("tpot_p50_ms"))
-    if "profile" in phases:
-        phase_profile(device)
+    steps = {
+        "build": (phase_build,),
+        "kernels": (phase_kernels, device, kernels),
+        "engine": (phase_engine, device, summary),
+        "train": (phase_train, device, trained),
+        "parity": (phase_parity, device),
+        "quant": (phase_quant, device, quant_measure),
+        "measure": (phase_measure, device, quant_measure),
+        "moe": (phase_moe, device, families),
+        "vlm": (phase_vlm, device, families),
+        "lockstep": (lambda: phase_lockstep(device, families, summary.get(
+            "engine_bf16", {}).get("tpot_p50_ms")),),
+        "multidevice": (phase_multidevice, device, families),
+        "profile": (phase_profile, device),
+    }
+    for name in PHASES + EXTRA_PHASES:
+        if name in phases:
+            run_phase(name, *steps[name])
     log(f"[done] phases {phases} in {time.perf_counter() - t_all:.1f} s")
 
     # launch counts come from the main path's passes only (each zeroed
-    # before it and read after it): K1-K4 from the engine and moe phases,
-    # K6 from the train phase and the lockstep phase's prefills, K5 from
-    # the quant phase; without a phase there is no count of it to report
+    # before it and read after it): K1-K4 from the engine, moe and
+    # multidevice phases (the last summed over every rank of every
+    # world), K6 from the train phase and the lockstep phase's prefills,
+    # K5 from the quant phase; without a phase there is no count of it
     engine = summary.get("launches_total", {})
     moe = families.get("moe", {}).get("launches_total", {})
-    launches = {**{k: engine.get(k, 0) + moe.get(k, 0)
-                   for k in {*engine, *moe}},
+    md = families.get("multidevice", {}).get("launches_total", {})
+    launches = {**{k: engine.get(k, 0) + moe.get(k, 0) + md.get(k, 0)
+                   for k in {*engine, *moe, *md}},
                 **trained.get("train", {}).get("launches", {}),
                 **quant_measure.get("quant", {}).get("launches", {})}
     lockstep = families.get("lockstep")
@@ -2932,9 +3430,11 @@ def main() -> int:
         launches["flash_fwd"] = (launches.get("flash_fwd", 0)
                                  + lockstep["k6_launches"])
     engine_bodies = summary.get("bodies_total", {})
-    for w, c in families.get("moe", {}).get("bodies_total", {}).items():
-        engine_bodies = {**engine_bodies, w: {
-            b: engine_bodies.get(w, {}).get(b, 0) + n for b, n in c.items()}}
+    for phase in ("moe", "multidevice"):
+        for w, c in families.get(phase, {}).get("bodies_total", {}).items():
+            engine_bodies = {**engine_bodies, w: {
+                b: engine_bodies.get(w, {}).get(b, 0) + n
+                for b, n in c.items()}}
     bodies = {**engine_bodies,
               "quant_matmul": quant_measure.get("quant", {}).get("bodies"),
               **trained.get("train", {}).get("bodies", {})}
@@ -2961,6 +3461,7 @@ def main() -> int:
                 "device_ms", "cold_ms", "cold_device_ms", "library_device_ms",
                 "library_cold_ms", "library_cold_device_ms", "body")
                if key in r},
+            **{key: v for key, v in r.items() if key.endswith("_why")},
             **({"body_launches": bodies[name]} if bodies.get(name)
                else {}),
             **({"more_shapes": r["more_shapes"]} if "more_shapes" in r
@@ -2972,6 +3473,7 @@ def main() -> int:
     print(json.dumps({"moe": families.get("moe"),
                       "vlm": families.get("vlm"),
                       "lockstep": families.get("lockstep")}))
+    print(json.dumps({"multidevice": families.get("multidevice")}))
     print(json.dumps({"train": trained.get("train")}))
     print(json.dumps({"engine": summary}))
     print(json.dumps({"kernels": record}))

@@ -99,12 +99,13 @@ def _add_scenario_args(p: argparse.ArgumentParser, measured: bool) -> None:
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel degree: forecasts price per-chip "
                    "work + collective traffic (interconnect_GBps); measure "
-                   "refuses tp > 1 (one device)")
+                   "runs tp x pp ranks, one per card (gloo ranks with "
+                   "--device cpu)")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline-parallel degree: forecasts partition the "
                    "layer stack into stages (prefill microbatch bubbles + "
-                   "inter-stage activation hops priced); measure refuses "
-                   "pp > 1 (one device)")
+                   "inter-stage activation hops priced); measure runs "
+                   "its stages as ranks, as for --tp")
     p.add_argument("--spec-k", type=int, default=0, dest="spec_k",
                    help="speculative decoding: drafts verified per step "
                    "(0 = off); measure runs the engine's draft→verify→"

@@ -417,13 +417,29 @@ def forecast(scenario: Scenario, hw: HardwareLike, *,
         trace=tuple(trace) if trace is not None else None)
 
 
-def _check_measurable(scenario: Scenario) -> None:
-    """Refuse what the port cannot measure yet, naming its ROADMAP item."""
-    if scenario.tp * scenario.pp > 1:
+def _check_measurable(scenario: Scenario, dev, share_device: bool) -> None:
+    """Refuse a sharded scenario the port cannot measure: one the engine
+    does not serve (the lockstep ``Server``'s mesh is not ported, ROADMAP
+    queue 1, item 5), or one with too few cards for its ranks (the
+    reference's refusal) unless the caller lets the ranks share one."""
+    from repro_torch.engine import engine_supported
+    tp, pp = scenario.tp, scenario.pp
+    if tp * pp == 1:
+        return
+    if not engine_supported(scenario.arch):
         raise NotImplementedError(
-            f"Scenario tp={scenario.tp} × pp={scenario.pp} needs the "
-            f"multi-device engine, which is not ported (ROADMAP queue 1, "
-            f"item 5); the port measures on one device")
+            f"Scenario tp={tp} × pp={pp} of the {scenario.arch.family!r} "
+            f"family needs the lockstep Server's mesh, which is not ported "
+            f"(ROADMAP queue 1, item 5)")
+    if dev.type == "cuda":
+        import torch
+        n = torch.cuda.device_count()
+        if tp * pp > n and not share_device:
+            raise ValueError(
+                f"Scenario tp={tp} × pp={pp} needs {tp * pp} devices but "
+                f"only {n} are visible — pass share_device=True to run the "
+                f"ranks on the visible cards over gloo, or run on a "
+                f"{tp * pp}-card host")
 
 
 def _measure_hw_name(hw: Optional[HardwareLike], dev) -> str:
@@ -439,7 +455,7 @@ def _measure_hw_name(hw: Optional[HardwareLike], dev) -> str:
 
 
 def measure(scenario: Scenario, hw: Optional[HardwareLike] = None, *,
-            device="cuda") -> Report:
+            device="cuda", share_device: bool = False) -> Report:
     """Run ``scenario`` on the port's engine and report measured metrics.
 
     The continuous-batching engine (block-paged KV cache, chunked-prefill
@@ -471,35 +487,62 @@ def measure(scenario: Scenario, hw: Optional[HardwareLike] = None, *,
       ``seed + 2``): the port cannot reproduce JAX's PRNG, so the same
       scenario serves other random weights and prompts than the
       reference's run;
-    * ``tp·pp > 1`` raises (ROADMAP queue 1, item 5).  MoE and VLM
-      decoders run on the engine, a VLM as text, as in the reference;
+    * ``tp·pp > 1`` starts ``tp·pp`` ranks (``repro_torch.launch.mesh``:
+      one per card over NCCL, or with ``share_device=True`` all on the
+      visible cards over gloo) and returns rank 0's report; each rank
+      draws its shard of the one-device weights.  The lockstep families
+      refuse it (their ``Server`` has no mesh yet, ROADMAP queue 1,
+      item 5).  MoE and VLM decoders run on the engine, a VLM as text,
+      as in the reference;
     * temperature draws on the lockstep branch come from a
       ``torch.Generator`` seeded with ``seed``.
     """
+    from repro_torch import resolve_device
+
+    dev = resolve_device(device)
+    _check_measurable(scenario, dev, share_device)
+    if scenario.tp * scenario.pp > 1:
+        from repro_torch.launch.mesh import spawn
+        return spawn(_measure_rank, (scenario, hw), model=scenario.tp,
+                     pipe=scenario.pp, device=dev,
+                     share_device=share_device)[0]
+    return _measure_on(scenario, hw, dev)
+
+
+def _measure_rank(mesh, scenario: Scenario, hw: Optional[HardwareLike]
+                  ) -> Optional[Report]:
+    """One rank of a sharded :func:`measure`: every rank serves the same
+    scenario on its shard; rank 0's report is the run's."""
+    report = _measure_on(scenario, hw, mesh.device, mesh)
+    return report if mesh.rank == 0 else None
+
+
+def _measure_on(scenario: Scenario, hw: Optional[HardwareLike], dev,
+                mesh=None) -> Report:
+    """:func:`measure` on one device, or on this rank of ``mesh``."""
     import time
 
     import numpy as np
 
-    from repro_torch import resolve_device
     from repro_torch.engine import (Engine, EngineConfig, Request,
                                     engine_supported)
     from repro_torch.models import init_params
+    from repro_torch.runtime.sharding import init_shard
 
-    _check_measurable(scenario)
-    dev = resolve_device(device)
     arch, variant = scenario.arch, scenario.variant_obj
     hw_name = _measure_hw_name(hw, dev)
     totals = _phase_totals(_workload_model(scenario), scenario)
     # the engine stores KV in bf16 or int8; int4 variants measure as int8
     kv_dtype = "int8" if variant.kv_dtype.startswith("int") else "bf16"
     tp, pp = scenario.tp, scenario.pp
-    params = init_params(arch, scenario.seed, device=dev)
+    params = (init_params(arch, scenario.seed, device=dev) if mesh is None
+              else init_shard(arch, scenario.seed, mesh, device=dev))
     if scenario.has_traffic:
         if not engine_supported(arch):
             raise ValueError(f"traffic scenarios need an engine-supported "
                              f"family, not {arch.family!r}")
         return _measure_traffic(scenario, hw_name, arch, variant, totals,
-                                kv_dtype, params, dev)
+                                kv_dtype, params, dev, mesh)
     gen_lens = scenario.request_gen_lens
     n_req = len(gen_lens)
     max_len = scenario.prompt_len + max(gen_lens) + max(8, scenario.decode_block)
@@ -548,7 +591,7 @@ def measure(scenario: Scenario, hw: Optional[HardwareLike] = None, *,
                                vocab_size=(arch.vocab_size
                                            if scenario.reduced else None),
                                seed=scenario.seed, device=dev)
-    eng = Engine(arch, params, ec, device=dev, drafter=drafter)
+    eng = Engine(arch, params, ec, device=dev, drafter=drafter, mesh=mesh)
     eng.warmup()               # kernel builds stay outside the measured window
     # materialize host-side factors of every tenant the run will touch
     # (stand-in for checkpointed adapters already in host RAM) — the
@@ -657,7 +700,8 @@ def _lora_extras(scenario: Scenario, ec, eng) -> Dict[str, object]:
 
 
 def _measure_traffic(scenario: Scenario, hw_name: str, arch, variant,
-                     totals, kv_dtype: str, params, dev) -> Report:
+                     totals, kv_dtype: str, params, dev, mesh=None
+                     ) -> Report:
     """Serve the scenario's TrafficTrace open-loop on the port's engine.
 
     The trace's arrival seconds become ``Request.arrival_step`` gates via
@@ -693,11 +737,17 @@ def _measure_traffic(scenario: Scenario, hw_name: str, arch, variant,
         trace, arch.vocab_size, seed=scenario.seed + 1,
         shared_prefix_len=scenario.shared_prefix_len or 0)
     aids = scenario.lora_adapter_ids(trace.n_requests)
-    eng = Engine(arch, params, ec, device=dev)
+    eng = Engine(arch, params, ec, device=dev, mesh=mesh)
     eng.warmup()               # kernel builds stay outside the measured window
     for a in sorted({a for a in aids if a is not None}):
         eng.adapter_store.factors(a)   # host factors, like measure()
     period = eng.calibrate_step_period()
+    if mesh is not None:
+        import torch
+        # one step clock for every rank, so every rank gates the same
+        # arrivals at the same steps
+        period = float(mesh.from_rank0(torch.tensor(
+            [period], dtype=torch.float64, device=dev))[0])
     steps = arrival_steps(trace, period)
     reqs = [Request(rid=r.rid, prompt=list(map(int, p)),
                     max_new=r.gen_len, arrival_step=s,

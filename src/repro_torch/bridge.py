@@ -58,6 +58,24 @@ def params_from_numpy(tree: Dict, device="cuda",
             for k, v in tree.items()}
 
 
+def shard_from_numpy(tree: Dict, cfg, mesh, policy=None, device=None,
+                     dtype: Optional[torch.dtype] = None) -> Dict:
+    """A whole reference tree of numpy arrays -> this rank's shard of it
+    on ``device`` (the mesh's by default): :func:`params_from_numpy` on
+    the host, then ``repro_torch.runtime.sharding.shard_params``' cut, so
+    only the shard reaches the device."""
+    from repro_torch.runtime.sharding import ShardingPolicy, shard_params
+    whole = params_from_numpy(tree, "cpu", dtype)
+    shard = shard_params(whole, cfg, mesh, policy or ShardingPolicy())
+    dev = resolve_device(device if device is not None else mesh.device)
+    return _to(shard, dev)
+
+
+def _to(tree: Dict, device) -> Dict:
+    return {k: (_to(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in tree.items()}
+
+
 def params_to_numpy(tree: Dict) -> Dict:
     """Inverse of :func:`params_from_numpy` (bit for bit)."""
     return {k: (params_to_numpy(v) if isinstance(v, dict)

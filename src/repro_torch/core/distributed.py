@@ -13,7 +13,7 @@ roofline-report layer the dry-run grades against:
 * **XLA-measured**  — from the JAX package's compiled dry-run
   (``cost_analysis()`` per-chip FLOPs/bytes + its ``core.hlo``
   collective parser's wire bytes) via :func:`roofline`; the port has no
-  dry-run yet (ROADMAP queue 1, item 16), but :func:`roofline` takes any
+  dry-run yet (ROADMAP queue 1, item 6), but :func:`roofline` takes any
   measured per-chip totals.
 
 Roofline terms (grading convention):

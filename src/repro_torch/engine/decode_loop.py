@@ -2,10 +2,10 @@
 speculative verify and bucketed batched prefill over all slots, attending
 through block tables (block-paged KV cache).
 
-The PyTorch counterpart of the JAX package's ``engine/decode_loop.py``
-(tp = pp = 1).  Where the reference scans over the stacked layers and
-over ``decode_block`` tokens inside one ``jit``, the port runs Python
-loops over both; the KV buffers are updated in place.
+The PyTorch counterpart of the JAX package's ``engine/decode_loop.py``.
+Where the reference scans over the stacked layers and over
+``decode_block`` tokens inside one ``jit``, the port runs Python loops
+over both; the KV buffers are updated in place.
 
 * ``prefill(params, state, tokens (1,C), slot, start, valid)`` admits one
   prompt chunk of one request at absolute positions ``start ..``; rows at
@@ -36,6 +36,31 @@ attention output: the ``paged`` impl through the CUDA kernel of
 plain version on factors gathered once per dispatch (as the reference's
 ``_make_lora_fn`` splits them).
 
+Tensor parallelism (a mesh whose ``"model"`` axis has ``tp > 1`` ranks,
+``repro_torch.launch.mesh``): each rank holds its shard of the weights
+(``runtime.sharding``) and of the block pool, ``n_kv_heads/tp`` heads of
+every block, and runs the layer bodies on its ``n_heads/tp`` query heads
+(``sharding.local_config``).  q/k/v and gate/up are column-parallel,
+o_proj and down_proj row-parallel, and the only traffic between ranks is
+one ``all_reduce`` after each row-parallel product, as in the reference,
+where XLA inserts it.  The paged kernels run unchanged on the rank's
+heads: a rank only ever holds its shard, so nothing needs the
+reference's ``shard_map``.  Grouped LoRA splits the pool's rank lanes
+(``grouped_lora.ops.make_sharded_grouped_lora``): the q/k/v deltas are
+summed in one ``all_reduce``; the o projection's input is sharded by
+head, so the rank first gathers it (an ``all_reduce`` of a zero-filled
+buffer), and its partial delta joins o_proj's partial in that
+projection's one ``all_reduce``.  An MoE layer runs expert-parallel
+(``models.blocks.moe_forward``).
+
+Pipeline parallelism (a ``"pipe"`` axis of ``pp > 1`` stages):
+:func:`_staged_scan`, the reference's, runs the stage's ``L/pp``
+contiguous layers against its own weights and pool; only the carried
+activation crosses stages, by ``broadcast`` over a two-rank group, and
+the last stage's logits (or sampled tokens) are broadcast back along the
+pipeline column, so every rank keeps the same host state.  The op
+sequence is the one-stage sequence's, so tokens do not depend on pp.
+
 KV writes select their live rows explicitly.  The reference drops the
 writes of padding rows, inactive slots and ``valid = 0`` members by
 scattering them to the out-of-range block id ``N``, which JAX discards;
@@ -58,10 +83,12 @@ from repro_torch.kernels.grouped_lora import ops as lora_ops
 from repro_torch.kernels.grouped_lora.ref import (grouped_lora_pregathered,
                                                   pregather)
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.models import act_sharding
 from repro_torch.models import attention as A
 from repro_torch.models.blocks import mlp_forward, moe_forward
 from repro_torch.models.layers import apply_norm
 from repro_torch.models.model import _lm_head, layer_params
+from repro_torch.runtime import sharding as S
 
 from .adapter_pool import LORA_FACTORS
 from .kv_cache import BlockPagedKVCache
@@ -75,10 +102,77 @@ KVWrite = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 KVRows = Tuple[torch.Tensor, torch.Tensor]
 
 
-def _check_impl(attn_impl: str) -> None:
+def _check_pp(cfg: ArchConfig, pp: int) -> None:
+    if pp > 1 and cfg.n_layers % pp:
+        raise ValueError(
+            f"pipeline-parallel engine splits the layer scan into stages: "
+            f"pp={pp} must divide n_layers={cfg.n_layers} of arch "
+            f"{cfg.name!r}")
+
+
+def _check_impl_and_plan(cfg: ArchConfig, mesh,
+                         policy: S.ShardingPolicy, attn_impl: str):
+    """Shared admission check for every step factory.
+
+    Validates ``attn_impl`` against the engine's vocabulary and the mesh
+    plan against the arch (tp must divide both head counts, pp must
+    divide the layer stack) and returns ``(tp, pp)``.  All three
+    factories go through here so a bad plan fails identically no matter
+    which entry point is built first.
+    """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
                          f"got {attn_impl!r}")
+    tp = S.tp_degree(mesh, policy)
+    if tp > 1 and (cfg.n_kv_heads % tp or cfg.n_heads % tp):
+        raise ValueError(
+            f"tensor-parallel engine shards attention over KV heads: tp={tp}"
+            f" must divide n_heads={cfg.n_heads} and "
+            f"n_kv_heads={cfg.n_kv_heads} of arch {cfg.name!r}")
+    pp = S.pp_degree(mesh, policy)
+    _check_pp(cfg, pp)
+    return tp, pp
+
+
+def _plan(cfg: ArchConfig, cache: BlockPagedKVCache, mesh, policy,
+          attn_impl: str):
+    """Check the plan, install the mesh hint (as the reference's
+    factories do) and return the config of the rank's layer bodies."""
+    tp, pp = _check_impl_and_plan(cfg, mesh, policy, attn_impl)
+    if (cache.tp, cache.pp) != (tp, pp):
+        raise ValueError(f"the cache is laid out for tp={cache.tp} x "
+                         f"pp={cache.pp}, the mesh is tp={tp} x pp={pp}")
+    act_sharding.set_mesh(mesh, policy.dp_axes, policy.tp_axis)
+    return S.local_config(cfg, tp)
+
+
+def _staged_scan(mesh, x: torch.Tensor, body, n_layers: int):
+    """The layer loop, split into pipeline stages (the reference's
+    ``_staged_scan``, its ``:179``).
+
+    ``body(li, x)`` runs local layer ``li``.  With ``pp == 1`` (or no
+    mesh) this is the plain loop.  With ``pp > 1`` the rank of stage
+    ``s`` holds layers ``s·L/pp ..`` (weights and pool), takes ``x`` from
+    stage ``s - 1``, runs its layers and hands ``x`` on to stage
+    ``s + 1``; only the carried activation moves between stages.  The
+    returned ``x`` is the stack's output on the last stage."""
+    if mesh is not None:
+        x = mesh.recv_activation(x)
+    for li in range(n_layers):
+        x = body(li, x)
+    if mesh is not None:
+        mesh.send_activation(x)
+    return x
+
+
+def _from_last_stage(mesh, make, shape, dtype, device) -> torch.Tensor:
+    """``make()`` on the last pipeline stage, broadcast to every stage of
+    the rank's column (just ``make()`` at pp = 1)."""
+    if mesh is None or mesh.shape["pipe"] == 1:
+        return make()
+    out = (make().contiguous() if mesh.last_stage
+           else torch.empty(shape, dtype=dtype, device=device))
+    return mesh.from_last_stage(out)
 
 
 def _write_kv(cache: torch.Tensor, dst: KVWrite, new: torch.Tensor) -> None:
@@ -117,6 +211,11 @@ def _lora_layers(state, idx: Optional[torch.Tensor], attn_impl: str,
     else:
         xs = {n: pregather(state["lora_" + n], idx) for n in LORA_FACTORS}
         fns = (_pregathered_qkv, grouped_lora_pregathered)
+    group = act_sharding.tp_group()
+    if group is not None:
+        # each rank holds R/tp lanes of the pool: partial deltas, summed
+        fns = lora_ops.make_sharded_grouped_lora(group, qkv=fns[0],
+                                                 one=fns[1])
     return [({n: v[li] for n, v in xs.items()}, idx, fns)
             for li in range(n_layers)]
 
@@ -128,38 +227,49 @@ def _pregathered_qkv(x, q, k, v, idx):
 
 def _qkv_deltas(cfg: ArchConfig, h, lora, lora_idx, lora_fns):
     """Grouped low-rank q/k/v deltas of the normed input, shaped for
-    ``_project_qkv(deltas=...)`` (pre-RoPE, pre-GQA-reshape)."""
+    ``_project_qkv(deltas=...)`` (pre-RoPE, pre-GQA-reshape).  ``cfg`` is
+    the rank's (its heads); under tensor parallelism the summed deltas
+    are whole and the rank keeps its heads' columns."""
     b, s, _ = h.shape
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = h.contiguous()
     pairs = [(lora["A_" + n], lora["B_" + n]) for n in "qkv"]
     dq, dk, dv = lora_fns[0](h, *pairs, lora_idx)
+    r = act_sharding.tp_rank()
+    dq = dq.narrow(-1, r * H * hd, H * hd)
+    dk = dk.narrow(-1, r * Hk * hd, Hk * hd)
+    dv = dv.narrow(-1, r * Hk * hd, Hk * hd)
     return (dq.reshape(b, s, H, hd), dk.reshape(b, s, Hk, hd),
             dv.reshape(b, s, Hk, hd))
 
 
 def _attn_out(cfg: ArchConfig, p, out, lora, lora_idx, lora_fns):
     """Output projection of the flat attention output plus its LoRA
-    delta (when the dispatch has adapters)."""
+    delta (when the dispatch has adapters).  Under tensor parallelism
+    ``out`` holds the rank's heads and o_proj is row-parallel: the rank's
+    partial product and its partial LoRA delta (over its rank lanes, of
+    the gathered whole ``out``) are summed in one ``all_reduce``."""
     y = A.out_proj(cfg, p["attn"], out)
     if lora is not None:
-        y = y + lora_fns[1](out.contiguous(), lora["A_o"], lora["B_o"],
-                            lora_idx)
-    return y
+        x_o = act_sharding.tp_all_gather(out.contiguous())
+        y = y + lora_fns[1](x_o, lora["A_o"], lora["B_o"], lora_idx)
+    return act_sharding.tp_all_reduce(y)
 
 
 def _channel_mix(cfg: ArchConfig, p, x):
     """The layer's MLP on the pass's rows.  An MoE layer routes x as the
     reference's does, per row of the call: capacity counts each row's own
     tokens, padding rows of a prefill chunk included, and the aux loss is
-    dropped."""
+    dropped.  Under tensor parallelism down_proj is row-parallel and its
+    partial is summed in one ``all_reduce`` (the MoE layer sums its own,
+    expert-parallel)."""
     if "mlp" not in p:
         return x
     h = apply_norm(cfg.norm_kind, x, p["ln2"])
     if cfg.family == "moe":
         y, _ = moe_forward(cfg, p["mlp"], h)
     else:
-        y = mlp_forward(cfg, p["mlp"], h)
+        y = act_sharding.tp_all_reduce(mlp_forward(cfg, p["mlp"], h))
     return x + y
 
 
@@ -286,13 +396,14 @@ def _verify_layer(cfg: ArchConfig, p, x, ck, cv, bt, pos, rows: KVRows,
 
 
 def _multi_query_pass(cfg: ArchConfig, params, state, x, bt, pos,
-                      live: np.ndarray, attn_impl: str, lora_idx):
+                      live: np.ndarray, attn_impl: str, lora_idx, mesh):
     """The layer stack of a verify / bucketed-prefill pass.
 
     x: (S, Q, d); bt, pos: the tables and cursors of its S rows; ``live``
     (S, Q) host mask of the queries that write K/V.  Their targets are
     fixed for the pass: ``bt[s, (pos[s]+i) // bs]`` at ``(pos[s]+i) % bs``,
-    which the scheduler's block accounting keeps inside the table."""
+    which the scheduler's block accounting keeps inside the table.
+    Returns the normed output on the last pipeline stage."""
     dev = x.device
     bs = state["cache_k"].shape[2]
     s_idx, i_idx = np.nonzero(live)
@@ -303,9 +414,11 @@ def _multi_query_pass(cfg: ArchConfig, params, state, x, bt, pos,
     layers = layer_params(params)
     loras = _lora_layers(state, lora_idx, attn_impl, len(layers))
     ck_all, cv_all = state["cache_k"], state["cache_v"]
-    for li, (p, lora) in enumerate(zip(layers, loras)):
-        x = _verify_layer(cfg, p, x, ck_all[li], cv_all[li], bt, pos, rows,
-                          dst, attn_impl, *lora)
+
+    def body(li, x):
+        return _verify_layer(cfg, layers[li], x, ck_all[li], cv_all[li], bt,
+                             pos, rows, dst, attn_impl, *loras[li])
+    x = _staged_scan(mesh, x, body, len(layers))
     return apply_norm(cfg.norm_kind, x, params["ln_f"])
 
 
@@ -316,7 +429,8 @@ def _multi_query_pass(cfg: ArchConfig, params, state, x, bt, pos,
 def make_engine_fns(cfg: ArchConfig, cache: BlockPagedKVCache, *,
                     chunk_size: int, decode_block: int,
                     temperature: float = 0.0, eos_id: Optional[int] = None,
-                    attn_impl: str = "gather"):
+                    attn_impl: str = "gather", mesh=None,
+                    policy: S.ShardingPolicy = S.ShardingPolicy()):
     """Returns ``(prefill_fn, decode_fn)``.
 
     prefill_fn(params, state, tokens (1,C), slot, start, valid)
@@ -325,8 +439,12 @@ def make_engine_fns(cfg: ArchConfig, cache: BlockPagedKVCache, *,
         -> (tokens (n,S), produced (n,S), active (S,), state);  ``active``
         and ``remaining`` are host (numpy) arrays, the outputs stay on
         the device
+
+    On a ``mesh`` (``repro_torch.launch.mesh``), ``params`` and ``state``
+    are this rank's shards, and every rank gets the same logits and
+    tokens.
     """
-    _check_impl(attn_impl)
+    lcfg = _plan(cfg, cache, mesh, policy, attn_impl)
     bs = cache.block_size
 
     def prefill(params, state, tokens, slot: int, start: int, valid: int):
@@ -342,11 +460,16 @@ def make_engine_fns(cfg: ArchConfig, cache: BlockPagedKVCache, *,
                     if "adapter_slots" in state else None)
         loras = _lora_layers(state, lora_idx, attn_impl, len(layers))
         ck_all, cv_all = state["cache_k"], state["cache_v"]
-        for li, (p, lora) in enumerate(zip(layers, loras)):
-            x = _prefill_layer(cfg, p, x, ck_all[li], cv_all[li], bt_slot,
-                               pos_q, dst, start, valid, attn_impl, *lora)
-        x = apply_norm(cfg.norm_kind, x, params["ln_f"])
-        logits = _lm_head(cfg, params, x[:, valid - 1:valid])[0, 0]  # (V,)
+
+        def body(li, x):
+            return _prefill_layer(lcfg, layers[li], x, ck_all[li],
+                                  cv_all[li], bt_slot, pos_q, dst, start,
+                                  valid, attn_impl, *loras[li])
+        x = _staged_scan(mesh, x, body, len(layers))
+        logits = _from_last_stage(
+            mesh, lambda: _lm_head(cfg, params, apply_norm(
+                cfg.norm_kind, x, params["ln_f"])[:, valid - 1:valid])[0, 0],
+            (cfg.vocab_size,), x.dtype, dev)                     # (V,)
         state["pos"][slot] += valid
         return logits, state
 
@@ -373,12 +496,19 @@ def make_engine_fns(cfg: ArchConfig, cache: BlockPagedKVCache, *,
             x = params["embed"][tok][:, None]                    # (S, 1, d)
             wpos = torch.minimum(pos[live], cap).long()
             dst = (bt_live[rows, wpos // bs], wpos % bs, act[live])
-            for li, (p, lora) in enumerate(zip(layers, loras)):
-                x = _decode_layer(cfg, p, x, ck_all[li], cv_all[li], bt, pos,
-                                  live, dst, attn_impl, *lora)
-            x = apply_norm(cfg.norm_kind, x, params["ln_f"])
-            logits = _lm_head(cfg, params, x[:, -1:])[:, 0]      # (S, V)
-            nxt = sample(logits, temperature, generator).to(torch.int32)
+
+            def body(li, x):
+                return _decode_layer(lcfg, layers[li], x, ck_all[li],
+                                     cv_all[li], bt, pos, live, dst,
+                                     attn_impl, *loras[li])
+            x = _staged_scan(mesh, x, body, len(layers))
+
+            def sample_next():
+                h = apply_norm(cfg.norm_kind, x, params["ln_f"])
+                logits = _lm_head(cfg, params, h[:, -1:])[:, 0]  # (S, V)
+                return sample(logits, temperature, generator).to(torch.int32)
+            nxt = _from_last_stage(mesh, sample_next, tok.shape,
+                                   torch.int32, dev)
             produced = act
             hit_eos = ((nxt == eos_id) if eos_id is not None
                        else torch.zeros_like(act))
@@ -397,7 +527,8 @@ def make_engine_fns(cfg: ArchConfig, cache: BlockPagedKVCache, *,
 
 
 def make_verify_fn(cfg: ArchConfig, cache: BlockPagedKVCache, *,
-                   attn_impl: str = "gather"):
+                   attn_impl: str = "gather", mesh=None,
+                   policy: S.ShardingPolicy = S.ShardingPolicy()):
     """Speculative-verify entry point.
 
     verify_fn(params, state, qtoks (S, k+1), active (S,), valid_q (S,))
@@ -411,26 +542,29 @@ def make_verify_fn(cfg: ArchConfig, cache: BlockPagedKVCache, *,
     decides the advance.  Only the live queries of active slots
     (``i < valid_q[s]``, budget-capped) write K/V.
     """
-    _check_impl(attn_impl)
+    lcfg = _plan(cfg, cache, mesh, policy, attn_impl)
 
     def verify(params, state, qtoks, active, valid_q):
         dev = state["pos"].device
         qtoks = np.asarray(qtoks)
-        Q = qtoks.shape[1]
+        S_, Q = qtoks.shape
         x = params["embed"][torch.as_tensor(qtoks, dtype=torch.long,
                                             device=dev)]      # (S, Q, d)
         live = (np.asarray(active, bool)[:, None]
                 & (np.arange(Q)[None, :] < np.asarray(valid_q)[:, None]))
-        x = _multi_query_pass(cfg, params, state, x, state["block_tables"],
+        x = _multi_query_pass(lcfg, params, state, x, state["block_tables"],
                               state["pos"], live, attn_impl,
-                              state.get("adapter_slots"))
-        return _lm_head(cfg, params, x), state                # (S, Q, V)
+                              state.get("adapter_slots"), mesh)
+        logits = _from_last_stage(mesh, lambda: _lm_head(cfg, params, x),
+                                  (S_, Q, cfg.vocab_size), x.dtype, dev)
+        return logits, state                                  # (S, Q, V)
 
     return verify
 
 
 def make_prefill_batch_fn(cfg: ArchConfig, cache: BlockPagedKVCache, *,
-                          attn_impl: str = "gather"):
+                          attn_impl: str = "gather", mesh=None,
+                          policy: S.ShardingPolicy = S.ShardingPolicy()):
     """Bucketed batched prefill-and-insert (traffic admission).
 
     prefill_batch_fn(params, state, qtoks (B, C), slots (B,), valids (B,))
@@ -447,7 +581,7 @@ def make_prefill_batch_fn(cfg: ArchConfig, cache: BlockPagedKVCache, *,
     layer body is the verify pass over the group's tables and cursors;
     each member's first-token logits are read at its last valid position.
     """
-    _check_impl(attn_impl)
+    lcfg = _plan(cfg, cache, mesh, policy, attn_impl)
 
     def prefill_batch(params, state, qtoks, slots, valids):
         dev = state["pos"].device
@@ -462,12 +596,14 @@ def make_prefill_batch_fn(cfg: ArchConfig, cache: BlockPagedKVCache, *,
         live = np.arange(C)[None, :] < valids[:, None]
         lora_idx = (state["adapter_slots"][slots_t]
                     if "adapter_slots" in state else None)
-        x = _multi_query_pass(cfg, params, state, x, bt, pos, live,
-                              attn_impl, lora_idx)
+        x = _multi_query_pass(lcfg, params, state, x, bt, pos, live,
+                              attn_impl, lora_idx, mesh)
         last = torch.as_tensor(np.clip(valids - 1, 0, C - 1),
                                dtype=torch.long, device=dev)
-        h_last = x[torch.arange(B, device=dev), last][:, None]  # (B, 1, d)
-        logits = _lm_head(cfg, params, h_last)[:, 0]           # (B, V)
+        logits = _from_last_stage(
+            mesh, lambda: _lm_head(cfg, params, x[torch.arange(
+                B, device=dev), last][:, None])[:, 0],          # (B, V)
+            (B, cfg.vocab_size), x.dtype, dev)
         adv = torch.as_tensor(np.maximum(valids, 0).astype(np.int32),
                               device=dev)
         state["pos"].index_add_(0, slots_t, adv)

@@ -16,6 +16,14 @@ carries the device adapter pool of multi-tenant LoRA serving.
 Where the reference donates the state through ``jit``, the port updates
 the buffers in place: :meth:`reset_slot` and :meth:`copy_block` write into
 the state's tensors and return the same dict.
+
+On a mesh (``tp``, ``pp`` > 1) each rank allocates its own pool,
+``(n_attn_layers/pp, n_blocks, block_size, n_kv_heads/tp, head_dim)``:
+its stage's layers and its KV heads (the reference's named sharding of
+the pool, as buffers of the rank's own, never views of a whole pool: the
+kernels take contiguous caches).  Its LoRA pool keeps its stage's layers
+and ``lora_max_rank/tp`` rank lanes: A's columns and B's rows.  Block
+tables, cursors and tokens are whole on every rank.
 """
 from __future__ import annotations
 
@@ -67,6 +75,12 @@ class BlockPagedKVCache:
     # per-slot adapter pool-slot index (-1 = base model).
     lora_slots: int = 0
     lora_max_rank: int = 0
+    # this rank's place on a mesh: tensor-parallel ways and index, pipeline
+    # stages and stage (1, 0, 1, 0 on one device)
+    tp: int = 1
+    tp_rank: int = 0
+    pp: int = 1
+    stage: int = 0
 
     def __post_init__(self):
         check_supported(self.cfg)
@@ -75,16 +89,32 @@ class BlockPagedKVCache:
             raise ValueError("cache geometry fields must all be >= 1")
         if self.lora_slots > 0 and self.lora_max_rank < 1:
             raise ValueError("lora_slots > 0 requires lora_max_rank >= 1")
+        if self.lora_slots > 0 and self.lora_max_rank % self.tp:
+            # the reference's refusal: the pool's rank lanes split over tp
+            raise ValueError(
+                f"tensor-parallel grouped LoRA shards the rank axis: "
+                f"tp={self.tp} must divide the padded pool rank "
+                f"{self.lora_max_rank}")
 
     @property
     def max_len(self) -> int:
         """Virtual KV positions addressable by one request's table."""
         return self.max_blocks_per_seq * self.block_size
 
+    @property
+    def n_layers(self) -> int:
+        """Layers of this rank's stage."""
+        return self.cfg.n_layers // self.pp
+
+    @property
+    def lanes(self) -> int:
+        """LoRA rank lanes this rank holds."""
+        return self.lora_max_rank // self.tp
+
     def buffer_shape(self):
         c = self.cfg
-        return (c.n_layers, self.n_blocks, self.block_size,
-                c.n_kv_heads, c.head_dim)
+        return (self.n_layers, self.n_blocks, self.block_size,
+                c.n_kv_heads // self.tp, c.head_dim)
 
     def init_state(self, device="cuda") -> Dict[str, torch.Tensor]:
         """Fresh engine device state: empty block pool + per-slot tables."""
@@ -114,9 +144,10 @@ class BlockPagedKVCache:
 
     def _lora_buffers(self, dev) -> Dict[str, torch.Tensor]:
         """Device adapter pool: (L, lora_slots, k_p, R) / (L, lora_slots,
-        R, n_p) per projection, rank-padded to ``lora_max_rank``."""
+        R, n_p) per projection, rank-padded to ``lora_max_rank`` (on a
+        mesh: the stage's layers and the rank's R/tp lanes)."""
         c = self.cfg
-        L, P, R = c.n_layers, self.lora_slots, self.lora_max_rank
+        L, P, R = self.n_layers, self.lora_slots, self.lanes
         d, H, Hk, hd = c.d_model, c.n_heads, c.n_kv_heads, c.head_dim
         dims = {"q": (d, H * hd), "k": (d, Hk * hd), "v": (d, Hk * hd),
                 "o": (H * hd, d)}
@@ -127,6 +158,14 @@ class BlockPagedKVCache:
             out[f"lora_B_{name}"] = torch.zeros(
                 (L, P, R, n), dtype=LORA_DTYPE, device=dev)
         return out
+
+    def shard_factor(self, name: str, f: torch.Tensor) -> torch.Tensor:
+        """This rank's part of one tenant factor ``A_p (L, k, R)`` or
+        ``B_p (L, R, n)`` (whole, as ``AdapterStore.factors`` gives it):
+        its stage's layers and its rank lanes."""
+        f = f.narrow(0, self.stage * self.n_layers, self.n_layers)
+        lane_dim = 2 if name.startswith("A_") else 1
+        return f.narrow(lane_dim, self.tp_rank * self.lanes, self.lanes)
 
     # ------------------------------------------------------------------
     # slot lifecycle (host-side, between engine steps)
@@ -150,10 +189,10 @@ class BlockPagedKVCache:
         return state
 
     def bytes_per_block(self) -> int:
-        c = self.cfg
+        """Bytes of one block on this rank (its layers and KV heads)."""
         el = torch.empty((), dtype=kv_torch_dtype(self.kv_dtype)).element_size()
-        return (2 * c.n_layers * self.block_size * c.n_kv_heads
-                * c.head_dim * el)
+        _, _, bs, hk, hd = self.buffer_shape()
+        return 2 * self.n_layers * bs * hk * hd * el
 
     def total_bytes(self) -> int:
         return self.n_blocks * self.bytes_per_block()

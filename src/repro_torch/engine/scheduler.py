@@ -1,7 +1,7 @@
 """Continuous-batching scheduler: request queue -> slots -> engine steps.
 
-The PyTorch counterpart of the JAX package's ``engine/scheduler.py`` at
-tp = pp = 1.  Each ``step`` admits queued prompts into free slots
+The PyTorch counterpart of the JAX package's ``engine/scheduler.py``.
+Each ``step`` admits queued prompts into free slots
 (chunked prefill of the cache-miss suffix, radix prefix hits, copy-on-write
 forks, pool and adapter backpressure; with ``prefill_batch > 1`` one
 batched dispatch per chunk index over a same-bucket group) and then runs
@@ -18,6 +18,16 @@ member's ``valid``, a decode block's produced tokens, a speculative
 step's emitted tokens), so building a step's trace reads no device
 memory; the device is synchronised once per admission (the first tokens),
 once per decode block and once per speculative step (the logits).
+
+On a mesh (``Engine(..., mesh=..., policy=...)``, inside a rank started
+by ``repro_torch.launch.mesh.spawn``) every rank runs this same host
+scheduler on the same tokens (the step functions give every rank the
+same logits and tokens), so admissions, prefix hits, copy-on-write forks
+and adapter loads agree on every rank and the ranks' collectives stay in
+step; each rank holds its shard of the weights, of the block pool and of
+the adapter pool.  ``tp``/``pp`` come from the mesh and the trace's
+header carries them; a sharded run returns rank 0's results to its
+caller (``repro_torch.launch.mesh.spawn``, ``api.measure``).
 """
 from __future__ import annotations
 
@@ -32,11 +42,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import DEFAULT_KV_BLOCK_SIZE
 from repro_torch.configs.base import ArchConfig
+from repro_torch.runtime.sharding import ShardingPolicy, pp_degree, tp_degree
 
 from .adapter_pool import LORA_FACTORS, AdapterPool, AdapterStore
 from .block_pool import BlockPool, RadixIndex
-from .decode_loop import (ATTN_IMPLS, make_engine_fns, make_prefill_batch_fn,
-                          make_verify_fn)
+from .decode_loop import (ATTN_IMPLS, _check_impl_and_plan, make_engine_fns,
+                          make_prefill_batch_fn, make_verify_fn)
 from .drafter import make_drafter
 from .kv_cache import BlockPagedKVCache
 from .sampling import sample
@@ -207,15 +218,25 @@ class Engine:
     """Continuous-batching serving engine over a block-paged KV cache."""
 
     def __init__(self, cfg: ArchConfig, params, ec: EngineConfig, *,
-                 device="cuda", drafter=None):
+                 device="cuda", drafter=None, mesh=None,
+                 policy: Optional[ShardingPolicy] = None):
+        """``params`` is the whole tree, or on a ``mesh`` (the reference's
+        ``Engine(cfg, params, mesh, policy, ec)``) this rank's shard of it
+        (``repro_torch.runtime.sharding``); the engine then runs on the
+        mesh's device."""
         if ec.chunk_size > ec.max_len:
             raise ValueError("chunk_size exceeds max_len")
-        self.device = resolve_device(device)
+        policy = policy if policy is not None else ShardingPolicy()
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine runs on {self.device}")
         self.cfg, self.params, self.ec = cfg, params, ec
-        self.tp = self.pp = 1
+        self.mesh, self.policy = mesh, policy
+        _check_impl_and_plan(cfg, mesh, policy, ec.attn_impl)
+        self.tp = tp_degree(mesh, policy)
+        self.pp = pp_degree(mesh, policy)
         self.adapter_store = self.adapter_pool = None
         if ec.lora_tenants > 0:
             self.adapter_store = AdapterStore(
@@ -227,22 +248,25 @@ class Engine:
             max_blocks_per_seq=ec.blocks_per_seq, kv_dtype=ec.kv_dtype,
             lora_slots=ec.adapter_pool_slots,
             lora_max_rank=(self.adapter_store.max_rank
-                           if self.adapter_store else 0))
+                           if self.adapter_store else 0),
+            tp=self.tp, pp=self.pp,
+            tp_rank=mesh.coords[policy.tp_axis] if self.tp > 1 else 0,
+            stage=mesh.coords[policy.pp_axis] if self.pp > 1 else 0)
+        plan = dict(attn_impl=ec.attn_impl, mesh=mesh, policy=policy)
         self.pool = BlockPool(ec.pool_blocks, ec.block_size)
         self.index = RadixIndex(self.pool) if ec.prefix_cache else None
         self.prefill_fn, self.decode_fn = make_engine_fns(
             cfg, self.cache, chunk_size=ec.chunk_size,
             decode_block=ec.decode_block, temperature=ec.temperature,
-            eos_id=ec.eos_id, attn_impl=ec.attn_impl)
+            eos_id=ec.eos_id, **plan)
         self.verify_fn = self.drafter = None
         if ec.spec_k > 0:
-            self.verify_fn = make_verify_fn(cfg, self.cache,
-                                            attn_impl=ec.attn_impl)
+            self.verify_fn = make_verify_fn(cfg, self.cache, **plan)
             self.drafter = drafter if drafter is not None else make_drafter()
         self.prefill_batch_fn = None
         if ec.prefill_batch > 1:
             self.prefill_batch_fn = make_prefill_batch_fn(
-                cfg, self.cache, attn_impl=ec.attn_impl)
+                cfg, self.cache, **plan)
         # speculative acceptance draws: the reference's generator, so the
         # same logits accept the same drafts at temperature > 0
         self._np_rng = np.random.default_rng(ec.seed + 1)
@@ -379,7 +403,8 @@ class Engine:
         if loaded:
             factors = self.adapter_store.factors(req.adapter_id)
             for name in LORA_FACTORS:
-                self.state["lora_" + name][:, pslot].copy_(factors[name])
+                self.state["lora_" + name][:, pslot].copy_(
+                    self.cache.shard_factor(name, factors[name]))
         self.state["adapter_slots"][slot] = pslot
         self._slot_adapter[slot] = req.adapter_id
 
@@ -429,7 +454,12 @@ class Engine:
         """Sample the request's first token from its final prefill logits
         and start decoding it (or finish it at once)."""
         ec = self.ec
-        first = int(sample(logits[None], ec.temperature, self._gen)[0])
+        first = sample(logits[None], ec.temperature, self._gen)
+        if self.pp > 1:
+            # only the last stage samples decode steps, so only its
+            # generator is the run's: its first token is everyone's
+            first = self.mesh.from_last_stage(first.to(torch.int32))
+        first = int(first[0])
         res.first_token = now
         res.tokens.append(first)
         self.state["tok"][slot] = first
@@ -770,7 +800,8 @@ class Engine:
     # ------------------------------------------------------------------
     def run(self, requests: Optional[Sequence[Request]] = None,
             max_steps: int = 100_000) -> List[RequestResult]:
-        """Drain the queue (plus ``requests``) to completion."""
+        """Drain the queue (plus ``requests``) to completion.  On a mesh
+        every rank runs the same steps to the same results."""
         for r in requests or ():
             self.submit(r)
         steps = 0

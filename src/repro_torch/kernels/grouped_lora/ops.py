@@ -183,6 +183,38 @@ def grouped_lora_qkv(x: torch.Tensor,
     return _launch("grouped_lora_qkv", x, [q, k, v], idx, scale)
 
 
+def make_sharded_grouped_lora(group, *, qkv=grouped_lora_qkv,
+                              one=grouped_lora):
+    """Grouped LoRA over the rank axis of a tensor-parallel ``group`` (the
+    reference's ``shard_map`` of the kernel, its ``ops.py:46``).
+
+    Each rank holds ``R/tp`` rank lanes of every pooled adapter: A's
+    columns ``(P, k, R/tp)`` and B's rows ``(P, R/tp, n)``; ``x`` and
+    ``idx`` are whole.  Its delta over those lanes is a partial sum of the
+    whole delta (disjoint lanes: the unsharded contraction reassociated),
+    and the partials are summed over the group.  Returns ``(qkv, one)``:
+
+    * ``qkv(x, (A_q, B_q), (A_k, B_k), (A_v, B_v), idx)`` computes the
+      three deltas (one launch of the kernel) and sums them in one
+      ``all_reduce`` of their concatenation;
+    * ``one(x, A, B, idx)`` returns the rank's partial delta unsummed: its
+      caller adds it to a row-parallel product whose own ``all_reduce``
+      then sums both (the engine's o projection), one collective fewer.
+
+    ``qkv`` and ``one`` default to the kernel's wrappers; the engine's
+    ``gather`` route passes its plain pregathered products."""
+    import torch.distributed as dist
+
+    def sharded_qkv(x, q, k, v, idx):
+        parts = qkv(x, q, k, v, idx)
+        flat = torch.cat(parts, dim=-1)
+        dist.all_reduce(flat, group=group)
+        return tuple(flat.split([d.shape[-1] for d in parts], dim=-1))
+
+    return sharded_qkv, one
+
+
 __all__ = ["LAUNCHES", "SplitPlan", "grouped_lora",
            "grouped_lora_pregathered", "grouped_lora_qkv", "grouped_lora_ref",
-           "load_library", "reset_launch_counts", "split_plan"]
+           "load_library", "make_sharded_grouped_lora",
+           "reset_launch_counts", "split_plan"]

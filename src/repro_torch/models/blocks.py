@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from . import act_sharding
 from .layers import dense, gelu, silu
 
 
@@ -37,9 +38,28 @@ def mlp_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
 #: MoE dispatch mode, as the reference's: "local" (the default) keeps the
 #: batch dimension, so capacity is counted per row; "global" dispatches
 #: the flat tokens with capacity from all of them; "a2a" is the
-#: reference's expert-parallel path, which on one device falls back to
-#: "local" as the reference's does without a mesh
+#: reference's expert-parallel path, which without a tensor-parallel
+#: mesh routes to "local", as the reference's does (its ``:179-181``)
 MOE_DISPATCH = "local"
+#: the stacked expert axis is padded to a multiple of this, so that it
+#: divides an expert-parallel mesh axis (the reference's constant)
+MOE_EXPERT_PAD_TO = 16
+
+
+def padded_experts(E: int) -> int:
+    """E rounded up to a multiple of :data:`MOE_EXPERT_PAD_TO`."""
+    return -(-E // MOE_EXPERT_PAD_TO) * MOE_EXPERT_PAD_TO
+
+
+def pad_experts(w: torch.Tensor, dim: int, to: int) -> torch.Tensor:
+    """The reference's ``_pad_experts`` on one stacked expert leaf: its
+    expert axis ``dim`` zero-padded to ``to`` experts (padded experts are
+    exact zeros, and the router never selects them).  The port pads
+    once, where ``runtime.sharding`` cuts a rank's block of experts, and
+    not on every call as the reference does."""
+    pad = list(w.shape)
+    pad[dim] = to - w.shape[dim]
+    return torch.cat([w, w.new_zeros(pad)], dim=dim) if pad[dim] else w
 
 
 def moe_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor,
@@ -47,11 +67,21 @@ def moe_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, d).  Returns (output (b, s, d), load-balance aux loss).
 
-    The reference pads the expert axis to a multiple of 16 so that it
-    divides an expert-parallel mesh.  The port runs on one device, and
-    padded experts receive no token, so it does not pad: a one-hot over
-    E gives the same slots and the same output, and padding in eager
-    PyTorch would copy every expert's weights on every call."""
+    On one device the port does not pad the expert axis: padded experts
+    receive no token, so a one-hot over E gives the same slots and the
+    same output, and padding in eager PyTorch would copy every expert's
+    weights on every call.
+
+    Under a tensor-parallel hint (``models.act_sharding``) the layer runs
+    expert-parallel, whatever the dispatch mode, as the reference's
+    ``_moe_forward_a2a`` does: ``p`` holds this rank's ``E_pad/tp``
+    experts (cut from the padded axis by ``runtime.sharding``) and its
+    ``1/tp`` of the shared experts' columns, with the router whole.  The
+    rank routes every token, builds the whole capacity buffer, computes
+    its experts only and combines the entries routed to them; the routed
+    and shared partial outputs are summed over the ranks in one
+    ``all_reduce`` (the reference's single psum).  Capacity, drops and
+    combine order are the one-device path's."""
     if MOE_DISPATCH == "global":
         return _moe_forward_global(cfg, p, x, capacity_factor)
     return _moe_forward_local(cfg, p, x, capacity_factor)
@@ -94,20 +124,27 @@ def _dispatch_combine(p: Dict, x: torch.Tensor, weights: torch.Tensor,
 
     Dropped pairs are scattered to an extra slot past the capacity, which
     the expert products never see, so no step reads a count back to the
-    host."""
+    host.  ``p`` holds experts ``lo .. lo + e_loc - 1`` (all of them on
+    one device, this rank's under tensor parallelism, ``lo`` from its tp
+    rank): pairs routed elsewhere are treated as dropped here, so the
+    result is this rank's share of the combine."""
     b, n, d = x.shape
     k = sel.shape[-1]
+    e_loc = p["w_gate"].shape[0]
+    lo = act_sharding.tp_rank() * e_loc
     flat_e = sel.reshape(b, n * k)                               # (b, n·k)
     onehot = F.one_hot(flat_e, n_experts)
     pos = onehot.cumsum(dim=1) - onehot
     pos_in_e = torch.gather(pos, 2, flat_e[..., None])[..., 0]
-    keep = pos_in_e < capacity
+    rel = flat_e - lo
+    keep = (pos_in_e < capacity) & (rel >= 0) & (rel < e_loc)
+    rel = rel.clamp(0, e_loc - 1)
     slot = torch.where(keep, pos_in_e, torch.full_like(pos_in_e, capacity))
     rows = torch.arange(b, device=x.device)[:, None].expand(b, n * k)
-    buf = x.new_zeros((b, n_experts, capacity + 1, d))
-    buf[rows, flat_e, slot] = x.repeat_interleave(k, dim=1)
+    buf = x.new_zeros((b, e_loc, capacity + 1, d))
+    buf[rows, rel, slot] = x.repeat_interleave(k, dim=1)
     out_buf = _experts(p, buf[:, :, :capacity])
-    y_rep = out_buf[rows, flat_e, slot.clamp(max=capacity - 1)]
+    y_rep = out_buf[rows, rel, slot.clamp(max=capacity - 1)]
     y_rep = y_rep.masked_fill(~keep[..., None], 0)
     return (y_rep.reshape(b, n, k, d) * weights[..., None]).sum(dim=2)
 
@@ -126,7 +163,7 @@ def _moe_forward_local(cfg, p, x, capacity_factor):
     y = _dispatch_combine(p, x, weights, sel, E, capacity)
     if "shared_gate" in p:
         y = y + _shared(p, x)
-    return y, aux
+    return act_sharding.tp_all_reduce(y), aux
 
 
 def _moe_forward_global(cfg, p, x, capacity_factor):
@@ -140,7 +177,7 @@ def _moe_forward_global(cfg, p, x, capacity_factor):
     y = _dispatch_combine(p, xt[None], weights[None], sel[None], E, capacity)
     if "shared_gate" in p:
         y = y + _shared(p, xt)
-    return y.reshape(b, s, d), aux
+    return act_sharding.tp_all_reduce(y).reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -104,20 +104,28 @@ class ParamDef:
     #: reference declares f32 (Mamba's ``A_log`` and ``D``, RG-LRU's
     #: ``a_param``) stay f32 in a bf16 tree
     dtype: Optional[torch.dtype] = None
+    #: logical axis names, one per dim, the reference's (``heads``,
+    #: ``kv_heads``, ``mlp``, ``experts``, ``layers``, ...), which
+    #: ``repro_torch.runtime.sharding`` maps onto a mesh
+    axes: Tuple[Optional[str], ...] = ()
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 def norm_defs(kind: str, dim: int) -> Dict:
-    d = {"gamma": ParamDef((dim,), init="ones")}
+    d = {"gamma": ParamDef((dim,), init="ones", axes=("embed",))}
     if kind == "layernorm":
-        d["beta"] = ParamDef((dim,), init="zeros")
+        d["beta"] = ParamDef((dim,), init="zeros", axes=("embed",))
     return d
 
 
 def mlp_defs(cfg: ArchConfig) -> Dict:
     d, f = cfg.d_model, cfg.d_ff
-    defs = {"up": ParamDef((d, f)), "down": ParamDef((f, d))}
+    defs = {"up": ParamDef((d, f), axes=("embed", "mlp")),
+            "down": ParamDef((f, d), axes=("mlp", "embed"))}
     if cfg.gated_mlp:
-        defs["gate"] = ParamDef((d, f))
+        defs["gate"] = ParamDef((d, f), axes=("embed", "mlp"))
     return defs
 
 
@@ -125,12 +133,16 @@ def moe_defs(cfg: ArchConfig) -> Dict:
     """The router, the routed experts ``(E, ...)`` and the shared ones."""
     d, f, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
     fs = cfg.n_shared_experts * f
-    defs = {"router": ParamDef((d, E)), "w_gate": ParamDef((E, d, f)),
-            "w_up": ParamDef((E, d, f)), "w_down": ParamDef((E, f, d))}
+    ex = ("experts", "embed", "expert_mlp")
+    defs = {"router": ParamDef((d, E), axes=("embed", "experts")),
+            "w_gate": ParamDef((E, d, f), axes=ex),
+            "w_up": ParamDef((E, d, f), axes=ex),
+            "w_down": ParamDef((E, f, d),
+                               axes=("experts", "expert_mlp", "embed"))}
     if fs:
-        defs["shared_gate"] = ParamDef((d, fs))
-        defs["shared_up"] = ParamDef((d, fs))
-        defs["shared_down"] = ParamDef((fs, d))
+        defs["shared_gate"] = ParamDef((d, fs), axes=("embed", "mlp"))
+        defs["shared_up"] = ParamDef((d, fs), axes=("embed", "mlp"))
+        defs["shared_down"] = ParamDef((fs, d), axes=("mlp", "embed"))
     return defs
 
 
@@ -141,61 +153,82 @@ def attention_defs(cfg: ArchConfig) -> Dict:
         m = cfg.mla
         qk = m.qk_nope_head_dim + m.qk_rope_head_dim
         return {
-            "q_down": ParamDef((d, m.q_lora_rank)),
-            "q_norm": ParamDef((m.q_lora_rank,), init="ones"),
-            "q_up": ParamDef((m.q_lora_rank, H, qk)),
-            "kv_down": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim)),
-            "kv_norm": ParamDef((m.kv_lora_rank,), init="ones"),
+            "q_down": ParamDef((d, m.q_lora_rank),
+                               axes=("embed", "mla_rank")),
+            "q_norm": ParamDef((m.q_lora_rank,), init="ones",
+                               axes=("mla_rank",)),
+            "q_up": ParamDef((m.q_lora_rank, H, qk),
+                             axes=("mla_rank", "heads", "head_dim")),
+            "kv_down": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                                axes=("embed", "mla_rank")),
+            "kv_norm": ParamDef((m.kv_lora_rank,), init="ones",
+                                axes=("mla_rank",)),
             "kv_up": ParamDef((m.kv_lora_rank, H,
-                               m.qk_nope_head_dim + m.v_head_dim)),
-            "wo": ParamDef((H, m.v_head_dim, d)),
+                               m.qk_nope_head_dim + m.v_head_dim),
+                              axes=("mla_rank", "heads", "head_dim")),
+            "wo": ParamDef((H, m.v_head_dim, d),
+                           axes=("heads", "head_dim", "embed")),
         }
-    defs = {"wq": ParamDef((d, H, hd)), "wk": ParamDef((d, Hk, hd)),
-            "wv": ParamDef((d, Hk, hd)), "wo": ParamDef((H, hd, d))}
+    defs = {"wq": ParamDef((d, H, hd), axes=("embed", "heads", "head_dim")),
+            "wk": ParamDef((d, Hk, hd),
+                           axes=("embed", "kv_heads", "head_dim")),
+            "wv": ParamDef((d, Hk, hd),
+                           axes=("embed", "kv_heads", "head_dim")),
+            "wo": ParamDef((H, hd, d), axes=("heads", "head_dim", "embed"))}
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((H, hd), init="zeros")
-        defs["bk"] = ParamDef((Hk, hd), init="zeros")
-        defs["bv"] = ParamDef((Hk, hd), init="zeros")
+        defs["bq"] = ParamDef((H, hd), init="zeros",
+                              axes=("heads", "head_dim"))
+        defs["bk"] = ParamDef((Hk, hd), init="zeros",
+                              axes=("kv_heads", "head_dim"))
+        defs["bv"] = ParamDef((Hk, hd), init="zeros",
+                              axes=("kv_heads", "head_dim"))
     return defs
 
 
 def cross_attention_defs(cfg: ArchConfig) -> Dict:
     d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
-    return {"wq": ParamDef((d, H, hd)), "wk": ParamDef((d, H, hd)),
-            "wv": ParamDef((d, H, hd)), "wo": ParamDef((H, hd, d))}
+    proj = ("embed", "heads", "head_dim")
+    return {"wq": ParamDef((d, H, hd), axes=proj),
+            "wk": ParamDef((d, H, hd), axes=proj),
+            "wv": ParamDef((d, H, hd), axes=proj),
+            "wo": ParamDef((H, hd, d), axes=("heads", "head_dim", "embed"))}
 
 
 def mamba_defs(cfg: ArchConfig) -> Dict:
     d = cfg.d_model
     di, n = cfg.ssm_expand * d, cfg.ssm_d_state
     dtr = cfg.ssm_dt_rank or max(1, d // 16)
+    inner = ("inner",)
     return {
-        "in_proj": ParamDef((d, 2 * di)),
-        "conv_w": ParamDef((di, cfg.ssm_conv_kernel)),
-        "conv_b": ParamDef((di,), init="zeros"),
-        "x_proj": ParamDef((di, dtr + 2 * n)),
-        "dt_proj": ParamDef((dtr, di)),
-        "dt_bias": ParamDef((di,), init="zeros"),
-        "A_log": ParamDef((di, n), init="mamba_a", dtype=torch.float32),
-        "D": ParamDef((di,), init="ones", dtype=torch.float32),
-        "out_proj": ParamDef((di, d)),
+        "in_proj": ParamDef((d, 2 * di), axes=("embed", "inner")),
+        "conv_w": ParamDef((di, cfg.ssm_conv_kernel), axes=("inner", None)),
+        "conv_b": ParamDef((di,), init="zeros", axes=inner),
+        "x_proj": ParamDef((di, dtr + 2 * n), axes=("inner", None)),
+        "dt_proj": ParamDef((dtr, di), axes=(None, "inner")),
+        "dt_bias": ParamDef((di,), init="zeros", axes=inner),
+        "A_log": ParamDef((di, n), init="mamba_a", dtype=torch.float32,
+                          axes=("inner", "state")),
+        "D": ParamDef((di,), init="ones", dtype=torch.float32, axes=inner),
+        "out_proj": ParamDef((di, d), axes=("inner", "embed")),
     }
 
 
 def rglru_defs(cfg: ArchConfig) -> Dict:
     d = cfg.d_model
     w = cfg.lru_width or d
+    inner = ("inner",)
     return {
-        "linear_x": ParamDef((d, w)),
-        "linear_y": ParamDef((d, w)),
-        "conv_w": ParamDef((w, cfg.ssm_conv_kernel)),
-        "conv_b": ParamDef((w,), init="zeros"),
-        "gate_i_w": ParamDef((w,), init="ones"),
-        "gate_i_b": ParamDef((w,), init="zeros"),
-        "gate_r_w": ParamDef((w,), init="ones"),
-        "gate_r_b": ParamDef((w,), init="zeros"),
-        "a_param": ParamDef((w,), init="ones", dtype=torch.float32),
-        "linear_out": ParamDef((w, d)),
+        "linear_x": ParamDef((d, w), axes=("embed", "inner")),
+        "linear_y": ParamDef((d, w), axes=("embed", "inner")),
+        "conv_w": ParamDef((w, cfg.ssm_conv_kernel), axes=("inner", None)),
+        "conv_b": ParamDef((w,), init="zeros", axes=inner),
+        "gate_i_w": ParamDef((w,), init="ones", axes=inner),
+        "gate_i_b": ParamDef((w,), init="zeros", axes=inner),
+        "gate_r_w": ParamDef((w,), init="ones", axes=inner),
+        "gate_r_b": ParamDef((w,), init="zeros", axes=inner),
+        "a_param": ParamDef((w,), init="ones", dtype=torch.float32,
+                            axes=inner),
+        "linear_out": ParamDef((w, d), axes=("inner", "embed")),
     }
 
 
@@ -223,7 +256,8 @@ def _layer_defs(cfg: ArchConfig, kind: str) -> Dict:
 def _stack_defs(defs: Dict, n: int) -> Dict:
     """Prepend a stacked layer axis of n to every leaf."""
     return {k: (_stack_defs(v, n) if isinstance(v, dict)
-                else dataclasses.replace(v, shape=(n,) + v.shape))
+                else dataclasses.replace(v, shape=(n,) + v.shape,
+                                         axes=("layers",) + v.axes))
             for k, v in defs.items()}
 
 
@@ -239,11 +273,13 @@ def param_defs(cfg: ArchConfig) -> Dict:
     ``(L, ...)`` axis, hybrid and encoder-decoder stacks unrolled as
     ``layers["l{i}"]``; an encoder-decoder adds the stacked ``encoder``."""
     defs: Dict = {
-        "embed": ParamDef((cfg.vocab_size, cfg.d_model)),
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model),
+                          axes=("vocab", "embed")),
         "ln_f": norm_defs(cfg.norm_kind, cfg.d_model),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size))
+        defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
+                                   axes=("embed", "vocab"))
     kinds = cfg.block_kinds()
     if cfg.family in STACKED_FAMILIES:
         defs["layers"] = _stack_defs(_layer_defs(cfg, kinds[0]),
@@ -252,7 +288,8 @@ def param_defs(cfg: ArchConfig) -> Dict:
         defs["layers"] = {f"l{i}": _layer_defs(cfg, k)
                           for i, k in enumerate(kinds)}
     if cfg.family == "vlm":
-        defs["vision_proj"] = ParamDef((cfg.d_model, cfg.d_model))
+        defs["vision_proj"] = ParamDef((cfg.d_model, cfg.d_model),
+                                       axes=("embed", "embed_out"))
     if cfg.family == "encdec":
         enc_layer = {"ln1": norm_defs(cfg.norm_kind, cfg.d_model),
                      "attn": attention_defs(cfg),
@@ -265,38 +302,57 @@ def param_defs(cfg: ArchConfig) -> Dict:
 
 
 def _materialize(defs: Dict, gen: torch.Generator, device: torch.device,
-                 dtype: torch.dtype) -> Dict:
+                 dtype: torch.dtype, keep: Optional[Callable] = None,
+                 path: Tuple[str, ...] = ()) -> Dict:
     out = {}
     for k in sorted(defs):           # a fixed draw order for a given seed
         d = defs[k]
         if isinstance(d, dict):
-            out[k] = _materialize(d, gen, device, dtype)
+            out[k] = _materialize(d, gen, device, dtype, keep, path + (k,))
             continue
         dt = d.dtype or dtype
         if d.init == "zeros":
-            out[k] = torch.zeros(d.shape, dtype=dt, device=device)
+            w = torch.zeros(d.shape, dtype=dt, device=device)
         elif d.init == "ones":
-            out[k] = torch.ones(d.shape, dtype=dt, device=device)
+            w = torch.ones(d.shape, dtype=dt, device=device)
         elif d.init == "mamba_a":
             # Mamba's A_log: log(1..d_state) broadcast over the channels
             n = d.shape[-1]
             a = np.tile(np.arange(1, n + 1, dtype=np.float32),
                         d.shape[:-1] + (1,))
-            out[k] = torch.from_numpy(np.log(a)).to(device=device, dtype=dt)
+            w = torch.from_numpy(np.log(a)).to(device=device, dtype=dt)
         else:
             w = torch.randn(d.shape, generator=gen, dtype=dt, device=device)
-            out[k] = w.mul_(d.scale)
+            w.mul_(d.scale)
+        out[k] = w if keep is None else keep(path + (k,), d.axes, w)
     return out
 
 
+def logical_axes(cfg: ArchConfig) -> Dict:
+    """The tree of each leaf's logical axis names (``ParamDef.axes``), in
+    the parameter tree's nesting."""
+    def axes(defs):
+        return {k: (axes(v) if isinstance(v, dict) else v.axes)
+                for k, v in defs.items()}
+    return axes(param_defs(cfg))
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, *, device="cuda",
-                dtype: torch.dtype = torch.bfloat16) -> Dict:
+                dtype: torch.dtype = torch.bfloat16,
+                keep: Optional[Callable] = None) -> Dict:
     """Random weights from a seeded generator on ``device``: normal with
     std 0.02, norm gains ones, biases zeros, Mamba's ``A_log`` its
     log(1..d_state) (the reference's init rule; the draws differ from
     ``jax.random``'s, so tests that compare the two implementations
-    convert one tree with ``repro_torch.bridge``)."""
+    convert one tree with ``repro_torch.bridge``).
+
+    ``keep(path, axes, leaf)`` is applied to each leaf as soon as it is
+    drawn and its result is kept in the leaf's place: a rank of a mesh
+    keeps its shard (``repro_torch.runtime.sharding.init_shard``) and the
+    whole leaf is freed before the next is drawn, while every leaf is
+    still drawn whole in this order, so the shards are cut from the very
+    weights of the one-device tree."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return _materialize(param_defs(cfg), gen, dev, dtype)
+    return _materialize(param_defs(cfg), gen, dev, dtype, keep)

@@ -469,6 +469,51 @@ def test_gather_equals_paged_engine_with_spec_and_lora(cuda_device):
     assert toks["gather"] == toks["paged"]
 
 
+def _serve_on_rank(mesh, cfg, jobs, prompts):
+    """One rank of :func:`test_tp2_on_one_card_equals_tp1`: its shard of
+    the seed-0 f32 weights, the jobs' tokens."""
+    from repro_torch.runtime.sharding import init_shard
+    params = init_shard(cfg, 0, mesh, device=mesh.device,
+                        dtype=torch.float32)
+    return [_serve_tokens(cfg, params, kw, prompts, mesh)
+            for kw in jobs]
+
+
+def _serve_tokens(cfg, params, kw, prompts, mesh=None):
+    eng = Engine(cfg, params, EngineConfig(**kw), device="cuda", mesh=mesh)
+    tenants = [0, 1, 2, None]
+    return [r.tokens for r in eng.run(
+        [Request(rid=i, prompt=p, max_new=16,
+                 adapter_id=tenants[i] if kw.get("lora_tenants") else None)
+         for i, p in enumerate(prompts)])]
+
+
+def test_tp2_on_one_card_equals_tp1(cuda_device):
+    """llama2-7b at full width with 4 layers, f32 weights and KV: two
+    ranks on the one card (gloo on CUDA tensors, the explicit opt-in),
+    each running K1, K2 and K4 on its 16 heads and 8 of 16 rank lanes,
+    give the one-rank engine's greedy tokens, plain and with LoRA tenants
+    and speculation (K3)."""
+    import dataclasses
+    from repro_torch.launch.mesh import spawn
+    cfg = dataclasses.replace(configs.get("llama2-7b"), n_layers=4)
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 64)).tolist()
+    # f32 KV: a bf16 or int8 cache would round K/V that the
+    # all-reduce's other summation order moved by ~1e-6 to other values
+    # now and then, and part the runs at a near-tie of the logits
+    base = dict(max_slots=2, max_len=96, chunk_size=32, decode_block=4,
+                block_size=16, attn_impl="paged", kv_dtype="fp32")
+    jobs = [base, dict(base, spec_k=4, lora_tenants=4, lora_ranks=(8, 16))]
+    params = init_params(cfg, 0, device=cuda_device, dtype=torch.float32)
+    want = [_serve_tokens(cfg, params, kw, prompts) for kw in jobs]
+    del params
+    torch.cuda.empty_cache()
+    ranks = spawn(_serve_on_rank, (cfg, jobs, prompts), model=2,
+                  device="cuda", share_device=True)
+    assert ranks[0] == want and ranks[1] == want
+
+
 #: the reference's eight flash attention kernel cases, as chip_smoke.py's
 #: FA_CASES: (b, s, L, H, Hk, d, causal, window, q_offset): MHA, GQA, MQA,
 #: ragged s, a decode step, a window, non-causal, head_dim 256

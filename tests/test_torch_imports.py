@@ -64,7 +64,9 @@ def test_port_modules_cover_the_slice():
                 "repro_torch.traffic.simulate", "repro_torch.traffic.slo",
                 "repro_torch.engine.forecast_twin",
                 "repro_torch.api.scenario", "repro_torch.api.report",
-                "repro_torch.api.run", "repro_torch.__main__"):
+                "repro_torch.api.run", "repro_torch.__main__",
+                "repro_torch.launch.mesh", "repro_torch.runtime.sharding",
+                "repro_torch.models.act_sharding"):
         assert mod in names
     # the lockstep slice's model functions
     from repro_torch import models
@@ -105,6 +107,23 @@ def test_importing_the_port_leaves_jax_out():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["n"] >= 22
     assert res["bad"] == []
+
+
+def loaded_reference_modules(mesh):
+    """What a spawned rank finds loaded of JAX and the JAX package."""
+    return sorted(k for k in sys.modules if k == "jax"
+                  or k.startswith("jax.") or k == "repro"
+                  or k.startswith("repro."))
+
+
+def test_a_spawned_rank_leaves_jax_out():
+    """A rank of a mesh (``repro_torch.launch.mesh.spawn``, gloo on the
+    CPU) has neither ``jax`` nor ``repro`` in ``sys.modules``, though the
+    process that starts it may have both."""
+    import jax  # noqa: F401  (the parent has it; the ranks must not)
+    from repro_torch.launch.mesh import spawn
+    assert spawn(loaded_reference_modules, model=2,
+                 device="cpu") == [[], []]
 
 
 @pytest.fixture

@@ -116,8 +116,9 @@ def test_int4_variant_measures_bf16_weights_and_int8_kv(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,mode", [
-    (dict(tp=2), None),
-    (dict(pp=2), None),
+    # ported (item 5): measured on two gloo ranks
+    (dict(tp=2), "engine"),
+    (dict(pp=2), "engine"),
     # ported (ROADMAP queue 1 item 4): measured on the lockstep server
     (dict(model="falcon-mamba-7b"), "legacy-lockstep"),
     (dict(model="recurrentgemma-2b"), "legacy-lockstep"),
@@ -125,20 +126,22 @@ def test_int4_variant_measures_bf16_weights_and_int8_kv(monkeypatch):
     (dict(model="qwen2-moe-a2.7b"), "engine"),
 ], ids=["kw0-item 5", "kw1-item 5", "kw2-item 4", "kw3-item 4", "kw4-None"])
 def test_measure_refuses_what_is_not_ported(kw, mode):
-    """Multi-device scenarios (queue 1 item 5) are refused, naming their
-    item.  The families the engine does not serve, refused until item 4
-    ported the lockstep server, are measured there as the reference
-    measures them: the same extras keys, mode and token counts, no
-    trace; a MoE scenario (item 3) is measured on the engine."""
+    """What the port once refused, naming its ROADMAP item, it now
+    measures.  Multi-device scenarios (item 5), refused until it was
+    ported, run on two gloo ranks and report their plan.  The families
+    the engine does not serve, refused until item 4 ported the lockstep
+    server, are measured there as the reference measures them: the same
+    extras keys, mode and token counts, no trace; a MoE scenario (item 3)
+    is measured on the engine."""
     scn = dict(SCN, **kw)
-    if mode is None:
-        with pytest.raises(NotImplementedError, match=r"item 5\b"):
-            api.measure(api.Scenario(**scn), device="cpu")
-        return
     rep = api.measure(api.Scenario(**scn), device="cpu")
     assert rep.extras["mode"] == mode
     if mode == "engine":
         assert rep.extras["tokens"] == 3 * 6
+        assert rep.extras["tp"] == scn.get("tp", 1)
+        assert rep.extras["pp"] == scn.get("pp", 1)
+        assert (rep.trace[0].tp, rep.trace[0].pp) == (rep.extras["tp"],
+                                                      rep.extras["pp"])
         return
     ref = rapi.measure(rapi.Scenario(**scn))
     assert sorted(rep.extras) == sorted(ref.extras)
