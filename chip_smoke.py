@@ -115,7 +115,7 @@ caught and ignored):
               api.measure against api.forecast on nvidia-h100),
               recurrentgemma-2b (4 x 2048 unchunked: its 8 local layers
               through K6 on the fma body, the first held to the plain
-              blockwise loop; 32 decode steps on the ring),
+              blockwise loop; 63 decode steps on the ring),
               llama2-7b-mla (4 x (512 + 64), bf16 then int8 KV),
               whisper-base (4 x (16 + 64), 1500 encoder frames at
               prefill), llama2-7b (1 x 4096 over a 5120-position cache:
@@ -137,9 +137,22 @@ caught and ignored):
               tp=1's; at 4 layers in f32 weights every plan's tokens
               equal tp=1's with f32 KV (with bf16 and int8 KV too at pp;
               at tp their share is reported); then api.measure at tp=2
-              against api.forecast for 2 x nvidia-h100.  The kernels
-              phase holds K1-K4 to their plain versions at a tp=2 rank's
-              shapes too.
+              against api.forecast for 2 x nvidia-h100.  Then the
+              lockstep Server on a mesh (the lockstep phase's runs, its
+              tp=1 records reused where it ran): at tp=2 falcon-mamba-7b,
+              recurrentgemma-2b (K6 on fma at 5 query heads over the one
+              KV head), llama2-7b-mla (bf16, int8 KV), whisper-base and
+              llama2-7b 1 x 4096 (K6 on mma at 16 heads), each rank's K6
+              launches counted and its first held to the plain loop;
+              falcon-mamba-7b at pp=2; TTFT, TPOT and TPS against tp=1's,
+              ms per all_reduce or stage hop, shard and peak memory per
+              rank, the share of tokens equal to tp=1's; at 4 layers in
+              f32 weights tp=1's tokens exactly for falcon-mamba-7b in
+              every plan, for every family at pp=2 and with f32 KV at
+              tp (bf16 and int8 KV at tp: the share); then api.measure
+              of falcon-mamba-7b at tp=2 against api.forecast for 2 x
+              nvidia-h100.  The kernels phase holds K1-K4 and K6 to their
+              plain versions at a tp=2 rank's shapes too.
 
 ``--phases profile`` (run only when named) profiles engine steps and one
 training step of the train phase's configuration.
@@ -147,7 +160,8 @@ training step of the train phase's configuration.
 The last lines are the quant/measure, moe/vlm/lockstep, multidevice,
 train and engine JSON summaries, the kernels' JSON record (K1-K4
 launches summed over the engine, moe and multidevice phases, K6's over
-the train phase and the lockstep prefills), the card's name and power
+the train phase and the lockstep prefills on one rank and on a mesh),
+the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  A phase that fails prints
 ``[fail] <phase>: ...`` on stdout; the script exits non-zero.
 """
@@ -1208,6 +1222,13 @@ def phase_kernels(device, results):
     check_verify(device, gen, shapes, worst, results)
     check_grouped_lora(device, gen, worst, results)
     check_flash(device, gen, worst, results)
+    # K6 at a tp = 2 rank's lockstep shapes, early in the process (where
+    # profiles come back whole)
+    results["flash_fwd"]["more_shapes"] = (
+        results["flash_fwd"].get("more_shapes", [])
+        + [dict(rec, shape=f"{rec['shape']} ({arch}, a tp=2 rank)")
+           for arch, case in K6_LOCKSTEP_TP2.items()
+           for rec in [_time_k6_lockstep(case, device, "kernels")]])
     check_quant_matmul(device, gen, worst, results)
     for name, recs in sharded.items():   # a tp = 2 rank's shapes
         results[name]["more_shapes"] = (results[name].get("more_shapes", [])
@@ -2652,13 +2673,15 @@ class _SsmRanges:
 
 def _serve_lockstep(tag, cfg, params, device, *, batch, prompt_len, n_new,
                     chunk=None, kv="bf16", max_len=None, extra=None, seed=0,
-                    capture=False):
-    """The port's lockstep ``Server`` on ``batch`` random prompts, greedy:
-    an untimed two-token warm-up (with ``capture``, the first blockwise
-    call is kept for :meth:`_Capture.held`), then a timed run with the
-    launch counts zeroed before it and read after it, in two legs as
-    ``api.measure`` times them: TTFT (prefill and the first token), TPOT
-    (the other tokens), TPS, peak memory.  Returns (record, server,
+                    capture=False, mesh=None):
+    """The port's lockstep ``Server`` (on this rank of ``mesh``, if
+    given) on ``batch`` random prompts, greedy: an untimed two-token
+    warm-up (with ``capture``, the first blockwise call is kept for
+    :meth:`_Capture.held`), then a timed run with the launch counts
+    zeroed before it and read after it, in two legs as ``api.measure``
+    times them: TTFT (prefill and the first token), TPOT (the other
+    tokens), TPS, peak memory; the record's ``tokens`` are the greedy
+    tokens.  On a mesh only rank 0 logs.  Returns (record, server,
     state, last tokens, capture)."""
     import torch
     from repro_torch.engine.sampling import sample
@@ -2671,7 +2694,7 @@ def _serve_lockstep(tag, cfg, params, device, *, batch, prompt_len, n_new,
     max_len = max_len or prompt_len + n_new + 8
     server = Server(cfg, params, ServeConfig(batch=batch, max_len=max_len,
                                              chunk_size=chunk, kv_dtype=kv),
-                    device=device)
+                    device=device, mesh=mesh)
     cap = _Capture() if capture else None
     if cap:
         with cap:
@@ -2714,12 +2737,14 @@ def _serve_lockstep(tag, cfg, params, device, *, batch, prompt_len, n_new,
                tpot_ms=(wall - ttft) / max(n_new - 1, 1) * 1e3,
                tps=batch * n_new / wall, wall_s=wall,
                peak_mem_gb=torch.cuda.max_memory_allocated(device) / 1e9,
-               k6_launches=launches["flash_fwd"], k6_bodies=bodies)
-    log(f"[lockstep] {tag}: {batch} x ({prompt_len} + {n_new})"
-        f"{f' in chunks of {chunk}' if chunk else ''}, {kv} KV: TTFT "
-        f"{rec['ttft_ms']:.2f} ms, TPOT {rec['tpot_ms']:.3f} ms, TPS "
-        f"{rec['tps']:.1f}, peak memory {rec['peak_mem_gb']:.2f} GB, K6 "
-        f"launches {launches['flash_fwd']} {bodies}; wall {wall:.2f} s")
+               k6_launches=launches["flash_fwd"], k6_bodies=bodies,
+               tokens=toks.tolist())
+    if mesh is None or mesh.rank == 0:
+        log(f"[lockstep] {tag}: {batch} x ({prompt_len} + {n_new})"
+            f"{f' in chunks of {chunk}' if chunk else ''}, {kv} KV: TTFT "
+            f"{rec['ttft_ms']:.2f} ms, TPOT {rec['tpot_ms']:.3f} ms, TPS "
+            f"{rec['tps']:.1f}, peak memory {rec['peak_mem_gb']:.2f} GB, K6 "
+            f"launches {launches['flash_fwd']} {bodies}; wall {wall:.2f} s")
     return rec, server, state, tok, cap
 
 
@@ -2758,16 +2783,18 @@ def _profile_lockstep_step(tag, server, state, tok):
     return out
 
 
-def _lockstep_measure(device):
+def _lockstep_measure(device, tp: int = 1):
     """``api.measure`` on falcon-mamba-7b (the lockstep branch: 4 x (512 +
-    64), chunk 256) beside ``api.forecast(..., "nvidia-h100")`` of the same
-    scenario, each metric's relative error (a finding, not a gate)."""
+    64), chunk 256; at ``tp > 1`` its ranks share this card over gloo)
+    beside ``api.forecast(..., "nvidia-h100")`` of the same scenario (of
+    ``tp`` cards), each metric's relative error (a finding, not a
+    gate)."""
     import math
     from repro_torch import api
 
     scn = api.Scenario(model="falcon-mamba-7b", variant="bf16-bf16", batch=4,
-                       prompt_len=512, gen_len=64, chunk=256, seed=0)
-    measured = api.measure(scn, device=device)
+                       prompt_len=512, gen_len=64, chunk=256, seed=0, tp=tp)
+    measured = api.measure(scn, device=device, share_device=tp > 1)
     ex = measured.extras
     check(ex["mode"] == "legacy-lockstep" and ex["tokens"] == 4 * 64
           and all(map(math.isfinite, (measured.ttft_s, measured.tpot_s,
@@ -2778,8 +2805,12 @@ def _lockstep_measure(device):
                       rel_err=m.rel_err)
            for name, m in (("ttft_s", d.ttft), ("tpot_s", d.tpot),
                            ("tps", d.tps))}
-    log(f"[measure] falcon-mamba-7b declared forecast on nvidia-h100 vs "
-        f"measured on {measured.hardware} (lockstep): "
+    where = (f"nvidia-h100 vs measured on {measured.hardware}" if tp == 1
+             else f"{tp} x nvidia-h100 vs measured by {tp} ranks sharing "
+             f"one {measured.hardware} over gloo (not a {tp}-card "
+             f"measurement)")
+    log(f"[measure] falcon-mamba-7b tp={tp} declared forecast on {where} "
+        f"(lockstep): "
         + "; ".join(f"{n} {v['forecast']:.6g} vs {v['measured']:.6g} "
                     f"(rel err {v['rel_err']:+.4f})" for n, v in out.items()))
     return out
@@ -2790,9 +2821,14 @@ def _lockstep_measure(device):
 #: llama2-7b's layers at a 4096-token prompt over a 5120-position cache
 K6_LOCKSTEP = {"recurrentgemma-2b": (4, 2048, 2048, 10, 1, 256, True, 2048, 0),
                "llama2-7b": (1, 4096, 5120, 32, 32, 128, True, None, 0)}
+#: the same at a tp = 2 rank's heads: recurrentgemma-2b's 5 of 10 query
+#: heads over its one KV head (kept whole), llama2-7b's 16 of 32
+K6_LOCKSTEP_TP2 = {
+    "recurrentgemma-2b": (4, 2048, 2048, 5, 1, 256, True, 2048, 0),
+    "llama2-7b": (1, 4096, 5120, 16, 16, 128, True, None, 0)}
 
 
-def _time_k6_lockstep(case, device):
+def _time_k6_lockstep(case, device, tag="lockstep"):
     """K6 at a lockstep shape (bf16, the body ``flash_body`` picks) held
     to the plain blockwise loop, then timed (events and device time)
     beside the plain loop, SDPA with an explicit boolean mask (its device
@@ -2835,13 +2871,13 @@ def _time_k6_lockstep(case, device):
                **device_rec("library_device_ms", sdpa),
                bound_ms=bound, bound_by=bound_by, max_abs_err=err,
                err_ratio=worst[0], shape=shape)
-    log(f"[lockstep] K6 at {shape} on {rec['body']}: {rec['ms']:.4f} ms "
+    log(f"[{tag}] K6 at {shape} on {rec['body']}: {rec['ms']:.4f} ms "
         f"(device {fmt_ms(rec['device_ms'])}), plain blockwise "
         f"{rec['plain_ms']:.4f} ms, SDPA with a boolean mask "
         f"{rec['library_ms']:.4f} ms (device "
         f"{fmt_ms(rec['library_device_ms'])}), bound {bound:.4f} ms "
         f"({bound_by})")
-    _log_misses("lockstep", rec)
+    _log_misses(tag, rec)
     return rec
 
 
@@ -2855,17 +2891,62 @@ def _log_misses(tag: str, rec: dict) -> None:
                 f"kernel, per try: {why.get('tries')}")
 
 
+#: the lockstep serving runs at full width and depth, by tag: (arch,
+#: ``_serve_lockstep`` keywords).  The lockstep phase serves each on one
+#: rank, the multidevice phase on a mesh.
+LOCKSTEP_RUNS = {
+    "falcon-mamba-7b": ("falcon-mamba-7b", dict(
+        batch=4, prompt_len=512, n_new=64, chunk=256)),
+    "recurrentgemma-2b": ("recurrentgemma-2b", dict(
+        batch=4, prompt_len=2048, n_new=64, capture=True)),
+    "llama2-7b-mla bf16": ("llama2-7b-mla", dict(
+        batch=4, prompt_len=512, n_new=64, chunk=256, kv="bf16")),
+    "llama2-7b-mla int8": ("llama2-7b-mla", dict(
+        batch=4, prompt_len=512, n_new=64, chunk=256, kv="int8")),
+    "whisper-base": ("whisper-base", dict(batch=4, prompt_len=16, n_new=64)),
+    "llama2-7b": ("llama2-7b", dict(batch=1, prompt_len=4096, n_new=64,
+                                    max_len=5120, capture=True)),
+}
+#: each run's one-rank record with its greedy tokens, kept by the
+#: lockstep phase for the multidevice phase's comparison
+TP1_LOCKSTEP: dict = {}
+
+
+def _lockstep_extra(cfg, device):
+    """whisper-base's 1500 random encoder frames for 4 prompts (seed 8,
+    bf16, at prefill); nothing for the other families."""
+    import torch
+    if cfg.family != "encdec":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    return {"frames": torch.randn((4, cfg.encoder_len, cfg.d_model),
+                                  generator=gen, device=device).to(
+        torch.bfloat16)}
+
+
+def _run_lockstep(tag, cfg, params, device, mesh=None):
+    """:func:`_serve_lockstep` of ``LOCKSTEP_RUNS[tag]``; on one rank its
+    record and tokens are kept in ``TP1_LOCKSTEP``."""
+    kw = LOCKSTEP_RUNS[tag][1]
+    out = _serve_lockstep(tag, cfg, params, device, mesh=mesh,
+                          extra=_lockstep_extra(cfg, device), **kw)
+    if mesh is None:
+        TP1_LOCKSTEP[tag] = dict(out[0])
+    return out
+
+
 def phase_lockstep(device, summary, engine_tpot_ms=None):
     """The lockstep ``Server`` (``repro_torch.runtime.serve``) at full
     width and depth, random bf16 weights from seed 0, each model freed
     before the next: falcon-mamba-7b (4 x (512 + 64) in chunks of 256, a
     profiled decode step, ``api.measure`` against the forecast);
     recurrentgemma-2b (4 x 2048 unchunked, so its 8 local layers take the
-    blockwise branch through K6, then 32 decode steps on the ring);
+    blockwise branch through K6, then 63 decode steps on the ring);
     llama2-7b-mla (4 x (512 + 64) in chunks of 256, bf16 then int8 KV);
     whisper-base (4 x (16 + 64), 1500 random encoder frames at prefill);
     llama2-7b (1 x 4096 over a 5120-position cache: 32 K6 launches on the
-    dense branch, 16 decode steps).  K6 launches are zeroed before each
+    dense branch, 63 decode steps).  K6 launches are zeroed before each
     timed run and read after it; each checked K6 output is held to the
     plain blockwise loop; llama2-7b's TPOT is printed beside the engine
     phase's TPOT p50 (``engine_tpot_ms``) where that phase ran.  Then K6
@@ -2899,9 +2980,8 @@ def phase_lockstep(device, summary, engine_tpot_ms=None):
 
     # falcon-mamba-7b
     cfg, params = load("falcon-mamba-7b")
-    rec, server, state, tok, _ = _serve_lockstep(
-        "falcon-mamba-7b", cfg, params, device, batch=4, prompt_len=512,
-        n_new=64, chunk=256)
+    rec, server, state, tok, _ = _run_lockstep("falcon-mamba-7b", cfg,
+                                               params, device)
     rec["profile"] = _profile_lockstep_step("falcon-mamba-7b", server,
                                             state, tok)
     out["falcon-mamba-7b"] = rec
@@ -2913,9 +2993,8 @@ def phase_lockstep(device, summary, engine_tpot_ms=None):
     # recurrentgemma-2b: the local layers' blockwise branch through K6
     cfg, params = load("recurrentgemma-2b")
     n_local = cfg.block_kinds().count("attn")
-    rec, server, state, _, cap = _serve_lockstep(
-        "recurrentgemma-2b", cfg, params, device, batch=4, prompt_len=2048,
-        n_new=33, capture=True)
+    rec, server, state, _, cap = _run_lockstep("recurrentgemma-2b", cfg,
+                                               params, device)
     count_k6(rec, n_local, fa_ops.flash_body(torch.bfloat16, cfg.head_dim))
     rec["k6_first_layer"] = cap.held("recurrentgemma-2b")
     out["recurrentgemma-2b"] = rec
@@ -2926,9 +3005,8 @@ def phase_lockstep(device, summary, engine_tpot_ms=None):
     cfg, params = load("llama2-7b-mla")
     out["llama2-7b-mla"] = {}
     for kv in ("bf16", "int8"):
-        rec, server, state, _, _ = _serve_lockstep(
-            f"llama2-7b-mla {kv}", cfg, params, device, batch=4,
-            prompt_len=512, n_new=64, chunk=256, kv=kv)
+        rec, server, state, _, _ = _run_lockstep(f"llama2-7b-mla {kv}", cfg,
+                                                 params, device)
         out["llama2-7b-mla"][kv] = rec
         del server, state
     del params
@@ -2936,24 +3014,18 @@ def phase_lockstep(device, summary, engine_tpot_ms=None):
 
     # whisper-base: encoder frames at prefill
     cfg, params = load("whisper-base")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(8)
-    frames = torch.randn((4, cfg.encoder_len, cfg.d_model), generator=gen,
-                         device=device).to(torch.bfloat16)
-    rec, server, state, _, _ = _serve_lockstep(
-        "whisper-base", cfg, params, device, batch=4, prompt_len=16,
-        n_new=64, extra={"frames": frames})
+    rec, server, state, _, _ = _run_lockstep("whisper-base", cfg, params,
+                                             device)
     check(bool(state["cross_k"].abs().sum() > 0), "lockstep whisper-base: "
           "the cross K/V were not encoded from the frames")
     out["whisper-base"] = rec
-    del server, state, params, frames
+    del server, state, params
     torch.cuda.empty_cache()
 
     # llama2-7b: a 4096-token prompt takes the dense blockwise branch
     cfg, params = load("llama2-7b")
-    rec, server, state, _, cap = _serve_lockstep(
-        "llama2-7b", cfg, params, device, batch=1, prompt_len=4096,
-        n_new=17, max_len=5120, capture=True)
+    rec, server, state, _, cap = _run_lockstep("llama2-7b", cfg, params,
+                                               device)
     count_k6(rec, cfg.n_layers, fa_ops.flash_body(torch.bfloat16,
                                                   cfg.head_dim))
     rec["k6_first_layer"] = cap.held("llama2-7b")
@@ -2973,6 +3045,11 @@ def phase_lockstep(device, summary, engine_tpot_ms=None):
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[lockstep] K6 launches {out['k6_launches']} {out['k6_bodies']}; "
         f"phase wall {out['wall_s']:.1f} s")
+    for rec in (out[a] for a in ("falcon-mamba-7b", "recurrentgemma-2b",
+                                 "whisper-base", "llama2-7b")):
+        rec.pop("tokens")
+    for rec in out["llama2-7b-mla"].values():
+        rec.pop("tokens")
     summary["lockstep"] = out
 
 
@@ -3174,6 +3251,213 @@ def _md_collectives(mesh, width: int) -> dict:
     return out
 
 
+#: the lockstep worlds: (tp, pp, ``LOCKSTEP_RUNS`` served at full width
+#: and depth in bf16, families whose 4-layer f32 tokens are held to tp =
+#: 1's with each of ``MDL_KVS``)
+MDL_FAMILIES = ("falcon-mamba-7b", "recurrentgemma-2b", "llama2-7b-mla",
+                "whisper-base")
+MDL_WORLDS = (
+    (2, 1, tuple(LOCKSTEP_RUNS), MDL_FAMILIES),
+    (1, 2, ("falcon-mamba-7b",), MDL_FAMILIES),
+)
+MDL_KVS = ("fp32", "bf16", "int8")
+
+
+def _mdl_exact(arch: str, kv: str, tp: int) -> bool:
+    """Whether a lockstep parity job must give tp = 1's tokens exactly:
+    at pp (the stages run tp = 1's op sequence), falcon-mamba-7b (no KV
+    cache to round the all-reduce's other sum order), and f32 caches;
+    bf16 or int8 KV at tp report the share (``_md_exact``)."""
+    return tp == 1 or arch == "falcon-mamba-7b" or kv == "fp32"
+
+
+def _mdl_parity_tokens(cfg, params, kv, device, mesh=None):
+    """A lockstep parity job's greedy tokens: 2 random prompts of 48 in
+    chunks of 16 (and whisper-base's 1500 random f32 frames), 16 new
+    tokens, on one device or on this rank of ``mesh``."""
+    import torch
+    from repro_torch.runtime import ServeConfig, Server
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen,
+                            device=device)
+    extra = None
+    if cfg.family == "encdec":
+        extra = {"frames": torch.randn((2, cfg.encoder_len, cfg.d_model),
+                                       generator=gen, device=device)}
+    sc = ServeConfig(batch=2, max_len=72, chunk_size=16, kv_dtype=kv)
+    toks, _ = Server(cfg, params, sc, device=device, mesh=mesh).generate(
+        prompts, 16, extra=extra)
+    return toks.tolist()
+
+
+def _mdl_rank(mesh, runs, parity):
+    """One rank of a lockstep world (every rank on the one card): for each
+    run its shard of the seed-0 bf16 weights at full width and depth,
+    drawn leaf by leaf, and :func:`_run_lockstep` with this process's
+    launch counts zeroed before the timed run and read after it (the
+    first K6 call held to the plain loop), the collectives' ms at the
+    model's width; then the 4-layer f32 parity tokens.  Returns what the
+    parent checks."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.runtime.sharding import init_shard
+
+    dev = mesh.device
+    out = dict(rank=mesh.rank, coords=dict(mesh.coords),
+               backend=mesh.backend, runs={}, parity={})
+    for tag in runs:
+        arch = LOCKSTEP_RUNS[tag][0]
+        cfg = configs.get(arch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_shard(cfg, 0, mesh, device=dev)
+        torch.cuda.synchronize(dev)
+        init = dict(init_s=time.perf_counter() - t0,
+                    params_gb=sum(t.numel() * t.element_size()
+                                  for t in _leaves(params)) / 1e9,
+                    init_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        rec, server, state, _, cap = _run_lockstep(tag, cfg, params, dev,
+                                                   mesh)
+        rec.update(init, state_gb=sum(
+            t.numel() * t.element_size() for k, t in state.items()
+            if k != "pos") / 1e9, collectives=_md_collectives(
+                mesh, cfg.d_model))
+        if cap:
+            rec["k6_first_layer"] = cap.held(f"{tag} rank {mesh.rank}")
+        out["runs"][tag] = rec
+        del params, server, state, cap
+        torch.cuda.empty_cache()
+    for arch in parity:
+        cfg4 = dataclasses.replace(configs.get(arch),
+                                   n_layers=MD_PARITY_LAYERS)
+        params = init_shard(cfg4, 0, mesh, device=dev, dtype=torch.float32)
+        out["parity"][arch] = {kv: _mdl_parity_tokens(cfg4, params, kv, dev,
+                                                      mesh)
+                               for kv in MDL_KVS}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _md_lockstep(device, out, card):
+    """The lockstep worlds of ``MDL_WORLDS``, each freed before the next,
+    against one rank in this process: the lockstep phase's records where
+    it ran (else each run here first) and the 4-layer f32 parity tokens;
+    then ``api.measure`` of falcon-mamba-7b at tp = 2.  Returns the K6
+    launches and bodies summed over every rank."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import init_params
+
+    fa_ops = _kernel_ops()[2]
+    k6 = {"launches": 0, "bodies": {b: 0 for b in fa_ops.BODIES}}
+    refs = {}
+    for arch in dict.fromkeys(a for w in MDL_WORLDS for a in w[3]):
+        cfg4 = dataclasses.replace(configs.get(arch),
+                                   n_layers=MD_PARITY_LAYERS)
+        params = init_params(cfg4, 0, device=device, dtype=torch.float32)
+        refs[arch] = {kv: _mdl_parity_tokens(cfg4, params, kv, device)
+                      for kv in MDL_KVS}
+        del params
+        torch.cuda.empty_cache()
+    for tag in dict.fromkeys(t for w in MDL_WORLDS for t in w[2]):
+        if tag not in TP1_LOCKSTEP:           # the lockstep phase's, or:
+            arch = LOCKSTEP_RUNS[tag][0]
+            cfg = configs.get(arch)
+            params = init_params(cfg, 0, device=device)
+            _run_lockstep(tag, cfg, params, device)
+            del params
+            torch.cuda.empty_cache()
+    worlds = {}
+    for tp, pp, runs, parity in MDL_WORLDS:
+        label = f"lockstep tp={tp} x pp={pp}"
+        t0 = time.perf_counter()
+        ranks = spawn(_mdl_rank, (runs, parity), model=tp, pipe=pp,
+                      device=device, share_device=True)
+        world = dict(wall_s=time.perf_counter() - t0, runs={}, parity={})
+        check(all(r["backend"] == "gloo" for r in ranks),
+              f"{label}: ranks sharing a card must run gloo")
+        for tag in runs:
+            arch, kw = LOCKSTEP_RUNS[tag]
+            cfg = configs.get(arch)
+            recs = [r["runs"][tag] for r in ranks]
+            first, one = recs[0], TP1_LOCKSTEP[tag]
+            want_k6 = {"recurrentgemma-2b": cfg.block_kinds().count("attn"),
+                       "llama2-7b": cfg.n_layers}.get(tag, 0) // pp
+            body = fa_ops.flash_body(torch.bfloat16, cfg.head_dim or 128)
+            for r, rec in zip(ranks, recs):
+                where = f"{label} {tag} rank {r['rank']}"
+                check(rec["tokens"] == first["tokens"],
+                      f"{where}: its tokens are not rank 0's")
+                check(rec["k6_launches"] == want_k6 and (
+                    not want_k6 or rec["k6_bodies"].get(body) == want_k6),
+                      f"{where}: K6 launches {rec['k6_launches']} "
+                      f"{rec['k6_bodies']}, expected {want_k6} on {body}")
+                k6["launches"] += rec["k6_launches"]
+                for b_, n in rec["k6_bodies"].items():
+                    k6["bodies"][b_] += n
+            pairs = [(a, b) for g, w_ in zip(first["tokens"], one["tokens"])
+                     for a, b in zip(g, w_)]
+            same = sum(a == b for a, b in pairs) / len(pairs)
+            keys = ("ttft_ms", "tpot_ms", "tps")
+            w = dict({k: first[k] for k in keys},
+                     tp1={k: one[k] for k in keys},
+                     ratio={k: first[k] / one[k] for k in keys},
+                     same_tokens_as_tp1=same,
+                     k6_launches=sum(r["k6_launches"] for r in recs),
+                     k6_first_layer=[r.get("k6_first_layer") for r in recs],
+                     ranks=[dict(coords=r["coords"], **{k: rec[k] for k in (
+                         "params_gb", "state_gb", "init_s", "init_peak_gb",
+                         "peak_mem_gb", "collectives")})
+                         for r, rec in zip(ranks, recs)])
+            world["runs"][tag] = w
+            log(f"[multidevice] {label} {tag}: {kw['batch']} x "
+                f"({kw['prompt_len']} + {kw['n_new']}), {tp * pp} ranks on "
+                f"one card ({card}), gloo: TTFT {w['ttft_ms']:.2f} ms "
+                f"({w['ratio']['ttft_ms']:.2f}x tp=1's "
+                f"{one['ttft_ms']:.2f}), TPOT {w['tpot_ms']:.3f} ms "
+                f"({w['ratio']['tpot_ms']:.2f}x {one['tpot_ms']:.3f}), TPS "
+                f"{w['tps']:.1f} ({w['ratio']['tps']:.2f}x {one['tps']:.1f});"
+                f" bf16 tokens equal to tp=1's: {same:.4f}; K6 launches over "
+                f"its ranks {w['k6_launches']}")
+            for r in w["ranks"]:
+                log(f"[multidevice] {label} {tag} rank {r['coords']}: shard "
+                    f"{r['params_gb']:.2f} GB + state {r['state_gb']:.3f} GB,"
+                    f" drawn in {r['init_s']:.1f} s (peak while drawing "
+                    f"{r['init_peak_gb']:.2f} GB), peak serving "
+                    f"{r['peak_mem_gb']:.2f} GB; gloo ms per call: "
+                    + ", ".join(f"{k[:-3]} {v:.3f}"
+                                for k, v in r["collectives"].items()))
+        for arch in parity:
+            for kv in MDL_KVS:
+                want = refs[arch][kv]
+                for r in ranks:
+                    check(r["parity"][arch][kv] == ranks[0]["parity"][arch][kv],
+                          f"{label} parity {arch} {kv}: rank {r['rank']}'s "
+                          f"tokens are not rank 0's")
+                got = ranks[0]["parity"][arch][kv]
+                pairs = [(a, b) for g, w_ in zip(got, want)
+                         for a, b in zip(g, w_)]
+                share = sum(a == b for a, b in pairs) / len(pairs)
+                world["parity"][f"{arch} {kv}"] = share
+                what = (f"{label} parity {arch} {kv} KV (f32 weights, "
+                        f"{MD_PARITY_LAYERS} layers, full width)")
+                if _mdl_exact(arch, kv, tp):
+                    check(got == want, f"{what}: tokens differ from tp=1's")
+                log(f"[multidevice] {what}: greedy tokens "
+                    + ("== tp=1's" if got == want else
+                       f"equal to tp=1's: {share:.4f} (a finding, not a "
+                       f"gate)"))
+        log(f"[multidevice] {label}: world of {tp * pp} ranks in "
+            f"{world['wall_s']:.1f} s")
+        worlds[label] = world
+    out["lockstep_worlds"] = worlds
+    out["measure_lockstep_tp2"] = _lockstep_measure(device, tp=2)
+    return k6
+
+
 def phase_multidevice(device, summary):
     """Tensor- and pipeline-parallel serving with every rank on this one
     card (``share_device``: gloo on CUDA tensors; one card cannot run
@@ -3325,9 +3609,12 @@ def phase_multidevice(device, summary):
         out["worlds"][label] = world
     out["bodies_total"] = bodies_total
     out["measure_tp2"] = _measure_vs_forecast("llama2-7b", device, tp=2)
+    k6 = _md_lockstep(device, out, card)
+    out["k6_launches"], out["k6_bodies"] = k6["launches"], k6["bodies"]
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[multidevice] launches over every world and rank "
-        f"{out['launches_total']}, by body {bodies_total}; phase "
+        f"{out['launches_total']}, by body {bodies_total}; K6 "
+        f"{out['k6_launches']} {out['k6_bodies']}; phase "
         f"{out['wall_s']:.1f} s")
     summary["multidevice"] = out
 
@@ -3426,9 +3713,11 @@ def main() -> int:
                 **trained.get("train", {}).get("launches", {}),
                 **quant_measure.get("quant", {}).get("launches", {})}
     lockstep = families.get("lockstep")
-    if lockstep:
-        launches["flash_fwd"] = (launches.get("flash_fwd", 0)
-                                 + lockstep["k6_launches"])
+    md_k6 = families.get("multidevice", {})
+    for rec in (lockstep, md_k6):
+        if rec and "k6_launches" in rec:
+            launches["flash_fwd"] = (launches.get("flash_fwd", 0)
+                                     + rec["k6_launches"])
     engine_bodies = summary.get("bodies_total", {})
     for phase in ("moe", "multidevice"):
         for w, c in families.get(phase, {}).get("bodies_total", {}).items():
@@ -3438,10 +3727,12 @@ def main() -> int:
     bodies = {**engine_bodies,
               "quant_matmul": quant_measure.get("quant", {}).get("bodies"),
               **trained.get("train", {}).get("bodies", {})}
+    for rec in (lockstep, md_k6):
+        if rec and "k6_bodies" in rec:
+            fwd = bodies.get("flash_fwd") or {}
+            bodies["flash_fwd"] = {b: fwd.get(b, 0) + n
+                                   for b, n in rec["k6_bodies"].items()}
     if lockstep:
-        fwd = bodies.get("flash_fwd") or {}
-        bodies["flash_fwd"] = {b: fwd.get(b, 0) + n
-                               for b, n in lockstep["k6_bodies"].items()}
         if "flash_fwd" in kernels:
             kernels["flash_fwd"].setdefault("more_shapes", []).extend(
                 lockstep["k6_shapes"].values())

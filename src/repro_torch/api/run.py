@@ -418,19 +418,11 @@ def forecast(scenario: Scenario, hw: HardwareLike, *,
 
 
 def _check_measurable(scenario: Scenario, dev, share_device: bool) -> None:
-    """Refuse a sharded scenario the port cannot measure: one the engine
-    does not serve (the lockstep ``Server``'s mesh is not ported, ROADMAP
-    queue 1, item 5), or one with too few cards for its ranks (the
+    """Refuse a sharded scenario with too few cards for its ranks (the
     reference's refusal) unless the caller lets the ranks share one."""
-    from repro_torch.engine import engine_supported
     tp, pp = scenario.tp, scenario.pp
     if tp * pp == 1:
         return
-    if not engine_supported(scenario.arch):
-        raise NotImplementedError(
-            f"Scenario tp={tp} × pp={pp} of the {scenario.arch.family!r} "
-            f"family needs the lockstep Server's mesh, which is not ported "
-            f"(ROADMAP queue 1, item 5)")
     if dev.type == "cuda":
         import torch
         n = torch.cuda.device_count()
@@ -490,10 +482,10 @@ def measure(scenario: Scenario, hw: Optional[HardwareLike] = None, *,
     * ``tp·pp > 1`` starts ``tp·pp`` ranks (``repro_torch.launch.mesh``:
       one per card over NCCL, or with ``share_device=True`` all on the
       visible cards over gloo) and returns rank 0's report; each rank
-      draws its shard of the one-device weights.  The lockstep families
-      refuse it (their ``Server`` has no mesh yet, ROADMAP queue 1,
-      item 5).  MoE and VLM decoders run on the engine, a VLM as text,
-      as in the reference;
+      draws its shard of the one-device weights; the engine's families
+      serve on the engine's mesh, the lockstep families on the
+      ``Server``'s (``runtime.serve.make_serve_fns``).  MoE and VLM
+      decoders run on the engine, a VLM as text, as in the reference;
     * temperature draws on the lockstep branch come from a
       ``torch.Generator`` seeded with ``seed``.
     """
@@ -563,7 +555,8 @@ def _measure_on(scenario: Scenario, hw: Optional[HardwareLike], dev,
 
     if not engine_supported(arch):
         return _measure_lockstep(scenario, hw_name, arch, variant, totals,
-                                 kv_dtype, params, prompts, max_len, dev)
+                                 kv_dtype, params, prompts, max_len, dev,
+                                 mesh)
     extras: Dict[str, object] = {}
     ec = EngineConfig(max_slots=scenario.batch, max_len=max_len,
                       chunk_size=scenario.chunk or scenario.prompt_len,
@@ -636,10 +629,11 @@ def _measure_on(scenario: Scenario, hw: Optional[HardwareLike], dev,
 
 def _measure_lockstep(scenario: Scenario, hw_name: str, arch, variant,
                       totals, kv_dtype: str, params, prompts, max_len: int,
-                      dev) -> Report:
+                      dev, mesh=None) -> Report:
     """The reference's legacy lockstep branch: whole-batch generation on
-    the ``Server``, timed in two legs (prefill plus the first token, then
-    the remaining decode steps), after an untimed two-token warm-up."""
+    the ``Server`` (on this rank of ``mesh``, if given), timed in two legs
+    (prefill plus the first token, then the remaining decode steps),
+    after an untimed two-token warm-up."""
     import time
 
     import torch
@@ -656,7 +650,7 @@ def _measure_lockstep(scenario: Scenario, hw_name: str, arch, variant,
     sc = ServeConfig(batch=n_req, max_len=max_len, chunk_size=scenario.chunk,
                      kv_dtype=kv_dtype, temperature=scenario.temperature)
     n_new = max(gen_lens)
-    server = Server(arch, params, sc, device=dev)
+    server = Server(arch, params, sc, device=dev, mesh=mesh)
     prompts = torch.as_tensor(prompts, device=dev)
     server.generate(prompts, 2)              # kernel builds, allocator
     sync()

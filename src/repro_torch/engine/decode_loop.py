@@ -54,8 +54,8 @@ projection's one ``all_reduce``.  An MoE layer runs expert-parallel
 (``models.blocks.moe_forward``).
 
 Pipeline parallelism (a ``"pipe"`` axis of ``pp > 1`` stages):
-:func:`_staged_scan`, the reference's, runs the stage's ``L/pp``
-contiguous layers against its own weights and pool; only the carried
+``models.act_sharding.staged_scan``, the reference's, runs the stage's
+``L/pp`` contiguous layers against its own weights and pool; only the carried
 activation crosses stages, by ``broadcast`` over a two-rank group, and
 the last stage's logits (or sampled tokens) are broadcast back along the
 pipeline column, so every rank keeps the same host state.  The op
@@ -84,8 +84,9 @@ from repro_torch.kernels.grouped_lora.ref import (grouped_lora_pregathered,
                                                   pregather)
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import act_sharding
+from repro_torch.models.act_sharding import from_last_stage, staged_scan
 from repro_torch.models import attention as A
-from repro_torch.models.blocks import mlp_forward, moe_forward
+from repro_torch.models.blocks import mlp_sharded, moe_forward
 from repro_torch.models.layers import apply_norm
 from repro_torch.models.model import _lm_head, layer_params
 from repro_torch.runtime import sharding as S
@@ -144,35 +145,6 @@ def _plan(cfg: ArchConfig, cache: BlockPagedKVCache, mesh, policy,
                          f"pp={cache.pp}, the mesh is tp={tp} x pp={pp}")
     act_sharding.set_mesh(mesh, policy.dp_axes, policy.tp_axis)
     return S.local_config(cfg, tp)
-
-
-def _staged_scan(mesh, x: torch.Tensor, body, n_layers: int):
-    """The layer loop, split into pipeline stages (the reference's
-    ``_staged_scan``, its ``:179``).
-
-    ``body(li, x)`` runs local layer ``li``.  With ``pp == 1`` (or no
-    mesh) this is the plain loop.  With ``pp > 1`` the rank of stage
-    ``s`` holds layers ``s·L/pp ..`` (weights and pool), takes ``x`` from
-    stage ``s - 1``, runs its layers and hands ``x`` on to stage
-    ``s + 1``; only the carried activation moves between stages.  The
-    returned ``x`` is the stack's output on the last stage."""
-    if mesh is not None:
-        x = mesh.recv_activation(x)
-    for li in range(n_layers):
-        x = body(li, x)
-    if mesh is not None:
-        mesh.send_activation(x)
-    return x
-
-
-def _from_last_stage(mesh, make, shape, dtype, device) -> torch.Tensor:
-    """``make()`` on the last pipeline stage, broadcast to every stage of
-    the rank's column (just ``make()`` at pp = 1)."""
-    if mesh is None or mesh.shape["pipe"] == 1:
-        return make()
-    out = (make().contiguous() if mesh.last_stage
-           else torch.empty(shape, dtype=dtype, device=device))
-    return mesh.from_last_stage(out)
 
 
 def _write_kv(cache: torch.Tensor, dst: KVWrite, new: torch.Tensor) -> None:
@@ -269,7 +241,7 @@ def _channel_mix(cfg: ArchConfig, p, x):
     if cfg.family == "moe":
         y, _ = moe_forward(cfg, p["mlp"], h)
     else:
-        y = act_sharding.tp_all_reduce(mlp_forward(cfg, p["mlp"], h))
+        y = mlp_sharded(cfg, p["mlp"], h)
     return x + y
 
 
@@ -418,7 +390,7 @@ def _multi_query_pass(cfg: ArchConfig, params, state, x, bt, pos,
     def body(li, x):
         return _verify_layer(cfg, layers[li], x, ck_all[li], cv_all[li], bt,
                              pos, rows, dst, attn_impl, *loras[li])
-    x = _staged_scan(mesh, x, body, len(layers))
+    x = staged_scan(mesh, x, body, len(layers))
     return apply_norm(cfg.norm_kind, x, params["ln_f"])
 
 
@@ -465,8 +437,8 @@ def make_engine_fns(cfg: ArchConfig, cache: BlockPagedKVCache, *,
             return _prefill_layer(lcfg, layers[li], x, ck_all[li],
                                   cv_all[li], bt_slot, pos_q, dst, start,
                                   valid, attn_impl, *loras[li])
-        x = _staged_scan(mesh, x, body, len(layers))
-        logits = _from_last_stage(
+        x = staged_scan(mesh, x, body, len(layers))
+        logits = from_last_stage(
             mesh, lambda: _lm_head(cfg, params, apply_norm(
                 cfg.norm_kind, x, params["ln_f"])[:, valid - 1:valid])[0, 0],
             (cfg.vocab_size,), x.dtype, dev)                     # (V,)
@@ -501,13 +473,13 @@ def make_engine_fns(cfg: ArchConfig, cache: BlockPagedKVCache, *,
                 return _decode_layer(lcfg, layers[li], x, ck_all[li],
                                      cv_all[li], bt, pos, live, dst,
                                      attn_impl, *loras[li])
-            x = _staged_scan(mesh, x, body, len(layers))
+            x = staged_scan(mesh, x, body, len(layers))
 
             def sample_next():
                 h = apply_norm(cfg.norm_kind, x, params["ln_f"])
                 logits = _lm_head(cfg, params, h[:, -1:])[:, 0]  # (S, V)
                 return sample(logits, temperature, generator).to(torch.int32)
-            nxt = _from_last_stage(mesh, sample_next, tok.shape,
+            nxt = from_last_stage(mesh, sample_next, tok.shape,
                                    torch.int32, dev)
             produced = act
             hit_eos = ((nxt == eos_id) if eos_id is not None
@@ -555,7 +527,7 @@ def make_verify_fn(cfg: ArchConfig, cache: BlockPagedKVCache, *,
         x = _multi_query_pass(lcfg, params, state, x, state["block_tables"],
                               state["pos"], live, attn_impl,
                               state.get("adapter_slots"), mesh)
-        logits = _from_last_stage(mesh, lambda: _lm_head(cfg, params, x),
+        logits = from_last_stage(mesh, lambda: _lm_head(cfg, params, x),
                                   (S_, Q, cfg.vocab_size), x.dtype, dev)
         return logits, state                                  # (S, Q, V)
 
@@ -600,7 +572,7 @@ def make_prefill_batch_fn(cfg: ArchConfig, cache: BlockPagedKVCache, *,
                               attn_impl, lora_idx, mesh)
         last = torch.as_tensor(np.clip(valids - 1, 0, C - 1),
                                dtype=torch.long, device=dev)
-        logits = _from_last_stage(
+        logits = from_last_stage(
             mesh, lambda: _lm_head(cfg, params, x[torch.arange(
                 B, device=dev), last][:, None])[:, 0],          # (B, V)
             (B, cfg.vocab_size), x.dtype, dev)

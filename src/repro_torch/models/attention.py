@@ -1,7 +1,20 @@
 """Attention: grouped-query (MHA / GQA / MQA, no KV repeat), MLA
 (compressed-latent cache, decompressed on every call), cross-attention
 for the encoder-decoder, and the static caches of the lockstep step —
-the PyTorch counterparts of the JAX package's ``models/attention.py``."""
+the PyTorch counterparts of the JAX package's ``models/attention.py``.
+
+Under a tensor-parallel hint (``models.act_sharding``) every function
+runs on the heads a rank holds (``runtime.sharding``), read from its
+leaves: q/k/v (MLA's ``q_up``/``kv_up``, cross-attention's projections)
+cut by columns, the output projection ``wo`` by rows, whose partial is
+summed over the tp group in one ``all_reduce``.  KV heads that tp does
+not divide stay whole (recurrentgemma-2b's one KV head, MLA's latent):
+every rank writes the same whole cache and reads the KV heads its query
+heads use.  A layer whose query heads tp does not divide runs whole on
+every rank, with no collective.  ``cfg`` is the model's; the engine's
+bodies pass ``runtime.sharding.local_config`` to :func:`_project_qkv`
+and :func:`out_proj`, which read their widths from the leaves and hold
+no collective."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -10,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention, flash_fwd
+from . import act_sharding
 from .layers import apply_rope, dense, rmsnorm
 
 #: sequences at or above this length use blockwise (flash-style) attention
@@ -45,15 +59,52 @@ def _mask(q_pos, k_pos, *, causal: bool, window: Optional[int] = None):
     return m[None, None, None]
 
 
+def _q_groups(cfg: ArchConfig, p: Dict) -> Tuple[int, int]:
+    """(Hk, G) of the rank's queries: the KV heads they read and the
+    query heads per KV head.  With KV heads whole and query heads cut,
+    a rank's heads all in one group read that one KV head; otherwise
+    each reads its own (:func:`_rank_kv` selects them)."""
+    H, Hk = p["wq"].shape[-2], p["wk"].shape[-2]
+    if H == cfg.n_heads or Hk < cfg.n_kv_heads:
+        return Hk, H // Hk
+    G = cfg.n_heads // cfg.n_kv_heads
+    return (1, H) if G % H == 0 else (H, 1)
+
+
+def _rank_kv(cfg: ArchConfig, p: Dict, k: torch.Tensor, v: torch.Tensor):
+    """K/V (b, L, Hk, d) cut to the KV heads :func:`_q_groups` reads:
+    as they are unless the KV heads stayed whole and the query heads
+    were cut."""
+    H, Hk = p["wq"].shape[-2], k.shape[-2]
+    if H == cfg.n_heads or Hk < cfg.n_kv_heads:
+        return k, v
+    G = cfg.n_heads // cfg.n_kv_heads
+    first = act_sharding.tp_rank() * H
+    if G % H == 0:
+        return k.narrow(2, first // G, 1), v.narrow(2, first // G, 1)
+    idx = torch.div(first + torch.arange(H, device=k.device), G,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _sum_heads(cfg: ArchConfig, p: Dict, y: torch.Tensor) -> torch.Tensor:
+    """The output projection's partial summed over the tp group when the
+    rank holds a cut of the heads (``wo``'s rows)."""
+    if p["wo"].shape[0] < cfg.n_heads:
+        return act_sharding.tp_all_reduce(y)
+    return y
+
+
 def _project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor, positions,
                  deltas: Optional[Tuple] = None):
-    """q (b,s,Hk,G,hd) and k, v (b,s,Hk,hd), RoPE applied to q and k.
+    """q (b,s,Hk,G,hd) and k, v (b,s,Hk,hd), RoPE applied to q and k:
+    the heads of the leaves ``p`` holds, q grouped by :func:`_q_groups`.
 
     ``deltas`` (dq (b,s,H,hd), dk, dv (b,s,Hk,hd)) are per-request
     low-rank (LoRA) deltas, added before RoPE so a merged-weight run
     (W + A@B) produces the same rotated q/k."""
     b, s, d = x.shape
-    H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, Hk, hd = p["wq"].shape[-2], p["wk"].shape[-2], p["wq"].shape[-1]
     q = (x @ p["wq"].reshape(d, H * hd)).view(b, s, H, hd)
     k = (x @ p["wk"].reshape(d, Hk * hd)).view(b, s, Hk, hd)
     v = (x @ p["wv"].reshape(d, Hk * hd)).view(b, s, Hk, hd)
@@ -66,13 +117,14 @@ def _project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor, positions,
         v = v + dv.to(v.dtype)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return q.reshape(b, s, Hk, H // Hk, hd), k, v
+    return q.reshape(b, s, *_q_groups(cfg, p), hd), k, v
 
 
 def out_proj(cfg: ArchConfig, p: Dict, out: torch.Tensor) -> torch.Tensor:
-    """``einsum("bshd,hde->bse")`` of the flat attention output."""
+    """``einsum("bshd,hde->bse")`` of the flat attention output (the
+    heads ``wo`` holds; a partial sum under a cut)."""
     b, s = out.shape[0], out.shape[1]
-    H, hd = cfg.n_heads, cfg.head_dim
+    H, hd = p["wo"].shape[0], p["wo"].shape[1]
     return out.reshape(b, s, H * hd) @ p["wo"].reshape(H * hd, -1)
 
 
@@ -88,9 +140,10 @@ def self_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
     q, k, v = _project_qkv(cfg, p, x, positions)
+    k, v = _rank_kv(cfg, p, k, v)
     scale = cfg.head_dim ** -0.5
     if use_flash:
-        qf = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+        qf = q.reshape(b, s, -1, cfg.head_dim)
         out = flash_attention(qf, k, v, causal=causal, window=window)
         out = out.reshape(b, s, -1)
     elif s >= BLOCKWISE_THRESHOLD:
@@ -100,7 +153,7 @@ def self_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
         mask = _mask(positions[0], positions[0], causal=causal,
                      window=window)
         out = _gqa_scores_softmax_out(q, k, v, mask, scale)
-    return out_proj(cfg, p, out)
+    return _sum_heads(cfg, p, out_proj(cfg, p, out))
 
 
 def blockwise_attention(q, k, v, scale, *, causal: bool = True,
@@ -232,14 +285,14 @@ def cached_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     q, k_new, v_new = _project_qkv(cfg, p, x, positions)
     _write(cache_k, k_new, pos)
     _write(cache_v, v_new, pos)
-    k, v = cache_k.to(x.dtype), cache_v.to(x.dtype)
+    k, v = _rank_kv(cfg, p, cache_k.to(x.dtype), cache_v.to(x.dtype))
     if s >= BLOCKWISE_THRESHOLD:
         out = lockstep_blockwise(q, k, v, window=window, q_offset=pos)
     else:
         k_pos = torch.arange(L, dtype=torch.int32, device=x.device)
         mask = _mask(positions[0], k_pos, causal=True, window=window)
         out = _gqa_scores_softmax_out(q, k, v, mask, cfg.head_dim ** -0.5)
-    return out_proj(cfg, p, out), cache_k, cache_v
+    return _sum_heads(cfg, p, out_proj(cfg, p, out)), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +325,7 @@ def _mla_core(cfg: ArchConfig, p: Dict, q_nope, q_pe, c_latent, k_pe, mask):
                                       device=scores.device))
     probs = torch.softmax(scores, dim=-1).to(q_nope.dtype)
     out = torch.einsum("bhsl,blhk->bshk", probs, v)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return _sum_heads(cfg, p, torch.einsum("bshk,hkd->bsd", out, p["wo"]))
 
 
 def mla_self_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor, *,
@@ -319,7 +372,7 @@ def cross_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
     dt = torch.promote_types(probs.dtype, enc_v.dtype)
     out = torch.einsum("bhsf,bfhk->bshk", probs.to(dt), enc_v.to(dt))
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return _sum_heads(cfg, p, torch.einsum("bshk,hkd->bsd", out, p["wo"]))
 
 
 def encode_cross_kv(cfg: ArchConfig, p: Dict, enc_out: torch.Tensor):

@@ -5,7 +5,18 @@ counterparts of the JAX package's ``models/blocks.py``, each recurrence
 with a sequence forward and a cached step.
 
 The recurrences run as a loop over positions in the reference's order
-(its ``lax.scan``), not as a parallel scan, whose sums round otherwise."""
+(its ``lax.scan``), not as a parallel scan, whose sums round otherwise.
+
+Under a tensor-parallel hint (``models.act_sharding``) each block runs
+on the leaves a rank holds (``runtime.sharding``) and reads its widths
+from them: the MLP on its ``mlp`` columns, Mamba and the RG-LRU on their
+``inner`` channels (the input projections cut by columns, the conv,
+gates, ``dt`` and the recurrence per channel).  A product that contracts
+over a cut axis gives a partial sum, summed over the tp group in one
+``all_reduce``: the MLP's ``down``, Mamba's ``x_proj`` (before dt, B and
+C are split from it) and ``out_proj``, the RG-LRU's ``linear_out``.  A
+block whose axis tp does not divide holds it whole and runs as on one
+device, with no collective."""
 from __future__ import annotations
 
 import math
@@ -29,6 +40,19 @@ def mlp_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.gated_mlp:
         return dense(silu(dense(x, p["gate"])) * dense(x, p["up"]), p["down"])
     return dense(gelu(dense(x, p["up"])), p["down"])
+
+
+def _sum_if_cut(y: torch.Tensor, held: int, whole: int) -> torch.Tensor:
+    """The tp group's sum of a row-parallel partial ``y`` when the rank
+    holds ``held`` of the contracted axis's ``whole`` width; ``y`` as it
+    is when the axis stayed whole."""
+    return act_sharding.tp_all_reduce(y) if held < whole else y
+
+
+def mlp_sharded(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """:func:`mlp_forward` on a rank's ``mlp`` columns, its ``down``
+    partial summed over the tp group (the identity without a cut)."""
+    return _sum_if_cut(mlp_forward(cfg, p, x), p["down"].shape[0], cfg.d_ff)
 
 
 # ---------------------------------------------------------------------------
@@ -81,7 +105,9 @@ def moe_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     its experts only and combines the entries routed to them; the routed
     and shared partial outputs are summed over the ranks in one
     ``all_reduce`` (the reference's single psum).  Capacity, drops and
-    combine order are the one-device path's."""
+    combine order are the one-device path's.  Experts (or shared
+    columns) that tp does not divide stay whole on every rank, which
+    then computes all of them and sums nothing for them."""
     if MOE_DISPATCH == "global":
         return _moe_forward_global(cfg, p, x, capacity_factor)
     return _moe_forward_local(cfg, p, x, capacity_factor)
@@ -125,13 +151,13 @@ def _dispatch_combine(p: Dict, x: torch.Tensor, weights: torch.Tensor,
     Dropped pairs are scattered to an extra slot past the capacity, which
     the expert products never see, so no step reads a count back to the
     host.  ``p`` holds experts ``lo .. lo + e_loc - 1`` (all of them on
-    one device, this rank's under tensor parallelism, ``lo`` from its tp
+    one device, this rank's under expert parallelism, ``lo`` from its tp
     rank): pairs routed elsewhere are treated as dropped here, so the
     result is this rank's share of the combine."""
     b, n, d = x.shape
     k = sel.shape[-1]
     e_loc = p["w_gate"].shape[0]
-    lo = act_sharding.tp_rank() * e_loc
+    lo = act_sharding.tp_rank() * e_loc if _experts_cut(n_experts) else 0
     flat_e = sel.reshape(b, n * k)                               # (b, n·k)
     onehot = F.one_hot(flat_e, n_experts)
     pos = onehot.cumsum(dim=1) - onehot
@@ -154,16 +180,40 @@ def _shared(p: Dict, x: torch.Tensor) -> torch.Tensor:
                  p["shared_down"])
 
 
+def _experts_cut(n_experts: int) -> bool:
+    """Whether the rank holds a block of the padded experts (tp divides
+    them, ``runtime.sharding``'s rule) rather than all of them."""
+    tp = act_sharding.tp_size()
+    return tp > 1 and padded_experts(n_experts) % tp == 0
+
+
+def _routed_and_shared(cfg, p, x, weights, sel, capacity):
+    """The routed experts' combine plus the shared experts' output, each
+    summed over the tp group where the rank holds a cut of it: one
+    ``all_reduce`` of their sum when both are cut (the reference's single
+    psum); a part held whole is added after the sum."""
+    cut = _experts_cut(cfg.n_experts)
+    y = _dispatch_combine(p, x, weights, sel, cfg.n_experts, capacity)
+    if "shared_gate" not in p:
+        return act_sharding.tp_all_reduce(y) if cut else y
+    ys = _shared(p, x)
+    shared_cut = (p["shared_down"].shape[0]
+                  < cfg.n_shared_experts * cfg.d_ff_expert)
+    if cut == shared_cut:
+        y = y + ys
+        return act_sharding.tp_all_reduce(y) if cut else y
+    if cut:
+        return act_sharding.tp_all_reduce(y) + ys
+    return y + act_sharding.tp_all_reduce(ys)
+
+
 def _moe_forward_local(cfg, p, x, capacity_factor):
     """Per-row dispatch: capacity from each row's own s·k pairs."""
     b, s, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     weights, sel, aux = _router(cfg, p, x)                       # (b, s, k)
     capacity = max(1, int(math.ceil(s * k * capacity_factor / E)))
-    y = _dispatch_combine(p, x, weights, sel, E, capacity)
-    if "shared_gate" in p:
-        y = y + _shared(p, x)
-    return act_sharding.tp_all_reduce(y), aux
+    return _routed_and_shared(cfg, p, x, weights, sel, capacity), aux
 
 
 def _moe_forward_global(cfg, p, x, capacity_factor):
@@ -174,10 +224,9 @@ def _moe_forward_global(cfg, p, x, capacity_factor):
     xt = x.reshape(T, d)
     weights, sel, aux = _router(cfg, p, xt)
     capacity = max(1, int(math.ceil(T * k * capacity_factor / E)))
-    y = _dispatch_combine(p, xt[None], weights[None], sel[None], E, capacity)
-    if "shared_gate" in p:
-        y = y + _shared(p, xt)
-    return act_sharding.tp_all_reduce(y).reshape(b, s, d), aux
+    y = _routed_and_shared(cfg, p, xt[None], weights[None], sel[None],
+                           capacity)
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -208,11 +257,19 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
     return y, new_state
 
 
+def _inner(cfg: ArchConfig) -> int:
+    """Mamba's whole inner width (``ssm_expand · d_model``)."""
+    return cfg.ssm_expand * cfg.d_model
+
+
 def _ssm_params(cfg: ArchConfig, p: Dict, x_c: torch.Tensor):
-    """dt (softplus, f32), A = -exp(A_log), and B, C in f32."""
+    """dt (softplus, f32), A = -exp(A_log), and B, C in f32.  ``x_proj``
+    contracts over ``inner``: a rank's partial is summed before the
+    split."""
     dtr = cfg.ssm_dt_rank or max(1, cfg.d_model // 16)
     n = cfg.ssm_d_state
-    dt_raw, B, C = dense(x_c, p["x_proj"]).split([dtr, n, n], dim=-1)
+    xp = _sum_if_cut(dense(x_c, p["x_proj"]), p["D"].shape[0], _inner(cfg))
+    dt_raw, B, C = xp.split([dtr, n, n], dim=-1)
     dt = _softplus(dense(dt_raw, p["dt_proj"]).float()
                    + p["dt_bias"].float())
     A = -torch.exp(p["A_log"])                              # (di, n)
@@ -243,13 +300,18 @@ def _mamba_seq(cfg: ArchConfig, p: Dict, x: torch.Tensor, conv_state,
         ys.append(y_t)
     y = torch.stack(ys, dim=1) + xf * p["D"]
     out = y.to(x.dtype) * silu(z)
-    return dense(out, p["out_proj"]), conv_state, ssm_state
+    return _mamba_out(cfg, p, out), conv_state, ssm_state
+
+
+def _mamba_out(cfg: ArchConfig, p: Dict, out: torch.Tensor) -> torch.Tensor:
+    return _sum_if_cut(dense(out, p["out_proj"]), p["D"].shape[0],
+                       _inner(cfg))
 
 
 def mamba_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     """Sequence forward; long sequences stream in ``SSM_CHUNK`` pieces."""
     b, s, d = x.shape
-    di = cfg.ssm_expand * d
+    di = p["D"].shape[0]
     conv = x.new_zeros((b, cfg.ssm_conv_kernel - 1, di))
     ssm = torch.zeros((b, di, cfg.ssm_d_state), dtype=torch.float32,
                       device=x.device)
@@ -277,11 +339,11 @@ def mamba_step(cfg: ArchConfig, p: Dict, x_t: torch.Tensor,
     ssm_state, y = _ssm_update(ssm_state, dt[:, 0], A, B[:, 0], C[:, 0], xf)
     y = y + xf * p["D"]
     out = y[:, None, :].to(x_t.dtype) * silu(z)
-    return dense(out, p["out_proj"]), conv_state, ssm_state
+    return _mamba_out(cfg, p, out), conv_state, ssm_state
 
 
 def mamba_state_shapes(cfg: ArchConfig, batch: int):
-    di = cfg.ssm_expand * cfg.d_model
+    di = _inner(cfg)
     return ((batch, cfg.ssm_conv_kernel - 1, di),      # conv state (bf16)
             (batch, di, cfg.ssm_d_state))              # ssm state (f32)
 
@@ -317,12 +379,17 @@ def _rglru_seq(cfg: ArchConfig, p: Dict, x: torch.Tensor, conv_state,
         h_state = a[:, t] * h_state + gated[:, t]
         hs.append(h_state)
     h = torch.stack(hs, dim=1).to(x.dtype)
-    return dense(h * yb, p["linear_out"]), conv_state, h_state
+    return _rglru_out(cfg, p, h * yb), conv_state, h_state
+
+
+def _rglru_out(cfg: ArchConfig, p: Dict, out: torch.Tensor) -> torch.Tensor:
+    return _sum_if_cut(dense(out, p["linear_out"]), p["a_param"].shape[0],
+                       cfg.lru_width or cfg.d_model)
 
 
 def rglru_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     b, s, d = x.shape
-    w = cfg.lru_width or d
+    w = p["a_param"].shape[0]
     conv = x.new_zeros((b, cfg.ssm_conv_kernel - 1, w))
     h = torch.zeros((b, w), dtype=torch.float32, device=x.device)
     if s <= SSM_CHUNK or s % SSM_CHUNK:
@@ -346,7 +413,7 @@ def rglru_step(cfg: ArchConfig, p: Dict, x_t: torch.Tensor,
     h_state = (a[:, 0] * h_state
                + (i[:, 0] * x_c.float()[:, 0]) * mult[:, 0])
     out = h_state[:, None, :].to(x_t.dtype) * yb
-    return dense(out, p["linear_out"]), conv_state, h_state
+    return _rglru_out(cfg, p, out), conv_state, h_state
 
 
 def rglru_state_shapes(cfg: ArchConfig, batch: int):

@@ -11,6 +11,14 @@ stacks are unrolled as ``layers["l{i}"]``.  Per-layer remat is
 ``torch.utils.checkpoint`` around each layer (the reference's
 ``jax.checkpoint`` with policy ``"full"``: nothing but the layer's input
 is saved, and the backward recomputes the layer).
+
+Under a mesh hint (``models.act_sharding``, installed by
+``runtime.serve.make_serve_fns``) :func:`step` runs a rank's shard
+(``runtime.sharding``): the layer bodies on its heads, ``mlp`` columns
+and ``inner`` channels (``attention``, ``blocks``), and under a pipe
+axis only its stage's layers, decoder and encoder alike, through
+``act_sharding.staged_scan``; the last stage's logits, and a staged
+encoder's output, are broadcast back to every stage.
 """
 from __future__ import annotations
 
@@ -21,12 +29,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from . import act_sharding
 from . import attention as A
 from . import blocks as B
+from .act_sharding import from_last_stage, staged_scan
 from .layers import apply_norm, init_params
 
-__all__ = ["forward", "init_decode_state", "init_params", "layer_params",
-           "step", "_lm_head"]
+__all__ = ["decode_state_shapes", "forward", "init_decode_state",
+           "init_params", "layer_params", "step", "_lm_head"]
 
 
 def _take(tree: Dict, i: int) -> Dict:
@@ -36,10 +46,11 @@ def _take(tree: Dict, i: int) -> Dict:
 
 def layer_params(params: Dict) -> List[Dict]:
     """Per-layer parameter dicts: views ``[...][i]`` of a stacked tree,
-    or the ``layers["l{i}"]`` of an unrolled one."""
+    or the ``layers["l{i}"]`` of an unrolled one in the order of ``i``
+    (a pipeline stage holds its own ``l{i}`` only)."""
     layers = params["layers"]
-    if "l0" in layers:
-        return [layers[f"l{i}"] for i in range(len(layers))]
+    if "ln1" not in layers:
+        return [layers[k] for k in sorted(layers, key=lambda k: int(k[1:]))]
     n = layers["ln1"]["gamma"].shape[0]
     return [_take(layers, i) for i in range(n)]
 
@@ -75,7 +86,7 @@ def _channel_mix(cfg: ArchConfig, p: Dict, x: torch.Tensor
         if cfg.family == "moe":
             y, aux = B.moe_forward(cfg, p["mlp"], h)
         else:
-            y = B.mlp_forward(cfg, p["mlp"], h)
+            y = B.mlp_sharded(cfg, p["mlp"], h)
         x = x + y
     return x, aux
 
@@ -129,18 +140,30 @@ def _encoder_block(cfg: ArchConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
     z = apply_norm(cfg.norm_kind, h, p["ln1"])
     h = h + A.self_attention(cfg, p["attn"], z, causal=False)
     z = apply_norm(cfg.norm_kind, h, p["ln2"])
-    return h + B.mlp_forward(cfg, p["mlp"], z)
+    return h + B.mlp_sharded(cfg, p["mlp"], z)
 
 
 def _encoder_forward(cfg: ArchConfig, params: Dict, frames: torch.Tensor,
                      remat: bool = False) -> torch.Tensor:
     """The Whisper-style encoder over precomputed frame embeddings
-    (b, F, d): bidirectional self-attention layers, then its norm."""
-    x = frames
-    for p in layer_params(params["encoder"]):
-        x = (checkpoint(_encoder_block, cfg, p, x, use_reentrant=False)
-             if remat else _encoder_block(cfg, p, x))
-    return apply_norm(cfg.norm_kind, x, params["encoder"]["ln_f"])
+    (b, F, d): bidirectional self-attention layers, then its norm.  Under
+    a pipe axis each stage runs its block of the stacked encoder layers
+    and every stage gets the last stage's output."""
+    mesh = act_sharding.current_mesh()
+    enc = layer_params(params["encoder"])
+
+    def body(li, x):
+        if remat:
+            return checkpoint(_encoder_block, cfg, enc[li], x,
+                              use_reentrant=False)
+        return _encoder_block(cfg, enc[li], x)
+    # a later stage receives its input in place: never into the caller's
+    x = frames if mesh is None or mesh.stage == 0 else torch.empty_like(
+        frames)
+    x = staged_scan(mesh, x, body, len(enc))
+    return from_last_stage(
+        mesh, lambda: apply_norm(cfg.norm_kind, x, params["encoder"]["ln_f"]),
+        x.shape, x.dtype, x.device)
 
 
 def forward(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor, *,
@@ -185,6 +208,37 @@ _STATE_KEYS = {"attn": ("cache_k", "cache_v", "cache_pos"),
                "rglru": ("rg_conv", "rg_h")}
 
 
+def decode_state_shapes(cfg: ArchConfig, batch: int, max_len: int,
+                        kv_dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """Key -> (whole shape, dtype) of the decode state's tensors (the
+    reference's ``abstract_decode_state`` without ``pos``)."""
+    kinds = cfg.block_kinds()
+    out: Dict = {}
+    n_attn, n_ssm, n_rg = (kinds.count(k) for k in ("attn", "ssm", "rglru"))
+    if n_attn:
+        kv_len = (min(max_len, cfg.local_window) if cfg.local_window
+                  else max_len)
+        ks, vs = A.kv_cache_shape(cfg, batch, kv_len)
+        out["cache_k"] = ((n_attn,) + ks, kv_dtype)
+        out["cache_v"] = ((n_attn,) + vs, kv_dtype)
+        if cfg.local_window:
+            out["cache_pos"] = ((n_attn, batch, kv_len), torch.int32)
+    if n_ssm:
+        cs, ss = B.mamba_state_shapes(cfg, batch)
+        out["conv_state"] = ((n_ssm,) + cs, torch.bfloat16)
+        out["ssm_state"] = ((n_ssm,) + ss, torch.float32)
+    if n_rg:
+        cs, hs = B.rglru_state_shapes(cfg, batch)
+        out["rg_conv"] = ((n_rg,) + cs, torch.bfloat16)
+        out["rg_h"] = ((n_rg,) + hs, torch.float32)
+    if cfg.family == "encdec":
+        shape = (cfg.n_layers, batch, cfg.encoder_len, cfg.n_heads,
+                 cfg.head_dim)
+        out["cross_k"] = (shape, kv_dtype)
+        out["cross_v"] = (shape, kv_dtype)
+    return out
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       kv_dtype: torch.dtype = torch.bfloat16, *,
                       device="cuda") -> Dict:
@@ -195,34 +249,14 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     ``ssm_state`` (f32), RG-LRU's ``rg_conv`` (bf16) and ``rg_h`` (f32),
     an encoder-decoder's ``cross_k``/``cross_v``.  ``pos``, the tokens
     cached, is a host int (the reference's device scalar), so no step
-    reads the device back to learn it."""
+    reads the device back to learn it.  A rank of a mesh builds its cut
+    with ``runtime.sharding.init_state_shard``."""
     dev = resolve_device(device)
-    kinds = cfg.block_kinds()
     state: Dict = {"pos": 0}
-    n_attn, n_ssm, n_rg = (kinds.count(k) for k in ("attn", "ssm", "rglru"))
-    zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
-    if n_attn:
-        kv_len = (min(max_len, cfg.local_window) if cfg.local_window
-                  else max_len)
-        ks, vs = A.kv_cache_shape(cfg, batch, kv_len)
-        state["cache_k"] = zeros((n_attn,) + ks, kv_dtype)
-        state["cache_v"] = zeros((n_attn,) + vs, kv_dtype)
-        if cfg.local_window:
-            state["cache_pos"] = torch.full((n_attn, batch, kv_len), -1,
-                                            dtype=torch.int32, device=dev)
-    if n_ssm:
-        cs, ss = B.mamba_state_shapes(cfg, batch)
-        state["conv_state"] = zeros((n_ssm,) + cs, torch.bfloat16)
-        state["ssm_state"] = zeros((n_ssm,) + ss, torch.float32)
-    if n_rg:
-        cs, hs = B.rglru_state_shapes(cfg, batch)
-        state["rg_conv"] = zeros((n_rg,) + cs, torch.bfloat16)
-        state["rg_h"] = zeros((n_rg,) + hs, torch.float32)
-    if cfg.family == "encdec":
-        shape = (cfg.n_layers, batch, cfg.encoder_len, cfg.n_heads,
-                 cfg.head_dim)
-        state["cross_k"] = zeros(shape, kv_dtype)
-        state["cross_v"] = zeros(shape, kv_dtype)
+    for key, (shape, dt) in decode_state_shapes(cfg, batch, max_len,
+                                                kv_dtype).items():
+        state[key] = torch.full(shape, -1 if key == "cache_pos" else 0,
+                                dtype=dt, device=dev)
     return state
 
 
@@ -243,7 +277,8 @@ def _local_cached_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     positions = pos + torch.arange(s, dtype=torch.int32, device=dev)[None, :]
     q, k_new, v_new = A._project_qkv(cfg, p, x, positions)
     if s >= W:
-        out = A.lockstep_blockwise(q, k_new, v_new, window=W, q_offset=0)
+        out = A.lockstep_blockwise(q, *A._rank_kv(cfg, p, k_new, v_new),
+                                   window=W, q_offset=0)
         slots = (pos + torch.arange(s - W, s, device=dev)) % W
         cache_k[:, slots] = A.to_cache(k_new[:, -W:], cache_k.dtype)
         cache_v[:, slots] = A.to_cache(v_new[:, -W:], cache_v.dtype)
@@ -256,10 +291,9 @@ def _local_cached_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor,
         kp = cache_pos[:, None, None, None, :]               # (b,1,1,1,W)
         qp = positions[:, None, None, :, None]               # (1,1,1,s,1)
         mask = (kp >= 0) & (kp <= qp) & (kp > qp - W)
-        out = A._gqa_scores_softmax_out(q, cache_k.to(x.dtype),
-                                        cache_v.to(x.dtype), mask,
-                                        cfg.head_dim ** -0.5)
-    return A.out_proj(cfg, p, out)
+        k, v = A._rank_kv(cfg, p, cache_k.to(x.dtype), cache_v.to(x.dtype))
+        out = A._gqa_scores_softmax_out(q, k, v, mask, cfg.head_dim ** -0.5)
+    return A._sum_heads(cfg, p, A.out_proj(cfg, p, out))
 
 
 def _cached_block(cfg: ArchConfig, kind: str, p: Dict, x: torch.Tensor,
@@ -317,10 +351,18 @@ def step(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor,
     A VLM's ``vision_embeds`` are prepended and advance ``pos`` with the
     tokens; an encoder-decoder given ``frames`` encodes them and stores
     every layer's cross K/V (otherwise they stay as they are: zeros
-    before any frames)."""
+    before any frames).
+
+    Under a pipe axis a stage runs model layers ``lo .. hi - 1``
+    (``act_sharding.stage_layers``) against its shard of the params and
+    of each per-kind state stack, whose entries count from the stage's
+    first layer of that kind; every stage returns the same logits."""
+    mesh = act_sharding.current_mesh()
     pos = state["pos"]
     x = _embed(cfg, params, token_ids, vision_embeds)
     layers = layer_params(params)
+    lo, _ = act_sharding.stage_layers(cfg.n_layers)
+    kinds = cfg.block_kinds()[lo:lo + len(layers)]
     if cfg.family == "encdec" and frames is not None:
         enc_out = _encoder_forward(cfg, params, frames)
         for i, p in enumerate(layers):
@@ -328,17 +370,27 @@ def step(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor,
             state["cross_k"][i] = A.to_cache(k, state["cross_k"].dtype)
             state["cross_v"][i] = A.to_cache(v, state["cross_v"].dtype)
     seen = dict.fromkeys(_STATE_KEYS, 0)
-    for i, (kind, p) in enumerate(zip(cfg.block_kinds(), layers)):
-        j = seen[kind]
+    index = []                     # each layer's entry in its kind's stack
+    for kind in kinds:
+        index.append(seen[kind])
         seen[kind] += 1
+
+    def body(i, x):
+        kind, j = kinds[i], index[i]
         ls = {k: state[k][j] for k in _STATE_KEYS[kind] if k in state}
         cross = ((state["cross_k"][i], state["cross_v"][i])
                  if cfg.family == "encdec" else None)
-        x, new = _cached_block(cfg, kind, p, x, pos, ls, cross_kv=cross)
+        x, new = _cached_block(cfg, kind, layers[i], x, pos, ls,
+                               cross_kv=cross)
         for k, v in new.items():
             _store(state, k, j, v)
-    x = apply_norm(cfg.norm_kind, x[:, -1:], params["ln_f"])
+        return x
+
+    x = staged_scan(mesh, x, body, len(layers))
     state["pos"] = pos + token_ids.shape[1] + (
         vision_embeds.shape[1] if (cfg.family == "vlm"
                                    and vision_embeds is not None) else 0)
-    return _lm_head(cfg, params, x)[:, 0], state
+    head = lambda: _lm_head(cfg, params, apply_norm(
+        cfg.norm_kind, x[:, -1:], params["ln_f"]))[:, 0]
+    return from_last_stage(mesh, head, (x.shape[0], cfg.vocab_size),
+                           x.dtype, x.device), state

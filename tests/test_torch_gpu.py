@@ -514,6 +514,42 @@ def test_tp2_on_one_card_equals_tp1(cuda_device):
     assert ranks[0] == want and ranks[1] == want
 
 
+def _lockstep_on_rank(mesh, cfg, prompts):
+    """One rank of :func:`test_lockstep_tp2_on_one_card_equals_tp1`."""
+    from repro_torch.runtime.sharding import init_shard
+    params = init_shard(cfg, 0, mesh, device=mesh.device,
+                        dtype=torch.float32)
+    return _lockstep_tokens(cfg, params, prompts, mesh)
+
+
+def _lockstep_tokens(cfg, params, prompts, mesh=None):
+    from repro_torch.runtime import ServeConfig, Server
+    sc = ServeConfig(batch=1, max_len=2048 + 16, kv_dtype="fp32")
+    toks, stats = Server(cfg, params, sc, device="cuda", mesh=mesh).generate(
+        torch.tensor(prompts, device="cuda"), 8)
+    return toks.tolist(), stats
+
+
+def test_lockstep_tp2_on_one_card_equals_tp1(cuda_device):
+    """recurrentgemma-2b at full width with 4 layers (rglru, rglru, attn,
+    rglru), f32 weights and KV: a 2048-token prompt takes the local
+    layer's blockwise branch, K6 on 5 of the 10 query heads a rank over
+    the whole KV head; two ranks on the one card give the one-rank
+    ``Server``'s greedy tokens and final position."""
+    import dataclasses
+    from repro_torch.launch.mesh import spawn
+    cfg = dataclasses.replace(configs.get("recurrentgemma-2b"), n_layers=4)
+    prompts = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (1, 2048)).tolist()
+    params = init_params(cfg, 0, device=cuda_device, dtype=torch.float32)
+    want = _lockstep_tokens(cfg, params, prompts)
+    del params
+    torch.cuda.empty_cache()
+    ranks = spawn(_lockstep_on_rank, (cfg, prompts), model=2,
+                  device="cuda", share_device=True)
+    assert ranks[0] == want and ranks[1] == want
+
+
 #: the reference's eight flash attention kernel cases, as chip_smoke.py's
 #: FA_CASES: (b, s, L, H, Hk, d, causal, window, q_offset): MHA, GQA, MQA,
 #: ragged s, a decode step, a window, non-causal, head_dim 256
