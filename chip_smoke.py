@@ -154,13 +154,33 @@ caught and ignored):
               nvidia-h100.  The kernels phase holds K1-K4 and K6 to their
               plain versions at a tp=2 rank's shapes too.
 
+12. trainmesh — the trainer on a mesh with every rank on this one card
+              (gloo on CUDA tensors, share_device): granite-3-2b at full
+              width through Trainer.run, bf16, 4 x 2048 Zipf tokens (the
+              train phase's data, optimizer and seed), flash attention
+              (K6 on mma at a rank's heads and rows) and remat, 3 steps,
+              at dp=2 with FSDP and at tp=2 (40 layers each), and at
+              dp=2 x tp=2 with FSDP (TM_WORLDS' depth): step time,
+              tokens/s, peak memory and shard per rank, gloo bytes,
+              calls and seconds per step, the losses beside the train
+              phase's, each rank's K6 launches (zeroed before its run,
+              read after) summed; at 4 layers in f32, three steps at
+              dp=2, dp=2 FSDP, tp=2, dp=2 x tp=2 FSDP and dp=2 with two
+              microbatches against this process's one-rank step (loss
+              1e-5 relative, params 1e-4 relative norm); a Trainer saved
+              after step 1 at dp=2 x tp=2 FSDP, restored by
+              restore_sharded and continued at tp=1 and tp=2, against an
+              uninterrupted run.  The kernels phase holds K6 to its
+              plain version and times it at the two rank shapes.
+
 ``--phases profile`` (run only when named) profiles engine steps and one
 training step of the train phase's configuration.
 
 The last lines are the quant/measure, moe/vlm/lockstep, multidevice,
-train and engine JSON summaries, the kernels' JSON record (K1-K4
-launches summed over the engine, moe and multidevice phases, K6's over
-the train phase and the lockstep prefills on one rank and on a mesh),
+train/trainmesh and engine JSON summaries, the kernels' JSON record
+(K1-K4 launches summed over the engine, moe and multidevice phases, K6's
+over the train and trainmesh phases and the lockstep prefills on one
+rank and on a mesh),
 the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  A phase that fails prints
 ``[fail] <phase>: ...`` on stdout; the script exits non-zero.
@@ -179,7 +199,7 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "engine", "train", "parity", "quant",
-          "measure", "moe", "vlm", "lockstep", "multidevice")
+          "measure", "moe", "vlm", "lockstep", "multidevice", "trainmesh")
 EXTRA_PHASES = ("profile",)     # run only when named
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
@@ -782,6 +802,11 @@ FA_CASES = (
 )
 #: the train phase's attention: granite-3-2b at 4 x 2048, causal, bf16
 FA_MAIN = (4, 2048, 2048, 32, 8, 64, True, None, 0)
+#: the trainmesh phase's rank shapes of it: a tp = 2 rank (its 16 of 32
+#: query heads over 4 of 8 KV heads, every row) and a dp = 2 rank (its 2
+#: of 4 rows, every head)
+FA_TRAIN_RANKS = {"tp=2 rank": (4, 2048, 2048, 16, 4, 64, True, None, 0),
+                  "dp=2 rank": (2, 2048, 2048, 32, 8, 64, True, None, 0)}
 
 
 def attention_pairs(s, L, causal, window, q_offset) -> int:
@@ -932,6 +957,55 @@ def check_flash(device, gen, worst, results):
         f"{time_ms(lib_fwd_bwd):.4f} ms")
     del ref, lib_out
     torch.cuda.empty_cache()
+    for what, case in FA_TRAIN_RANKS.items():
+        _time_k6_train_rank(what, case, one, results)
+
+
+def _time_k6_train_rank(what, case, one, results):
+    """K6 forward and backward at a training rank's shape (bf16, the mma
+    body): held to the plain version by ``check_flash``'s ``one``, then
+    timed (CUDA events and device time) beside the plain version and
+    SDPA, with the bound, into each kernel's ``more_shapes``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    (q, k, v, do, o, lse), err, grad_err = one(case, torch.bfloat16, what)
+    b, s, L, H, Hk, d = case[:6]
+    shape = f"{what}: b={b} s={s} L={L} H={H} Hk={Hk} d={d} causal bf16"
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref = ops.attention_ref(*leaves)
+    ql, kl, vl, dol = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    sdpa = lambda *a: F.scaled_dot_product_attention(*a, is_causal=True,
+                                                     enable_gqa=True)
+    lib_leaves = [t.clone().requires_grad_() for t in (ql, kl, vl)]
+    lib_out = sdpa(*lib_leaves)
+    fwd = lambda: ops.flash_fwd(q, k, v)
+    bwd = lambda: ops.flash_bwd(q, k, v, o, lse, do)
+    lib_fwd = lambda: sdpa(ql, kl, vl)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, lib_leaves, dol,
+                                          retain_graph=True)
+    recs = {}
+    for name, fn, plain, lib, backward, e in (
+            ("flash_fwd", fwd, lambda: ops.attention_ref(q, k, v), lib_fwd,
+             False, err),
+            ("flash_bwd", bwd, lambda: torch.autograd.grad(
+                ref, leaves, do, retain_graph=True), lib_bwd, True,
+             grad_err)):
+        rec = dict(ms=time_ms(fn), **device_rec("device_ms", fn),
+                   body="mma", plain_ms=time_ms(plain), library_ms=time_ms(lib),
+                   **device_rec("library_device_ms", lib), max_abs_err=e,
+                   shape=shape + (" (backward alone)" if backward else ""))
+        rec["bound_ms"], rec["bound_by"] = flash_bound(case, 2, backward)
+        results[name].setdefault("more_shapes", []).append(rec)
+        recs[name] = rec
+        log(f"[kernels] {name} at {shape}: {rec['ms']:.4f} ms, device "
+            f"{fmt_ms(rec['device_ms'])}, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms, SDPA "
+            f"{rec['library_ms']:.4f} ms, device "
+            f"{fmt_ms(rec['library_device_ms'])}")
+    del ref, lib_out
+    torch.cuda.empty_cache()
+    return recs
 
 
 #: llama2-7b's linear shapes (k, n): wq/wk/wv/wo, gate/up, down, lm_head
@@ -3619,6 +3693,479 @@ def phase_multidevice(device, summary):
     summary["multidevice"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the trainer on a mesh
+# ---------------------------------------------------------------------------
+
+TM_STEPS = 3
+#: the worlds at full width: (label, data, model, FSDP, layers; None is
+#: the full depth), the 2-rank worlds in one spawn and the 4-rank world
+#: in another.  dp=2 x tp=2 runs 20 of the 40 layers: at 40 it took 15.0
+#: s a step (gloo 14.2 s) and the whole script would end ~1080 s in, too
+#: near the 1200 s limit
+TM_WORLDS = (("dp=2 FSDP", 2, 1, True, None), ("tp=2", 1, 2, False, None),
+             ("dp=2 x tp=2 FSDP", 2, 2, True, 20))
+#: the f32 parity meshes at 4 layers: (label, data, model, FSDP,
+#: microbatches)
+TM_PARITY = (("dp=2", 2, 1, False, 1), ("dp=2 FSDP", 2, 1, True, 1),
+             ("tp=2", 1, 2, False, 1), ("dp=2 x tp=2 FSDP", 2, 2, True, 1),
+             ("dp=2 mb=2", 2, 1, False, 2))
+TM_PARITY_LAYERS = 4
+#: f32 against the one-rank step: the loss per step relative and the
+#: params' relative norm (``_train_parity``'s limits: f32 summed in
+#: other orders, AdamW normalising each element's update)
+TM_LOSS_TOL, TM_PARAM_TOL = 1e-5, 1e-4
+
+
+def _tm_cfg(layers=None):
+    from repro_torch import configs
+    cfg = configs.get(TRAIN_ARCH)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _tm_trainer(cfg, mesh, policy, ckpt_dir, total, ckpt_every, dtype,
+                injector=None, data_seed=2, device=None):
+    """A ``Trainer`` on ``mesh`` (None: one rank on ``device``) drawing its
+    weights in ``dtype`` (the f32 checks need an f32 draw; the port's
+    ``Trainer`` draws bf16), flash attention, the train phase's
+    optimizer and batch shape (its data at ``data_seed`` 0)."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.runtime.sharding import init_shard
+
+    class _Trainer(Trainer):
+        def init_state(self, seed=0):
+            params = (init_params(self.cfg, seed, device=self.device,
+                                  dtype=dtype) if self.mesh is None else
+                      init_shard(self.cfg, seed, self.mesh, self.policy,
+                                 device=self.device, dtype=dtype))
+            return params, self.opt.init(params)
+    device = mesh.device if mesh is not None else device
+    data = SyntheticTokens(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, data_seed),
+                           device=device)
+    opt = AdamW(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    tc = TrainerConfig(total_steps=total, ckpt_every=ckpt_every,
+                       ckpt_dir=ckpt_dir, log_every=1)
+    return _Trainer(cfg, opt, data, tc, use_flash=True, device=device,
+                    mesh=mesh, policy=policy, failure_injector=injector)
+
+
+class _GlooMeter:
+    """Counts what this rank's ``all_reduce`` calls move (bytes of the
+    tensor) and the host seconds they take, by wrapping
+    ``torch.distributed.all_reduce`` (the port calls it through the
+    module, so the wrapper sees every call); ``stop`` restores it."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist, self.inner = dist, dist.all_reduce
+        self.bytes, self.seconds, self.calls = 0, 0.0, 0
+        dist.all_reduce = self._wrapped
+
+    def _wrapped(self, t, *a, **kw):
+        t0 = time.perf_counter()
+        out = self.inner(t, *a, **kw)
+        self.seconds += time.perf_counter() - t0
+        self.bytes += t.numel() * t.element_size()
+        self.calls += 1
+        return out
+
+    def take(self) -> dict:
+        out = dict(bytes=self.bytes, seconds=self.seconds, calls=self.calls)
+        self.bytes, self.seconds, self.calls = 0, 0.0, 0
+        return out
+
+    def stop(self) -> None:
+        self.dist.all_reduce = self.inner
+
+
+def _tm_main(mesh, policy, layers):
+    """A world's main path on this rank: granite-3-2b at full width
+    (``layers`` deep), bf16, 4 x 2048 Zipf tokens, flash attention and
+    remat, ``TM_STEPS`` steps through ``Trainer.run``; per step its
+    time, loss, peak memory and gloo traffic, and the K6 launches of the
+    run (zeroed just before it, read just after)."""
+    import tempfile
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    dev = mesh.device
+    cfg = _tm_cfg(layers)
+    marks, meter = [], _GlooMeter()
+
+    def mark(step):
+        marks.append((torch.cuda.max_memory_allocated(dev), meter.take()))
+        torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as ckpt:
+        trainer = _tm_trainer(cfg, mesh, policy, ckpt, TM_STEPS,
+                              TM_STEPS + 1, torch.bfloat16, mark,
+                              data_seed=0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches()                   # this rank's path starts here
+        t0 = time.perf_counter()
+        params, state, steps = trainer.run(seed=0)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = _launches()              # ... and ends here
+        bodies = {n: dict(c) for n, c in fa_ops.BODY_LAUNCHES.items()}
+    marks.append((torch.cuda.max_memory_allocated(dev), meter.take()))
+    meter.stop()
+    shard_gb = sum(t.numel() * t.element_size() for t in _leaves(params)
+                   ) / 1e9
+    for e, (peak, gloo), (_, before) in zip(steps, marks[1:], marks[:-1]):
+        e["peak_gb"], e["gloo"] = peak / 1e9, gloo
+    del params, state, trainer
+    torch.cuda.empty_cache()
+    return dict(steps=steps, wall_s=wall, shard_gb=shard_gb,
+                launches={k: launches[k] for k in ("flash_fwd", "flash_bwd")},
+                bodies={k: bodies[k] for k in ("flash_fwd", "flash_bwd")},
+                layers=cfg.n_layers)
+
+
+def _tm_parity(mesh, policy, microbatches, refs):
+    """Three f32 steps of ``make_train_step`` at 4 layers, full width, on
+    this rank's shard of the seed-0 draw; rank 0 holds the whole params
+    against the one-rank run's (``refs``: a file of its leaves)."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import make_train_step
+    from repro_torch.runtime.sharding import init_shard
+    dev = mesh.device
+    cfg = _tm_cfg(TM_PARITY_LAYERS)
+    params = init_shard(cfg, 0, mesh, policy, device=dev,
+                        dtype=torch.float32)
+    opt = AdamW(lr=3e-4, warmup_steps=1, total_steps=3)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, mesh, policy, microbatches=microbatches,
+                           use_flash=True)
+    data = SyntheticTokens(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, 2),
+                           device=dev)
+    losses = []
+    for i in range(3):
+        params, state, m = step(params, state, data.batch(i))
+        losses.append(float(m["loss"]))
+    del state
+    return dict(losses=losses, **_tm_whole_diff(params, cfg, mesh, policy,
+                                                refs))
+
+
+def _tm_whole_diff(params, cfg, mesh, policy, refs) -> dict:
+    """||whole - ref||^2 and ||ref||^2 over every leaf, on rank 0 (the
+    leaves are assembled whole on every rank, one at a time)."""
+    import torch
+    from repro_torch.models.layers import param_defs
+    from repro_torch.runtime.sharding import unshard_leaf
+    want = torch.load(refs, mmap=True) if mesh.rank == 0 else None
+    num = den = 0.0
+
+    def walk(t, d, path):
+        nonlocal num, den
+        for k in sorted(d):
+            if isinstance(d[k], dict):
+                walk(t[k], d[k], path + (k,))
+                continue
+            w = unshard_leaf(path + (k,), d[k].axes, t[k].detach(),
+                             d[k].shape, mesh, policy)
+            if want is not None:
+                r = want["/".join(path + (k,))].to(w.device).double()
+                num += float((w.double() - r).square().sum())
+                den += float(r.square().sum())
+    walk(params, param_defs(cfg), ())
+    return dict(num=num, den=den)
+
+
+def _tm_rank(mesh, jobs):
+    """One rank of a trainmesh world: ``jobs`` in order, each on the mesh
+    of its shape (made here from the spawned world's ranks, every rank
+    making every group)."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.sharding import ShardingPolicy
+    out = dict(rank=mesh.rank, backend=mesh.backend, coords=dict(mesh.coords),
+               jobs=[])
+    meshes = {(mesh.shape["data"], mesh.shape["model"]): mesh}
+    for job in jobs:
+        shape = (job["data"], job["model"])
+        if shape not in meshes:
+            meshes[shape] = make_host_mesh(*shape, device=mesh.device)
+        m = meshes[shape]
+        policy = ShardingPolicy(fsdp=job["fsdp"])
+        t0 = time.perf_counter()
+        if job["kind"] == "main":
+            rec = _tm_main(m, policy, job["layers"])
+        elif job["kind"] == "parity":
+            rec = _tm_parity(m, policy, job["microbatches"], job["refs"])
+        else:                     # "save" (2 steps) or "resume" (to 4)
+            trainer = _tm_trainer(_tm_cfg(TM_PARITY_LAYERS), m, policy,
+                                  job["ckpt"], 2 if job["kind"] == "save"
+                                  else 4, 2, torch.float32)
+            params, state, log = trainer.run(seed=0)
+            rec = dict(log=log)
+            if job["kind"] == "resume":
+                rec.update(_tm_whole_diff(params, trainer.cfg, m, policy,
+                                          job["refs"]))
+            del params, state, trainer
+        torch.cuda.empty_cache()
+        rec["coords"], rec["wall_s"] = dict(m.coords), time.perf_counter() - t0
+        out["jobs"].append(rec)
+    return out
+
+
+def _tm_one_rank(device, tmp):
+    """This process's one-rank f32 runs at 4 layers, full width: three
+    steps of ``make_train_step`` at one and two microbatches, and an
+    uninterrupted 4-step ``Trainer``; each run's losses, and its params
+    saved to a file for the ranks to read."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import make_train_step
+    cfg = _tm_cfg(TM_PARITY_LAYERS)
+    data = SyntheticTokens(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, 2),
+                           device=device)
+    refs = {}
+
+    def keep(name, params, losses):
+        path = str(Path(tmp) / f"{name}.pt")
+        torch.save({"/".join(p): t.detach().cpu() for p, t in
+                    _flat_paths(params)}, path)
+        refs[name] = dict(path=path, losses=losses)
+    for mb in (1, 2):
+        params = init_params(cfg, 0, device=device, dtype=torch.float32)
+        opt = AdamW(lr=3e-4, warmup_steps=1, total_steps=3)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, microbatches=mb, use_flash=True)
+        losses = []
+        for i in range(3):
+            params, state, m = step(params, state, data.batch(i))
+            losses.append(float(m["loss"]))
+        keep(f"mb{mb}", params, losses)
+        del params, state
+    trainer = _tm_trainer(cfg, None, None, str(Path(tmp) / "straight"), 4,
+                          100, torch.float32, device=device)
+    params, _, log = trainer.run(seed=0)
+    keep("straight", params, [e["loss"] for e in log])
+    del params, trainer
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _flat_paths(tree, path=()):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _flat_paths(tree[k], path + (k,))
+        else:
+            yield path + (k,), tree[k]
+
+
+def phase_trainmesh(device, summary, trained):
+    """The trainer on a mesh, every rank on this one card (gloo on CUDA
+    tensors, ``share_device``): granite-3-2b at full width through
+    ``Trainer.run`` at dp = 2 with FSDP and at tp = 2 (full depth), and
+    at dp = 2 x tp = 2 with FSDP (``TM_WORLDS``' depth); then the f32
+    parity meshes at 4 layers against this process's one-rank step, and
+    the elastic resume: saved at dp = 2 x tp = 2 FSDP, restored and
+    continued at tp = 1 and tp = 2, against an uninterrupted run."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+
+    t_phase = time.perf_counter()
+    card = card_name_and_power_limit()
+    tmp = tempfile.mkdtemp(prefix="trainmesh_")
+    out = dict(card=card, worlds={}, parity={}, launches={
+        "flash_fwd": 0, "flash_bwd": 0}, bodies={})
+    try:
+        refs = _tm_one_rank(device, tmp)
+        # the 4-rank spawn first: its save feeds the tp = 1 and tp = 2
+        # resumes
+        four, two = [], []
+        for label, data, model, fsdp, layers in TM_WORLDS:
+            (four if data * model == 4 else two).append(dict(
+                kind="main", label=label, data=data, model=model,
+                fsdp=fsdp, layers=layers))
+        for label, data, model, fsdp, mb in TM_PARITY:
+            (four if data * model == 4 else two).append(dict(
+                kind="parity", label=label, data=data, model=model,
+                fsdp=fsdp, microbatches=mb,
+                refs=refs[f"mb{mb}"]["path"]))
+        saved = str(Path(tmp) / "elastic")
+        four.append(dict(kind="save", label="save", data=2, model=2,
+                         fsdp=True, ckpt=saved))
+        two.append(dict(kind="resume", label="resume tp=2", data=1,
+                        model=2, fsdp=False, ckpt=str(Path(tmp) / "tp2"),
+                        refs=refs["straight"]["path"]))
+        t0 = time.perf_counter()
+        ranks4 = spawn(_tm_rank, (four,), data=2, model=2, device=device,
+                       share_device=True)
+        out["spawn4_s"] = time.perf_counter() - t0
+        # the elastic copies: tp = 1 here, tp = 2 in the 2-rank world
+        shutil.copytree(saved, str(Path(tmp) / "tp2"))
+        shutil.copytree(saved, str(Path(tmp) / "tp1"))
+        t0 = time.perf_counter()
+        ranks2 = spawn(_tm_rank, (two,), data=2, device=device,
+                       share_device=True)
+        out["spawn2_s"] = time.perf_counter() - t0
+        check(all(r["backend"] == "gloo" for r in ranks2 + ranks4),
+              "trainmesh: ranks sharing a card must run gloo")
+        _tm_report(out, four, ranks4, trained, refs)
+        _tm_report(out, two, ranks2, trained, refs)
+        _tm_elastic(out, device, tmp, refs, ranks2[0]["jobs"][-1],
+                    ranks4[0]["jobs"][-1])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[trainmesh] K6 launches over every world and rank "
+        f"{out['launches']}, by body {out['bodies']}; phase "
+        f"{out['wall_s']:.1f} s")
+    summary["trainmesh"] = out
+
+
+def _tm_report(out, jobs, ranks, trained, refs):
+    """Check and log one spawn's jobs (every rank's records side by
+    side)."""
+    single = (trained.get("train") or {}).get("loss")
+    for i, job in enumerate(jobs):
+        recs = [r["jobs"][i] for r in ranks]
+        label = job["label"]
+        if job["kind"] == "main":
+            _tm_world(out, label, job, recs, single)
+        elif job["kind"] == "parity":
+            want = refs[f"mb{job['microbatches']}"]["losses"]
+            got = recs[0]["losses"]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            param_rel = (recs[0]["num"] / recs[0]["den"]) ** 0.5
+            out["parity"][label] = dict(losses=got, want=want,
+                                        loss_rel=loss_rel,
+                                        param_rel=param_rel)
+            log(f"[trainmesh] parity {label}: {TM_PARITY_LAYERS} layers, "
+                f"full width, f32, {TRAIN_BATCH} x {TRAIN_SEQ}, 3 steps "
+                f"against one rank: losses {got} / {want}, largest "
+                f"relative difference {loss_rel:.3e} (limit "
+                f"{TM_LOSS_TOL:.0e}); params relative difference "
+                f"{param_rel:.3e} (limit {TM_PARAM_TOL:.0e})")
+            check(all(r["losses"] == got for r in recs),
+                  f"trainmesh parity {label}: ranks' losses differ")
+            check(loss_rel <= TM_LOSS_TOL and param_rel <= TM_PARAM_TOL,
+                  f"trainmesh parity {label}: loss {loss_rel:.3e}, params "
+                  f"{param_rel:.3e}")
+
+
+def _tm_world(out, label, job, recs, single):
+    """Log one full-width world's run, add its launches to the phase's,
+    then check it: every rank's losses equal, finite, and each rank's K6
+    launches two forwards (remat) and one backward per layer and step,
+    all on the mma body."""
+    import math
+    cfg = _tm_cfg(job["layers"])
+    n = job["data"] * job["model"]
+    steps = recs[0]["steps"]
+    steady = steps[1:]
+    step_s = sum(e["step_s"] for e in steady) / len(steady)
+    world = dict(
+        ranks=n, layers=cfg.n_layers, loss=[e["loss"] for e in steps],
+        grad_norm=[e["grad_norm"] for e in steps],
+        step_ms=[e["step_s"] * 1e3 for e in steps],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+        peak_gb=[max(e["peak_gb"] for e in r["steps"]) for r in recs],
+        shard_gb=[r["shard_gb"] for r in recs],
+        gloo_gb_per_step=[sum(e["gloo"]["bytes"] for e in r["steps"][1:])
+                          / len(steady) / 1e9 for r in recs],
+        gloo_s_per_step=[sum(e["gloo"]["seconds"] for e in r["steps"][1:])
+                         / len(steady) for r in recs],
+        gloo_calls_per_step=steps[1]["gloo"]["calls"],
+        launches={k: sum(r["launches"][k] for r in recs)
+                  for k in ("flash_fwd", "flash_bwd")},
+        wall_s=[r["wall_s"] for r in recs],
+        single_card_loss=(single[:TM_STEPS] if single
+                          and cfg.n_layers == _tm_cfg().n_layers else None))
+    out["worlds"][label] = world
+    one = world["single_card_loss"]
+    log(f"[trainmesh] {TRAIN_ARCH} {label}: {n} ranks on one card "
+        f"({out['card']}), gloo; {cfg.n_layers} layers, full width, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, flash + remat, {TM_STEPS} "
+        f"steps: step " + ", ".join(f"{ms:.1f}" for ms in world["step_ms"])
+        + f" ms, {world['tokens_per_s']:.1f} tokens/s (steps 1-"
+        f"{TM_STEPS - 1}); loss " + ", ".join(f"{x:.5f}" for x in
+                                                world["loss"])
+        + (" (one card, train phase: " + ", ".join(f"{x:.5f}" for x in one)
+           + ")" if one else "")
+        + "; peak memory per rank " + ", ".join(
+            f"{x:.2f}" for x in world["peak_gb"])
+        + f" GB (shard {world['shard_gb'][0]:.2f} GB); gloo per step and "
+        f"rank {world['gloo_gb_per_step'][0]:.3f} GB in "
+        f"{world['gloo_calls_per_step']} all_reduce calls, "
+        + ", ".join(f"{x:.2f}" for x in world["gloo_s_per_step"])
+        + f" s; K6 launches over its ranks {world['launches']} (not a "
+        f"{n}-card measurement)")
+    for k in out["launches"]:
+        out["launches"][k] += world["launches"][k]
+        body = out["bodies"].setdefault(k, {})
+        for r in recs:
+            for b, c in r["bodies"][k].items():
+                body[b] = body.get(b, 0) + c
+    want = {"flash_fwd": 2 * cfg.n_layers * TM_STEPS,
+            "flash_bwd": cfg.n_layers * TM_STEPS}
+    for rec in recs:
+        check([e["loss"] for e in rec["steps"]] == world["loss"],
+              f"trainmesh {label}: rank {rec['coords']}'s losses are not "
+              f"rank 0's")
+        check(rec["launches"] == want,
+              f"trainmesh {label}: rank {rec['coords']} K6 launches "
+              f"{rec['launches']}, expected {want}")
+        check(all(rec["bodies"][k] == {"mma": want[k], "fma": 0}
+                  for k in want), f"trainmesh {label}: K6 bodies "
+              f"{rec['bodies']}; every bf16 call runs on mma")
+    check(all(math.isfinite(e["loss"]) and math.isfinite(e["grad_norm"])
+              for e in steps),
+          f"trainmesh {label}: a loss or grad norm is not finite")
+
+
+def _tm_elastic(out, device, tmp, refs, resumed2, saved4):
+    """The resume at tp = 1 (here) from the 2 x 2 FSDP save, beside the
+    2-rank world's at tp = 2: both against the uninterrupted run."""
+    import torch
+    trainer = _tm_trainer(_tm_cfg(TM_PARITY_LAYERS), None, None,
+                          str(Path(tmp) / "tp1"), 4, 2, torch.float32,
+                          device=device)
+    params, _, log1 = trainer.run(seed=0)
+    want = torch.load(refs["straight"]["path"], mmap=True)
+    num = den = 0.0
+    for p, t in _flat_paths(params):
+        r = want["/".join(p)].to(t.device).double()
+        num += float((t.detach().double() - r).square().sum())
+        den += float(r.square().sum())
+    del params, trainer, want
+    torch.cuda.empty_cache()
+    straight = refs["straight"]["losses"][2:]
+    out["elastic"] = dict(saved_at=[e["step"] for e in saved4["log"]],
+                          straight_losses=straight)
+    for name, log_, n, d in (("tp=1", log1, num, den),
+                             ("tp=2", resumed2["log"], resumed2["num"],
+                              resumed2["den"])):
+        check([e["step"] for e in log_] == [2, 3],
+              f"trainmesh elastic {name}: resumed at {log_[0]['step']}")
+        losses = [e["loss"] for e in log_]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, straight))
+        r = out["elastic"][name] = dict(losses=losses, loss_rel=loss_rel,
+                                        param_rel=(n / d) ** 0.5)
+        log(f"[trainmesh] elastic: saved after step 1 at dp=2 x tp=2 FSDP "
+            f"({TM_PARITY_LAYERS} layers, f32), restored by "
+            f"restore_sharded and continued at {name}: losses of steps 2-3 "
+            f"{losses} / uninterrupted one rank {straight} (relative "
+            f"{loss_rel:.3e}, limit {TM_LOSS_TOL:.0e}); params after step 3: "
+            f"relative difference {r['param_rel']:.3e} (limit "
+            f"{TM_PARAM_TOL:.0e})")
+        check(loss_rel <= TM_LOSS_TOL and r["param_rel"] <= TM_PARAM_TOL,
+              f"trainmesh elastic {name}: loss {loss_rel:.3e}, params "
+              f"{r['param_rel']:.3e} from the uninterrupted run")
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase: a failure prints ``[fail] <phase>: <type>:
     <message>`` on stdout and is raised on (the exit stays non-zero;
@@ -3693,6 +4240,7 @@ def main() -> int:
         "lockstep": (lambda: phase_lockstep(device, families, summary.get(
             "engine_bf16", {}).get("tpot_p50_ms")),),
         "multidevice": (phase_multidevice, device, families),
+        "trainmesh": (phase_trainmesh, device, families, trained),
         "profile": (phase_profile, device),
     }
     for name in PHASES + EXTRA_PHASES:
@@ -3712,6 +4260,8 @@ def main() -> int:
                    for k in {*engine, *moe, *md}},
                 **trained.get("train", {}).get("launches", {}),
                 **quant_measure.get("quant", {}).get("launches", {})}
+    for k, n in families.get("trainmesh", {}).get("launches", {}).items():
+        launches[k] = launches.get(k, 0) + n
     lockstep = families.get("lockstep")
     md_k6 = families.get("multidevice", {})
     for rec in (lockstep, md_k6):
@@ -3727,6 +4277,9 @@ def main() -> int:
     bodies = {**engine_bodies,
               "quant_matmul": quant_measure.get("quant", {}).get("bodies"),
               **trained.get("train", {}).get("bodies", {})}
+    for k, c in families.get("trainmesh", {}).get("bodies", {}).items():
+        bodies[k] = {b: (bodies.get(k) or {}).get(b, 0) + n
+                     for b, n in c.items()}
     for rec in (lockstep, md_k6):
         if rec and "k6_bodies" in rec:
             fwd = bodies.get("flash_fwd") or {}
@@ -3765,7 +4318,8 @@ def main() -> int:
                       "vlm": families.get("vlm"),
                       "lockstep": families.get("lockstep")}))
     print(json.dumps({"multidevice": families.get("multidevice")}))
-    print(json.dumps({"train": trained.get("train")}))
+    print(json.dumps({"train": trained.get("train"),
+                      "trainmesh": families.get("trainmesh")}))
     print(json.dumps({"engine": summary}))
     print(json.dumps({"kernels": record}))
     print(smi)

@@ -11,9 +11,12 @@ package's ``checkpoint/manager.py``, in its on-disk layout).
   the dtype name ``bfloat16``, so either package restores the other's
   checkpoints.
 * **GC** — the last ``keep_last_n`` steps are kept; older ones deleted.
-
-Placing restored leaves on another mesh (``restore_sharded``) comes with
-multi-device training (ROADMAP queue 1, item 5).
+* **Meshes** — ``save`` from a mesh of ranks assembles each leaf whole
+  (``runtime.sharding.unshard_leaf``), rank 0 writes the layout above,
+  and every rank waits for the publish; ``restore_sharded`` reads whole
+  leaves and cuts this rank's shard (``runtime.sharding.shard_leaf``).
+  A checkpoint is thereby independent of the mesh that wrote it: it
+  restores on any mesh shape, in either package.
 """
 from __future__ import annotations
 
@@ -52,6 +55,31 @@ def _flatten(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def _paths(tree, path=()) -> List[Tuple[str, ...]]:
+    """Each leaf's dict-key path, in :func:`_flatten`'s order (a tuple's
+    position is not part of it: ``mu`` and ``nu`` share the params'
+    paths)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], path + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [p for sub in tree for p in _paths(sub, path)]
+    return [path]
+
+
+def _axes_of(cfg, path: Tuple[str, ...]):
+    """``(logical axes, whole shape)`` of the parameter at ``path``, or
+    ``((), None)`` for a leaf that is no parameter (AdamW's ``count``)."""
+    from repro_torch.models.layers import param_defs
+    node = param_defs(cfg)
+    for k in path:
+        if not isinstance(node, dict) or k not in node:
+            return (), None
+        node = node[k]
+    if isinstance(node, dict):
+        return (), None
+    return node.axes, node.shape
+
+
 def _unflatten(tree, leaves: Iterator[torch.Tensor]):
     """A tree shaped like ``tree`` whose leaves are taken from ``leaves``
     (in :func:`_flatten`'s order)."""
@@ -72,6 +100,14 @@ def _to_bytes(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     return np.frombuffer(t.numpy().tobytes(), dtype=np.uint8), name
 
 
+class _Whole:
+    """A leaf of ``restore``'s example: a whole shape, read to the host."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+        self.device = torch.device("cpu")
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep_last_n: int = 3):
         self.dir = directory
@@ -79,8 +115,35 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree, *, process_index: int = 0) -> str:
+    def save(self, step: int, tree, *, process_index: int = 0, mesh=None,
+             policy=None, cfg=None) -> str:
+        """Publish ``tree`` as step ``step``.  From a ``mesh`` (with the
+        ``cfg`` whose parameters ``tree`` holds: params, or (params,
+        AdamW state)) every rank must call this: each leaf is assembled
+        whole on every rank, rank 0 writes, and all ranks wait for the
+        publish before returning."""
+        if mesh is not None and mesh.size > 1:
+            return self._save_from_mesh(step, tree, mesh, policy, cfg)
         leaves = _flatten(tree)
+        return self._write(step, leaves, process_index)
+
+    def _save_from_mesh(self, step, tree, mesh, policy, cfg) -> str:
+        from repro_torch.runtime.sharding import ShardingPolicy, unshard_leaf
+        policy = policy or ShardingPolicy()
+        whole = []
+        for path, leaf in zip(_paths(tree), _flatten(tree)):
+            axes, shape = _axes_of(cfg, path)
+            if shape is not None:
+                leaf = unshard_leaf(path, axes, leaf.detach(), shape, mesh,
+                                    policy)
+            # only rank 0 keeps the whole leaves (on the host)
+            whole.append(leaf.detach().cpu() if mesh.rank == 0 else None)
+        final = (self._write(step, whole, 0) if mesh.rank == 0 else
+                 os.path.join(self.dir, f"step_{step:08d}"))
+        mesh.barrier()
+        return final
+
+    def _write(self, step: int, leaves, process_index: int) -> str:
         tmp = os.path.join(self.dir, f"step_{step:08d}.tmp")
         final = os.path.join(self.dir, f"step_{step:08d}")
         os.makedirs(tmp, exist_ok=True)
@@ -148,6 +211,34 @@ class CheckpointManager:
                 t = torch.from_numpy(arr.copy()).view(t_dtype)
                 restored.append(t.to(leaf.device))
         return _unflatten(example_tree, iter(restored)), step
+
+    def restore_sharded(self, example: Any, mesh, policy=None,
+                        step: Optional[int] = None, *, cfg):
+        """Restore whole leaves and keep this rank's shard of each, cut by
+        ``mesh`` and ``policy`` as ``runtime.sharding`` cuts ``cfg``'s
+        parameters (AdamW's moments like their params); the checkpoint
+        may come from any mesh shape and either package.  ``example`` is
+        this rank's tree (its shards: structure, shapes and devices);
+        each restored shard must have its example leaf's shape.  Returns
+        (tree, step)."""
+        from repro_torch.runtime.sharding import ShardingPolicy, shard_leaf
+        policy = policy or ShardingPolicy()
+        whole_example = _unflatten(example, iter(
+            _Whole(_axes_of(cfg, path)[1] or leaf.shape)
+            for path, leaf in zip(_paths(example), _flatten(example))))
+        host, step = self.restore(whole_example, step)
+        placed = []
+        for path, leaf, t in zip(_paths(example), _flatten(example),
+                                 _flatten(host)):
+            axes, shape = _axes_of(cfg, path)
+            if shape is not None:
+                t = shard_leaf(path, axes, t, mesh, policy)
+            if tuple(t.shape) != tuple(leaf.shape):
+                raise ValueError(f"{'/'.join(path)}: this rank's cut "
+                                 f"{tuple(t.shape)} != its leaf "
+                                 f"{tuple(leaf.shape)}")
+            placed.append(t.to(leaf.device))
+        return _unflatten(example, iter(placed)), step
 
     # ------------------------------------------------------------------
     def _gc(self):

@@ -7,7 +7,12 @@ Under a tensor-parallel hint (``models.act_sharding``) every function
 runs on the heads a rank holds (``runtime.sharding``), read from its
 leaves: q/k/v (MLA's ``q_up``/``kv_up``, cross-attention's projections)
 cut by columns, the output projection ``wo`` by rows, whose partial is
-summed over the tp group in one ``all_reduce``.  KV heads that tp does
+summed over the tp group in one ``all_reduce`` (``tp_all_reduce``).
+Where a replicated activation meets the rank's columns (the input of
+q/k/v; MLA's latents and rotary key; whole K/V read by cut query heads;
+cross-attention's queries and encoder output) it passes through
+``tp_copy``, whose backward sums the ranks' partial gradients, so every
+whole leaf gets the same whole gradient on every rank.  KV heads that tp does
 not divide stay whole (recurrentgemma-2b's one KV head, MLA's latent):
 every rank writes the same whole cache and reads the KV heads its query
 heads use.  A layer whose query heads tp does not divide runs whole on
@@ -74,10 +79,11 @@ def _q_groups(cfg: ArchConfig, p: Dict) -> Tuple[int, int]:
 def _rank_kv(cfg: ArchConfig, p: Dict, k: torch.Tensor, v: torch.Tensor):
     """K/V (b, L, Hk, d) cut to the KV heads :func:`_q_groups` reads:
     as they are unless the KV heads stayed whole and the query heads
-    were cut."""
+    were cut (the whole K/V then pass ``tp_copy``)."""
     H, Hk = p["wq"].shape[-2], k.shape[-2]
     if H == cfg.n_heads or Hk < cfg.n_kv_heads:
         return k, v
+    k, v = act_sharding.tp_copy(k), act_sharding.tp_copy(v)
     G = cfg.n_heads // cfg.n_kv_heads
     first = act_sharding.tp_rank() * H
     if G % H == 0:
@@ -105,9 +111,11 @@ def _project_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor, positions,
     (W + A@B) produces the same rotated q/k."""
     b, s, d = x.shape
     H, Hk, hd = p["wq"].shape[-2], p["wk"].shape[-2], p["wq"].shape[-1]
-    q = (x @ p["wq"].reshape(d, H * hd)).view(b, s, H, hd)
-    k = (x @ p["wk"].reshape(d, Hk * hd)).view(b, s, Hk, hd)
-    v = (x @ p["wv"].reshape(d, Hk * hd)).view(b, s, Hk, hd)
+    xq = act_sharding.tp_copy(x) if H < cfg.n_heads else x
+    xkv = xq if Hk < cfg.n_kv_heads else x
+    q = (xq @ p["wq"].reshape(d, H * hd)).view(b, s, H, hd)
+    k = (xkv @ p["wk"].reshape(d, Hk * hd)).view(b, s, Hk, hd)
+    v = (xkv @ p["wv"].reshape(d, Hk * hd)).view(b, s, Hk, hd)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if deltas is not None:
@@ -302,6 +310,8 @@ def cached_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor,
 def _mla_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor, positions):
     m = cfg.mla
     cq = rmsnorm(dense(x, p["q_down"]), p["q_norm"])
+    if p["q_up"].shape[1] < cfg.n_heads:
+        cq = act_sharding.tp_copy(cq)
     q = torch.einsum("bsr,rhk->bshk", cq, p["q_up"])
     q_nope, q_pe = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
@@ -315,6 +325,9 @@ def _mla_qkv(cfg: ArchConfig, p: Dict, x: torch.Tensor, positions):
 def _mla_core(cfg: ArchConfig, p: Dict, q_nope, q_pe, c_latent, k_pe, mask):
     """Decompress the latent of every cached position and attend."""
     m = cfg.mla
+    if p["kv_up"].shape[1] < cfg.n_heads:
+        c_latent = act_sharding.tp_copy(c_latent)
+        k_pe = act_sharding.tp_copy(k_pe)
     kv = torch.einsum("blr,rhk->blhk", c_latent, p["kv_up"])
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
@@ -365,6 +378,8 @@ def cross_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     stored in another dtype (a bf16 or int8 cache) meet q in their
     promoted dtype, as ``jnp.einsum`` promotes them."""
     hd = cfg.head_dim
+    if p["wq"].shape[1] < cfg.n_heads:
+        x = act_sharding.tp_copy(x)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     dt = torch.promote_types(q.dtype, enc_k.dtype)
     scores = torch.einsum("bshk,bfhk->bhsf", q.to(dt), enc_k.to(dt)) \
@@ -376,6 +391,8 @@ def cross_attention(cfg: ArchConfig, p: Dict, x: torch.Tensor,
 
 
 def encode_cross_kv(cfg: ArchConfig, p: Dict, enc_out: torch.Tensor):
+    if p["wk"].shape[1] < cfg.n_heads:
+        enc_out = act_sharding.tp_copy(enc_out)
     k = torch.einsum("bfd,dhk->bfhk", enc_out, p["wk"])
     v = torch.einsum("bfd,dhk->bfhk", enc_out, p["wv"])
     return k, v

@@ -15,8 +15,13 @@ gates, ``dt`` and the recurrence per channel).  A product that contracts
 over a cut axis gives a partial sum, summed over the tp group in one
 ``all_reduce``: the MLP's ``down``, Mamba's ``x_proj`` (before dt, B and
 C are split from it) and ``out_proj``, the RG-LRU's ``linear_out``.  A
-block whose axis tp does not divide holds it whole and runs as on one
-device, with no collective."""
+replicated activation that meets the rank's columns passes
+``act_sharding.tp_copy`` (its backward sums the partial gradients): the
+input of ``gate``/``up``, of Mamba's ``in_proj`` and of the RG-LRU's
+``linear_x``/``linear_y``, Mamba's summed ``x_proj`` output, and the
+MoE dispatch's tokens and combine weights (the router itself runs whole
+on every rank).  A block whose axis tp does not divide holds it whole
+and runs as on one device, with no collective."""
 from __future__ import annotations
 
 import math
@@ -49,10 +54,18 @@ def _sum_if_cut(y: torch.Tensor, held: int, whole: int) -> torch.Tensor:
     return act_sharding.tp_all_reduce(y) if held < whole else y
 
 
+def _copy_if_cut(x: torch.Tensor, held: int, whole: int) -> torch.Tensor:
+    """``act_sharding.tp_copy`` of an input the rank's cut columns read
+    (``held`` of ``whole``); ``x`` as it is when the axis stayed whole."""
+    return act_sharding.tp_copy(x) if held < whole else x
+
+
 def mlp_sharded(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     """:func:`mlp_forward` on a rank's ``mlp`` columns, its ``down``
     partial summed over the tp group (the identity without a cut)."""
-    return _sum_if_cut(mlp_forward(cfg, p, x), p["down"].shape[0], cfg.d_ff)
+    held = p["down"].shape[0]
+    return _sum_if_cut(mlp_forward(cfg, p, _copy_if_cut(x, held, cfg.d_ff)),
+                       held, cfg.d_ff)
 
 
 # ---------------------------------------------------------------------------
@@ -126,9 +139,16 @@ def _router(cfg: ArchConfig, p: Dict, xt: torch.Tensor):
     weights, sel = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, sel = weights[..., :k], sel[..., :k]                # (..., k)
     weights = weights / (weights.sum(-1, keepdim=True) + 1e-9)
-    assign = F.one_hot(sel[..., 0], E).float()
-    aux = E * torch.sum(assign.reshape(-1, E).mean(0)
-                        * probs.reshape(-1, E).mean(0))
+    assign = F.one_hot(sel[..., 0], E).float().reshape(-1, E)
+    probs = probs.reshape(-1, E)
+    if act_sharding.dp_size() == 1:
+        aux = E * torch.sum(assign.mean(0) * probs.mean(0))
+    else:
+        # the reference's means run over the global batch: each replica's
+        # sums added over the data-parallel group first
+        n = assign.shape[0] * act_sharding.dp_size()
+        aux = E * torch.sum((act_sharding.dp_all_reduce(assign.sum(0)) / n)
+                            * (act_sharding.dp_all_reduce(probs.sum(0)) / n))
     return weights.to(xt.dtype), sel, aux
 
 
@@ -193,12 +213,18 @@ def _routed_and_shared(cfg, p, x, weights, sel, capacity):
     ``all_reduce`` of their sum when both are cut (the reference's single
     psum); a part held whole is added after the sum."""
     cut = _experts_cut(cfg.n_experts)
-    y = _dispatch_combine(p, x, weights, sel, cfg.n_experts, capacity)
+    shared_cut = ("shared_gate" in p and p["shared_down"].shape[0]
+                  < cfg.n_shared_experts * cfg.d_ff_expert)
+    # the rank's experts and shared columns read the tokens through f;
+    # the router ran whole on every rank
+    xc = act_sharding.tp_copy(x) if cut or shared_cut else x
+    if cut:
+        weights = act_sharding.tp_copy(weights)
+    y = _dispatch_combine(p, xc if cut else x, weights, sel, cfg.n_experts,
+                          capacity)
     if "shared_gate" not in p:
         return act_sharding.tp_all_reduce(y) if cut else y
-    ys = _shared(p, x)
-    shared_cut = (p["shared_down"].shape[0]
-                  < cfg.n_shared_experts * cfg.d_ff_expert)
+    ys = _shared(p, xc if shared_cut else x)
     if cut == shared_cut:
         y = y + ys
         return act_sharding.tp_all_reduce(y) if cut else y
@@ -268,7 +294,10 @@ def _ssm_params(cfg: ArchConfig, p: Dict, x_c: torch.Tensor):
     split."""
     dtr = cfg.ssm_dt_rank or max(1, cfg.d_model // 16)
     n = cfg.ssm_d_state
-    xp = _sum_if_cut(dense(x_c, p["x_proj"]), p["D"].shape[0], _inner(cfg))
+    held = p["D"].shape[0]
+    # summed over the tp group, then read by the rank's channels again
+    xp = _copy_if_cut(_sum_if_cut(dense(x_c, p["x_proj"]), held,
+                                  _inner(cfg)), held, _inner(cfg))
     dt_raw, B, C = xp.split([dtr, n, n], dim=-1)
     dt = _softplus(dense(dt_raw, p["dt_proj"]).float()
                    + p["dt_bias"].float())
@@ -287,6 +316,7 @@ def _ssm_update(h, dt_t, A, B_t, C_t, x_t):
 def _mamba_seq(cfg: ArchConfig, p: Dict, x: torch.Tensor, conv_state,
                ssm_state):
     """One contiguous piece; threads (conv_state, ssm_state) through."""
+    x = _copy_if_cut(x, p["D"].shape[0], _inner(cfg))
     x_in, z = dense(x, p["in_proj"]).chunk(2, dim=-1)
     x_c, conv_state = _causal_depthwise_conv(x_in, p["conv_w"], p["conv_b"],
                                              conv_state)
@@ -368,6 +398,7 @@ def _rglru_gates(p: Dict, x_c: torch.Tensor):
 
 def _rglru_seq(cfg: ArchConfig, p: Dict, x: torch.Tensor, conv_state,
                h_state):
+    x = _copy_if_cut(x, p["a_param"].shape[0], cfg.lru_width or cfg.d_model)
     xb = dense(x, p["linear_x"])
     yb = gelu(dense(x, p["linear_y"]))
     x_c, conv_state = _causal_depthwise_conv(xb, p["conv_w"], p["conv_b"],

@@ -13,12 +13,19 @@ stacks are unrolled as ``layers["l{i}"]``.  Per-layer remat is
 is saved, and the backward recomputes the layer).
 
 Under a mesh hint (``models.act_sharding``, installed by
-``runtime.serve.make_serve_fns``) :func:`step` runs a rank's shard
+``runtime.serve.make_serve_fns`` and by ``runtime.train``'s step)
+:func:`step` and :func:`forward` run a rank's shard
 (``runtime.sharding``): the layer bodies on its heads, ``mlp`` columns
 and ``inner`` channels (``attention``, ``blocks``), and under a pipe
-axis only its stage's layers, decoder and encoder alike, through
-``act_sharding.staged_scan``; the last stage's logits, and a staged
-encoder's output, are broadcast back to every stage.
+axis (serving only) only its stage's layers, decoder and encoder alike,
+through ``act_sharding.staged_scan``; the last stage's logits, and a
+staged encoder's output, are broadcast back to every stage.  Under FSDP
+:func:`forward` gathers each layer's leaves cut over the data axis
+inside the function a layer's remat checkpoints, so the backward frees
+the whole weights and gathers them again, as XLA does; the embedding,
+the final norm, the LM head and a VLM's ``vision_proj`` are gathered
+once, outside the stack (a tied embedding thereby serves both of its
+uses from one gather).
 """
 from __future__ import annotations
 
@@ -117,6 +124,33 @@ def _seq_block(cfg: ArchConfig, kind: str, p: Dict, x: torch.Tensor, *,
     return _channel_mix(cfg, p, x)
 
 
+def _layer_dims(dims: Optional[Dict], n: int) -> List[Optional[Dict]]:
+    """Per-layer trees of FSDP's cut dims (``act_sharding.fsdp_dims``'
+    ``layers`` subtree, whole-leaf dims): a stacked leaf's dims shift by
+    its layer axis; None for every layer without FSDP."""
+    if dims is None:
+        return [None] * n
+    if "ln1" not in dims:
+        return [dims[k] for k in sorted(dims, key=lambda k: int(k[1:]))]
+
+    def shift(t):
+        return {k: (shift(v) if isinstance(v, dict) else
+                    None if v is None else v - 1) for k, v in t.items()}
+    return [shift(dims)] * n
+
+
+def _layer(cfg: ArchConfig, kind: str, p: Dict, x: torch.Tensor,
+           dims: Optional[Dict], enc_out: Optional[torch.Tensor],
+           use_flash: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer from its (possibly FSDP-cut) leaves: gathered
+    whole, an encoder-decoder's cross K/V projected from ``enc_out``,
+    then :func:`_seq_block`.  The unit a layer's remat recomputes."""
+    p = act_sharding.fsdp_gather_tree(p, dims)
+    enc_kv = (None if enc_out is None
+              else A.encode_cross_kv(cfg, p["xattn"], enc_out))
+    return _seq_block(cfg, kind, p, x, use_flash=use_flash, enc_kv=enc_kv)
+
+
 def _run_stack(cfg: ArchConfig, params: Dict, x: torch.Tensor, *,
                use_flash: bool, remat: bool, enc_out=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,19 +158,22 @@ def _run_stack(cfg: ArchConfig, params: Dict, x: torch.Tensor, *,
     the layers' aux losses are summed.  With ``enc_out`` (an
     encoder-decoder) each layer first projects its cross K/V from it."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p in zip(cfg.block_kinds(), layer_params(params)):
-        kw = dict(use_flash=use_flash, enc_kv=None if enc_out is None else
-                  A.encode_cross_kv(cfg, p["xattn"], enc_out))
+    layers = layer_params(params)
+    dims = act_sharding.fsdp_dims()
+    dims = _layer_dims(None if dims is None else dims["layers"], len(layers))
+    for kind, p, dm in zip(cfg.block_kinds(), layers, dims):
         if remat:
-            x, aux = checkpoint(_seq_block, cfg, kind, p, x,
-                                use_reentrant=False, **kw)
+            x, aux = checkpoint(_layer, cfg, kind, p, x, dm, enc_out,
+                                use_flash, use_reentrant=False)
         else:
-            x, aux = _seq_block(cfg, kind, p, x, **kw)
+            x, aux = _layer(cfg, kind, p, x, dm, enc_out, use_flash)
         aux_total = aux_total + aux
     return x, aux_total
 
 
-def _encoder_block(cfg: ArchConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
+def _encoder_block(cfg: ArchConfig, p: Dict, h: torch.Tensor,
+                   dims: Optional[Dict] = None) -> torch.Tensor:
+    p = act_sharding.fsdp_gather_tree(p, dims)
     z = apply_norm(cfg.norm_kind, h, p["ln1"])
     h = h + A.self_attention(cfg, p["attn"], z, causal=False)
     z = apply_norm(cfg.norm_kind, h, p["ln2"])
@@ -151,12 +188,15 @@ def _encoder_forward(cfg: ArchConfig, params: Dict, frames: torch.Tensor,
     and every stage gets the last stage's output."""
     mesh = act_sharding.current_mesh()
     enc = layer_params(params["encoder"])
+    dims = act_sharding.fsdp_dims()
+    dims = _layer_dims(None if dims is None else
+                       dims["encoder"]["layers"], len(enc))
 
     def body(li, x):
         if remat:
-            return checkpoint(_encoder_block, cfg, enc[li], x,
+            return checkpoint(_encoder_block, cfg, enc[li], x, dims[li],
                               use_reentrant=False)
-        return _encoder_block(cfg, enc[li], x)
+        return _encoder_block(cfg, enc[li], x, dims[li])
     # a later stage receives its input in place: never into the caller's
     x = frames if mesh is None or mesh.stage == 0 else torch.empty_like(
         frames)
@@ -164,6 +204,26 @@ def _encoder_forward(cfg: ArchConfig, params: Dict, frames: torch.Tensor,
     return from_last_stage(
         mesh, lambda: apply_norm(cfg.norm_kind, x, params["encoder"]["ln_f"]),
         x.shape, x.dtype, x.device)
+
+
+def _gather_outside_stack(params: Dict) -> Dict:
+    """Under FSDP, ``params`` with every leaf outside the layer stacks
+    gathered whole (``embed``, ``ln_f``, ``lm_head``, ``vision_proj``,
+    the encoder's ``ln_f``); the layers are gathered one by one in
+    :func:`_layer` and :func:`_encoder_block`."""
+    dims = act_sharding.fsdp_dims()
+    if dims is None:
+        return params
+    out = dict(params)
+    for k, v in params.items():
+        if k == "encoder":
+            out[k] = dict(v, ln_f=act_sharding.fsdp_gather_tree(
+                v["ln_f"], dims[k]["ln_f"]))
+        elif k != "layers":
+            out[k] = (act_sharding.fsdp_gather_tree(v, dims[k])
+                      if isinstance(v, dict)
+                      else act_sharding.fsdp_gather(v, dims[k]))
+    return out
 
 
 def forward(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor, *,
@@ -184,6 +244,7 @@ def forward(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor, *,
         raise NotImplementedError(
             f"remat policy {remat_policy!r} (saving matmul outputs) serves "
             f"the dry-run cells, not ported yet (ROADMAP.md queue 1, item 6)")
+    params = _gather_outside_stack(params)
     x = _embed(cfg, params, token_ids, vision_embeds)
     enc_out = None
     if cfg.family == "encdec":

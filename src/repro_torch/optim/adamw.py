@@ -10,6 +10,15 @@ and ``nu`` are overwritten and only one leaf's f32 gradient exists at a
 time.  So a fault raised inside ``update`` can leave the state half
 updated; the trainer recovers from such a fault only through a
 checkpoint.
+
+On a mesh each rank updates its own shard of every leaf.  ``update``
+then takes ``shards``: per leaf (in :func:`tree_leaves` order) the
+process groups that cut it.  The global norm adds each leaf's square
+sum once: the sums of the leaves cut over the same groups are added,
+then summed over those groups, and a whole leaf (cut over none) counts
+once, as every rank holds the same copy.  A compressor that takes
+``groups`` (``compress_int8``) is handed the leaf's, so its scale is
+the whole leaf's.
 """
 from __future__ import annotations
 
@@ -89,28 +98,52 @@ class AdamW:
         frac = self.min_lr_frac + (1 - self.min_lr_frac) * cos
         return self.lr * warm * frac
 
-    def _grad32(self, g: torch.Tensor) -> torch.Tensor:
+    def _grad32(self, g: torch.Tensor, groups: tuple = ()) -> torch.Tensor:
         g = g.to(torch.float32)
-        return self.compress(g) if self.compress is not None else g
+        if self.compress is None:
+            return g
+        return self.compress(g, groups=groups) if groups else self.compress(g)
+
+    def _global_norm(self, gleaves, shards) -> torch.Tensor:
+        """The (compressed) f32 gradient's global norm over every rank's
+        shards (see the module docstring); on one device the square sums
+        added in leaf order."""
+        by_groups: Dict[tuple, torch.Tensor] = {}
+        for g, groups in zip(gleaves, shards):
+            sq = torch.sum(torch.square(self._grad32(g, groups)))
+            by_groups[groups] = (by_groups[groups] + sq if groups in by_groups
+                                 else sq)
+        total = None
+        for groups, sq in by_groups.items():   # one order on every rank
+            for group in groups:
+                import torch.distributed as dist
+                dist.all_reduce(sq, group=group)
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
 
     @torch.no_grad()
-    def update(self, grads: Dict, state: AdamWState, params: Dict):
+    def update(self, grads: Dict, state: AdamWState, params: Dict, *,
+               shards: Optional[list] = None):
         """One step, in place: returns (params, state, global grad norm).
 
         ``grads`` mirrors ``params`` (any float dtype).  The global norm
-        is taken over the (compressed) f32 gradient before clipping."""
+        is taken over the (compressed) f32 gradient before clipping.
+        ``shards`` (on a mesh): per leaf, the tuple of process groups
+        that cut it."""
         gleaves = list(tree_leaves(grads))
-        gn = torch.sqrt(sum(torch.sum(torch.square(self._grad32(g)))
-                            for g in gleaves))
+        groups_of = shards if shards is not None else [()] * len(gleaves)
+        gn = self._global_norm(gleaves, groups_of)
         scale = (torch.clamp(self.clip_norm / (gn + 1e-9), max=1.0)
                  if self.clip_norm is not None else None)
         count = state.count + 1
         lr = self.schedule(count)
         b1c = 1 - self.b1 ** count.to(torch.float32)
         b2c = 1 - self.b2 ** count.to(torch.float32)
-        for p, m, v, g in zip(tree_leaves(params), tree_leaves(state.mu),
-                              tree_leaves(state.nu), gleaves):
-            g = self._grad32(g)
+        for p, m, v, g, groups in zip(tree_leaves(params),
+                                      tree_leaves(state.mu),
+                                      tree_leaves(state.nu), gleaves,
+                                      groups_of):
+            g = self._grad32(g, groups)
             if scale is not None:
                 g = g * scale
             m.mul_(self.b1).add_((1 - self.b1) * g)
@@ -129,12 +162,19 @@ def global_norm(tree: Dict) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def compress_int8(grads):
+def compress_int8(grads, groups: tuple = ()):
     """Simulated int8 gradient compression (per-tensor scale): quantize,
-    then dequantize.  Takes one tensor or a nested dict of them."""
+    then dequantize.  Takes one tensor or a nested dict of them.  A shard
+    of a leaf cut over ``groups`` (process groups) takes the whole leaf's
+    scale: its largest magnitude is the max over those groups."""
     if isinstance(grads, dict):
-        return tree_map(compress_int8, grads)
+        return tree_map(lambda g: compress_int8(g, groups), grads)
     gf = grads.to(torch.float32)
-    scale = torch.clamp(gf.abs().max(), min=1e-12) / 127.0
+    amax = gf.abs().max()
+    if groups:
+        import torch.distributed as dist
+        for group in groups:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     return q.to(torch.float32) * scale

@@ -19,9 +19,12 @@ shard, cut here by the same specs, rank ``m`` of a cut axis holding its
 
 The port's overrides, all in where data lives and none in any result:
 
-* ``embed`` and ``lm_head`` stay whole on every rank (the reference
-  shards ``vocab``), so every rank computes the same logits with no
-  all-gather, which gloo cannot do on CUDA tensors;
+* ``embed`` and ``lm_head`` stay whole over the tensor-parallel axis
+  (the reference shards ``vocab``), so every rank computes the same
+  logits with no all-gather, which gloo cannot do on CUDA tensors; under
+  FSDP their ``embed`` dim is still cut over the data axes, as every
+  other leaf's is, and gathered whole where it is used
+  (``models.act_sharding.fsdp_gather``);
 * the MoE ``router`` stays whole, since every rank routes every token
   over all experts; the stacked ``experts`` axis is zero-padded to a
   multiple of ``MOE_EXPERT_PAD_TO`` (``models.blocks.pad_experts``, the
@@ -44,12 +47,25 @@ The port's overrides, all in where data lives and none in any result:
   whenever ``pp`` divides ``L``), only its own ``layers["l{i}"]`` of an
   unrolled stack (the reference has no ``layers`` axis there, so GSPMD
   keeps them whole on every stage), and of each per-kind decode-state
-  stack the entries of its layers of that kind.
+  stack the entries of its layers of that kind;
+* a training batch's rows are cut over the data axes only: the tp ranks
+  of a replica see the same rows with ``seq`` whole, where the
+  reference's ``seq_shard`` would cut ``seq`` over ``"model"``, and a
+  row count the data axes do not divide is refused, where the
+  reference would hold the rows whole on every replica
+  (:func:`shard_batch`).
 
 A decode state is cut by :func:`init_state_shard`, which builds each
-key's rank-sized zeros from the whole shape and the spec.  ``batch`` is
-cut over the data axes, which the port's meshes hold at one rank.
-``batch_shardings`` waits for the trainer's dp (ROADMAP queue 1, item 5).
+key's rank-sized zeros from the whole shape and the spec.
+
+A training batch: :func:`batch_specs` gives the reference's spec of
+every field (its ``batch_shardings``), and :func:`shard_batch` cuts a
+rank's rows of it (the last override above: a rank's attention needs
+every position of its rows).  :func:`opt_state_specs`
+mirrors the params' specs for AdamW's moments, and
+:func:`param_cuts` / :func:`fsdp_dims` tell the trainer, the optimizer
+and the checkpoints which mesh axis cuts which dim of each leaf.
+:func:`unshard_leaf` is :func:`shard_leaf`'s inverse over a mesh.
 """
 from __future__ import annotations
 
@@ -304,21 +320,59 @@ def shard_leaf(path: Tuple[str, ...], axes: Tuple[Optional[str], ...],
         if axes[dim] == "layers":
             lo, hi = stage_range(t.shape[dim], index, ways)
             t = t.narrow(dim, lo, hi - lo)
-        elif axes[dim] == "experts":
-            # the block's experts past E are zeros (the padded leaf itself
-            # is never built)
-            lo, w = _block(padded_experts(t.shape[dim]), ways, index)
-            have = max(0, min(w, t.shape[dim] - lo))
-            t = pad_experts(t.narrow(dim, min(lo, t.shape[dim]), have),
-                            dim, w)
-        elif path[-2:] == ("ssm", "in_proj"):
-            half = t.shape[dim] // 2
-            lo, w = _block(half, ways, index)
-            t = torch.cat([t.narrow(dim, lo, w), t.narrow(dim, half + lo, w)],
-                          dim=dim)
-        else:
-            t = t.narrow(dim, *_block(t.shape[dim], ways, index))
+            continue
+        # the block's experts past E are zeros (the padded leaf itself is
+        # never built)
+        pieces, width = _pieces(path, axes, dim, t.shape[dim], ways, index)
+        parts = [t.narrow(dim, g, w) for _, g, w in pieces]
+        t = pad_experts(parts[0] if len(parts) == 1 else torch.cat(
+            parts or [t.narrow(dim, 0, 0)], dim=dim), dim, width)
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def _pieces(path: Tuple[str, ...], axes: Tuple[Optional[str], ...],
+            dim: int, n: int, ways: int, index: int):
+    """Where rank ``index`` of ``ways`` finds its cut of a leaf's dim
+    ``dim`` of whole size ``n``: ``([(start in the shard, start in the
+    whole leaf, width), ...], the shard's width)``.  Padded experts: the
+    block of ``padded_experts(n)`` (its experts past E are zeros, absent
+    from the whole leaf); Mamba's ``in_proj``: the rank's block of each
+    half; otherwise the contiguous block."""
+    if axes[dim] == "experts":
+        lo, w = _block(padded_experts(n), ways, index)
+        have = max(0, min(w, n - lo))
+        return ([(0, lo, have)] if have else []), w
+    if axes[dim] == "inner" and path[-2:] == ("ssm", "in_proj"):
+        lo, w = _block(n // 2, ways, index)
+        return [(0, lo, w), (w, n // 2 + lo, w)], 2 * w
+    lo, w = _block(n, ways, index)
+    return [(0, lo, w)], w
+
+
+def unshard_leaf(path: Tuple[str, ...], axes: Tuple[Optional[str], ...],
+                 t: torch.Tensor, whole: Tuple[int, ...], mesh,
+                 policy: ShardingPolicy = ShardingPolicy()) -> torch.Tensor:
+    """The whole leaf (shape ``whole``) of this rank's shard ``t``, on
+    every rank: per cut axis, each rank writes its pieces into a zero
+    buffer of the whole width and one ``all_reduce`` over the axis's
+    group sums them (exact).  A leaf with no cut comes back as it is.
+    Refuses a pipeline cut (a stage holds only its own layers)."""
+    import torch.distributed as dist
+    cuts = _cut_dims(path, axes, mesh.shape, policy, tuple(whole))
+    for axis, dim in cuts.items():
+        if axes[dim] == "layers":
+            raise NotImplementedError(
+                "unshard_leaf: a leaf cut over pipeline stages")
+        pieces, _ = _pieces(path, axes, dim, whole[dim], mesh.shape[axis],
+                            mesh.coords[axis])
+        shape = list(t.shape)
+        shape[dim] = whole[dim]
+        full = t.new_zeros(shape)
+        for local, start, w in pieces:
+            full.narrow(dim, start, w).copy_(t.narrow(dim, local, w))
+        dist.all_reduce(full, group=mesh.groups[axis])
+        t = full
+    return t
 
 
 def _unrolled_layer(path: Tuple[str, ...]) -> Optional[int]:
@@ -415,6 +469,112 @@ def init_state_shard(cfg: ArchConfig, batch: int, max_len: int, mesh,
     return state
 
 
+# ---------------------------------------------------------------------------
+# training on a mesh: batches, optimizer state, the cuts of each leaf
+# ---------------------------------------------------------------------------
+
+#: logical axes of a training batch's fields (the reference's
+#: ``batch_shardings``); another field is ("batch", None, ...)
+BATCH_FIELD_AXES = {
+    "inputs": ("batch", "seq"), "targets": ("batch", "seq"),
+    "mask": ("batch", "seq"), "tokens": ("batch", "seq"),
+    "frames": ("batch", None, None),
+    "vision_embeds": ("batch", None, None),
+}
+
+
+def batch_specs(cfg: ArchConfig, mesh, policy: ShardingPolicy,
+                batch_struct: Dict) -> Dict:
+    """The reference's spec of every field of a data batch (its
+    ``batch_shardings``); ``batch_struct`` maps a field to anything with
+    a ``shape``."""
+    out = {}
+    for k, v in batch_struct.items():
+        shape = tuple(v.shape)
+        ax = BATCH_FIELD_AXES.get(k, ("batch",) + (None,) * (len(shape) - 1))
+        out[k] = spec_for(ax[:len(shape)], shape, mesh, policy)
+    return out
+
+
+def policy_for(cfg: ArchConfig, mesh, *, shape_kind: str = "train",
+               batch: int = 0) -> ShardingPolicy:
+    """Default policy per arch size and scenario (the baseline plan; the
+    reference's, copied).
+
+    * FSDP for ≥30B-param archs (params won't fit replicated per-DP-group).
+    * Sequence sharding when the batch can't cover the DP axes (long ctx).
+    """
+    dp_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    big = cfg.param_count() > 30e9
+    dp_size = 1
+    for a in dp_axes:
+        dp_size *= mesh.shape[a]
+    seq_shard = batch > 0 and batch < dp_size
+    return ShardingPolicy(dp_axes=dp_axes, fsdp=big, seq_shard=seq_shard)
+
+
+def opt_state_specs(param_specs: Dict):
+    """AdamW's state specs (the reference's ``dataclass_opt_shardings``):
+    ``mu`` and ``nu`` mirror the params', ``count`` is a whole scalar."""
+    from repro_torch.optim.adamw import AdamWState
+    return AdamWState(count=(), mu=param_specs, nu=param_specs)
+
+
+def dp_ways(mesh, policy: ShardingPolicy) -> int:
+    """Data-parallel ways of a mesh under the policy (1 without one)."""
+    if mesh is None:
+        return 1
+    return math.prod(mesh.shape.get(a, 1) for a in policy.dp_axes)
+
+
+def dp_index(mesh, policy: ShardingPolicy) -> int:
+    """This rank's index over the data axes, the first the slowest."""
+    i = 0
+    for a in policy.dp_axes:
+        if a in mesh.shape:
+            i = i * mesh.shape[a] + mesh.coords[a]
+    return i
+
+
+def shard_batch(batch: Dict, mesh, policy: ShardingPolicy) -> Dict:
+    """This rank's rows of a global batch: its contiguous block of the
+    rows over the data axes (every tp rank of a replica the same rows,
+    ``seq`` whole).  Refuses a row count the data axes do not divide:
+    the reference would then hold the rows whole on every replica."""
+    ways = dp_ways(mesh, policy)
+    if ways == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % ways:
+            raise ValueError(f"shard_batch: {k} has {v.shape[0]} rows, "
+                             f"not a multiple of the {ways} data-parallel "
+                             f"ranks")
+        w = v.shape[0] // ways
+        out[k] = v.narrow(0, dp_index(mesh, policy) * w, w)
+    return out
+
+
+def param_cuts(cfg: ArchConfig, mesh,
+               policy: ShardingPolicy = ShardingPolicy()) -> Dict:
+    """Per parameter leaf, the tuple of mesh axes that cut it on this
+    rank (:func:`rank_spec`'s cuts; axes of one rank left out), in the
+    parameter tree's nesting."""
+    return _defs_walk(param_defs(cfg), lambda path, d: tuple(_cut_dims(
+        path, d.axes, mesh.shape, policy, d.shape)))
+
+
+def fsdp_dims(cfg: ArchConfig, mesh,
+              policy: ShardingPolicy = ShardingPolicy()) -> Optional[Dict]:
+    """Per parameter leaf, the whole leaf's dim cut over the data axis
+    (FSDP's ``embed``), or None where the leaf is whole over it; None
+    without FSDP or a data axis of more than one rank."""
+    if not policy.fsdp or dp_ways(mesh, policy) == 1:
+        return None
+    return _defs_walk(param_defs(cfg), lambda path, d: _cut_dims(
+        path, d.axes, mesh.shape, policy, d.shape).get("data"))
+
+
 def local_config(cfg: ArchConfig, tp: int) -> ArchConfig:
     """The config a tensor-parallel rank's attention bodies run: its
     query and KV head counts as the leaves' cut leaves them (a count tp
@@ -428,8 +588,11 @@ def local_config(cfg: ArchConfig, tp: int) -> ArchConfig:
                                head_dim=cfg.head_dim)
 
 
-__all__ = ["ShardingPolicy", "WHOLE_LEAVES", "decode_state_axes",
-           "decode_state_specs", "init_shard", "init_state_shard",
-           "local_config", "param_specs", "pp_degree", "rank_spec", "rank_specs",
-           "shard_leaf", "shard_params", "spec_for", "stage_range",
-           "state_shapes", "tp_degree"]
+__all__ = ["BATCH_FIELD_AXES", "ShardingPolicy", "WHOLE_LEAVES",
+           "batch_specs", "decode_state_axes", "decode_state_specs",
+           "dp_index", "dp_ways", "fsdp_dims", "init_shard",
+           "init_state_shard", "local_config", "opt_state_specs",
+           "param_cuts", "param_specs", "policy_for", "pp_degree",
+           "rank_spec", "rank_specs", "shard_batch", "shard_leaf",
+           "shard_params", "spec_for", "stage_range", "state_shapes",
+           "tp_degree", "unshard_leaf"]

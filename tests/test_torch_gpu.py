@@ -550,6 +550,77 @@ def test_lockstep_tp2_on_one_card_equals_tp1(cuda_device):
     assert ranks[0] == want and ranks[1] == want
 
 
+def _train_on_rank(mesh, cfg, batches, fsdp):
+    """One rank of :func:`test_train_dp2_tp2_on_one_card_equals_one_rank`:
+    its shard of the seed-0 f32 weights, two flash training steps on the
+    mesh; the losses and (rank 0) the whole params on the host."""
+    from repro_torch.models.layers import param_defs
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import make_train_step
+    from repro_torch.runtime import sharding as S
+    policy = S.ShardingPolicy(fsdp=fsdp)
+    params = S.init_shard(cfg, 0, mesh, policy, device=mesh.device,
+                          dtype=torch.float32)
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=4)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, mesh, policy, use_flash=True)
+    losses = []
+    for b in batches:
+        params, state, m = step(params, state, {k: v.to(mesh.device)
+                                                for k, v in b.items()})
+        losses.append(float(m["loss"]))
+
+    def whole(t, d, path):
+        return {k: (whole(t[k], d[k], path + (k,)) if isinstance(d[k], dict)
+                    else S.unshard_leaf(path + (k,), d[k].axes,
+                                        t[k].detach(), d[k].shape, mesh,
+                                        policy).cpu())
+                for k in d}
+    out = whole(params, param_defs(cfg), ())
+    return losses, out if mesh.rank == 0 else None
+
+
+def test_train_dp2_tp2_on_one_card_equals_one_rank(cuda_device):
+    """granite-3-2b at full width with 2 layers, f32 weights, flash
+    attention (K6 on its 16 of 32 query heads a rank, 2 of 4 rows): four
+    ranks of a dp = 2 × tp = 2 FSDP mesh on the one card (gloo on CUDA
+    tensors) train two steps to the one-rank step's losses (1e-5
+    relative) and params (1e-4 relative norm, AdamW's normalised update
+    of sums taken in another order)."""
+    import dataclasses
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import make_train_step
+    cfg = dataclasses.replace(configs.get("granite-3-2b"), n_layers=2)
+    data = SyntheticTokens(cfg, DataConfig(4, 256, 3), device="cpu")
+    batches = [data.batch(i) for i in range(2)]
+    params = init_params(cfg, 0, device=cuda_device, dtype=torch.float32)
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=4)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, use_flash=True)
+    want = []
+    for b in batches:
+        params, state, m = step(params, state, {k: v.to(cuda_device)
+                                                for k, v in b.items()})
+        want.append(float(m["loss"]))
+    want_params = [t.detach().cpu() for t in tree_leaves(params)]
+    del params, state
+    torch.cuda.empty_cache()
+    ranks = spawn(_train_on_rank, (cfg, batches, True), data=2, model=2,
+                  device="cuda", share_device=True)
+    for losses, _ in ranks:
+        assert losses == ranks[0][0]
+    for a, b in zip(ranks[0][0], want):
+        assert abs(a - b) <= 1e-5 * abs(b), (ranks[0][0], want)
+    got = list(tree_leaves(ranks[0][1]))
+    num = sum(float((a.double() - b.double()).square().sum())
+              for a, b in zip(got, want_params))
+    den = sum(float(b.double().square().sum()) for b in want_params)
+    assert (num / den) ** 0.5 <= 1e-4
+
+
 #: the reference's eight flash attention kernel cases, as chip_smoke.py's
 #: FA_CASES: (b, s, L, H, Hk, d, causal, window, q_offset): MHA, GQA, MQA,
 #: ragged s, a decode step, a window, non-causal, head_dim 256

@@ -126,6 +126,34 @@ def test_a_spawned_rank_leaves_jax_out():
                  device="cpu") == [[], []]
 
 
+def trained_reference_modules(mesh):
+    """One training step of a reduced model on a dp = 2 FSDP mesh; then
+    what the rank finds loaded of JAX and the JAX package."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import ShardingPolicy, make_train_step
+    from repro_torch.runtime.sharding import init_shard
+    cfg = configs.reduced(configs.get("qwen2-moe-a2.7b"))
+    policy = ShardingPolicy(fsdp=True)
+    params = init_shard(cfg, 0, mesh, policy, device="cpu")
+    opt = AdamW()
+    step = make_train_step(cfg, opt, mesh, policy, use_flash=True)
+    batch = SyntheticTokens(cfg, DataConfig(4, 16), device="cpu").batch(0)
+    step(params, opt.init(params), batch)
+    return loaded_reference_modules(mesh)
+
+
+def test_spawned_training_ranks_leave_jax_out():
+    """Ranks of a data-parallel FSDP training mesh, after a step of the
+    MoE model (its aux loss all-reduced over the ranks), have neither
+    ``jax`` nor ``repro`` in ``sys.modules``."""
+    import jax  # noqa: F401  (the parent has it; the ranks must not)
+    from repro_torch.launch.mesh import spawn
+    assert spawn(trained_reference_modules, data=2,
+                 device="cpu") == [[], []]
+
+
 @pytest.fixture
 def gpu_less():
     if torch.cuda.is_available():
