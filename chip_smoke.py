@@ -130,8 +130,9 @@ caught and ignored):
               before the next: llama2-7b at full width and depth at tp=2
               (the engine phase's plain pass, then its speculative pass
               with four LoRA tenants: K1 on split and bf16 K2/K3 on mma
-              over 16 heads a rank, K4 on 8 rank lanes), pp=2 and tp=2 x
-              pp=2, qwen2-moe-a2.7b at tp=2 (32 of 64 padded experts a
+              over 16 heads a rank, K4 on 8 rank lanes), pp=2, tp=2 x
+              pp=2 (16 of the 32 layers, MD_WORLDS), qwen2-moe-a2.7b at
+              tp=2 (32 of 64 padded experts a
               rank); TTFT, TPOT, TPS, each rank's shard and peak memory,
               ms per gloo collective, the share of bf16 tokens equal to
               tp=1's; at 4 layers in f32 weights every plan's tokens
@@ -159,8 +160,8 @@ caught and ignored):
               width through Trainer.run, bf16, 4 x 2048 Zipf tokens (the
               train phase's data, optimizer and seed), flash attention
               (K6 on mma at a rank's heads and rows) and remat, 3 steps,
-              at dp=2 with FSDP and at tp=2 (40 layers each), and at
-              dp=2 x tp=2 with FSDP (TM_WORLDS' depth): step time,
+              at tp=2 (40 layers), and at dp=2 and dp=2 x tp=2 with
+              FSDP (TM_WORLDS' depths, 20 and 8 layers): step time,
               tokens/s, peak memory and shard per rank, gloo bytes,
               calls and seconds per step, the losses beside the train
               phase's, each rank's K6 launches (zeroed before its run,
@@ -199,7 +200,8 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "engine", "train", "parity", "quant",
-          "measure", "moe", "vlm", "lockstep", "multidevice", "trainmesh")
+          "measure", "moe", "vlm", "lockstep", "multidevice", "trainmesh",
+          "audit")
 EXTRA_PHASES = ("profile",)     # run only when named
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
@@ -3176,14 +3178,17 @@ def _lockstep_parity(device):
 TP1_TOKENS: dict = {}
 
 #: the multidevice worlds, in order: (arch, tp, pp, serving passes at full
-#: width and depth in bf16, parity jobs at 4 layers in f32 weights: a KV
-#: dtype, or ``spec_lora`` with f32 KV)
+#: width in bf16, parity jobs at 4 layers in f32 weights: a KV dtype, or
+#: ``spec_lora`` with f32 KV, the serving passes' layers: None is the
+#: full depth).  tp=2 x pp=2 serves 16 of llama2-7b's 32 layers, to make
+#: room for the audit phase in the run's time limit (at 32 its tokens
+#: were set beside tp=1's, which a cut depth cannot be)
 MD_WORLDS = (
     ("llama2-7b", 2, 1, ("plain", "spec_lora"), ("fp32", "bf16", "int8",
-                                                  "spec_lora")),
-    ("llama2-7b", 1, 2, ("plain",), ("fp32", "bf16", "int8")),
-    ("llama2-7b", 2, 2, ("plain",), ("fp32", "bf16", "int8")),
-    (MOE_ARCH, 2, 1, ("plain",), ("fp32", "bf16", "int8")),
+                                                  "spec_lora"), None),
+    ("llama2-7b", 1, 2, ("plain",), ("fp32", "bf16", "int8"), None),
+    ("llama2-7b", 2, 2, ("plain",), ("fp32", "bf16", "int8"), 16),
+    (MOE_ARCH, 2, 1, ("plain",), ("fp32", "bf16", "int8"), None),
 )
 MD_PARITY_LAYERS = 4
 
@@ -3235,9 +3240,10 @@ def _md_tokens(cfg, params, tag: str, device, mesh=None):
     return [r.tokens for r in eng.run(_md_requests(cfg, tag, True))]
 
 
-def _md_rank(mesh, arch, passes, parity):
+def _md_rank(mesh, arch, passes, parity, layers=None):
     """One rank of a multidevice world (every rank on the one card): its
-    shard of the seed-0 bf16 weights at full width and depth, the
+    shard of the seed-0 bf16 weights at full width (and depth, or
+    ``layers``), the
     serving passes, each with this process's launch counts zeroed before
     it and read after it; then its shard of the f32 weights at 4 layers
     and the parity jobs' tokens.  Returns what the parent checks."""
@@ -3249,6 +3255,8 @@ def _md_rank(mesh, arch, passes, parity):
 
     dev = mesh.device
     cfg = configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     out = dict(rank=mesh.rank, coords=dict(mesh.coords),
                backend=mesh.backend, passes={}, parity={})
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3289,7 +3297,8 @@ def _md_rank(mesh, arch, passes, parity):
     del params
     torch.cuda.empty_cache()
     if parity:
-        cfg4 = dataclasses.replace(cfg, n_layers=MD_PARITY_LAYERS)
+        cfg4 = dataclasses.replace(configs.get(arch),
+                                   n_layers=MD_PARITY_LAYERS)
         params = init_shard(cfg4, 0, mesh, device=dev, dtype=torch.float32)
         for tag in parity:
             out["parity"][tag] = _md_tokens(cfg4, params, tag, dev, mesh)
@@ -3580,12 +3589,15 @@ def phase_multidevice(device, summary):
             del eng, params
             torch.cuda.empty_cache()
 
-    for arch, tp, pp, passes, parity in MD_WORLDS:
-        label = f"{arch} tp={tp} x pp={pp}"
+    for arch, tp, pp, passes, parity, layers in MD_WORLDS:
+        label = f"{arch} tp={tp} x pp={pp}" + (
+            f" x{layers} layers" if layers else "")
         cfg = configs.get(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
         t0 = time.perf_counter()
-        ranks = spawn(_md_rank, (arch, passes, parity), model=tp, pipe=pp,
-                      device=device, share_device=True)
+        ranks = spawn(_md_rank, (arch, passes, parity, layers), model=tp,
+                      pipe=pp, device=device, share_device=True)
         world = dict(wall_s=time.perf_counter() - t0, backend=ranks[0][
             "backend"], ranks=[{k: r[k] for k in (
                 "coords", "init_s", "params_gb", "init_peak_gb", "peak_gb",
@@ -3625,7 +3637,7 @@ def phase_multidevice(device, summary):
                 for b, v in c.items():
                     tot[b] = tot.get(b, 0) + v
             same = None
-            if tag == "plain":
+            if tag == "plain" and layers is None:
                 want = TP1_TOKENS[arch]
                 pairs = [(a, b) for g, w_ in zip(first["tokens"], want)
                          for a, b in zip(g, w_)]
@@ -3700,11 +3712,13 @@ def phase_multidevice(device, summary):
 TM_STEPS = 3
 #: the worlds at full width: (label, data, model, FSDP, layers; None is
 #: the full depth), the 2-rank worlds in one spawn and the 4-rank world
-#: in another.  dp=2 x tp=2 runs 20 of the 40 layers: at 40 it took 15.0
-#: s a step (gloo 14.2 s) and the whole script would end ~1080 s in, too
-#: near the 1200 s limit
-TM_WORLDS = (("dp=2 FSDP", 2, 1, True, None), ("tp=2", 1, 2, False, None),
-             ("dp=2 x tp=2 FSDP", 2, 2, True, 20))
+#: in another.  Cut for the 1200 s limit: dp=2 x tp=2 runs 8 of the 40
+#: layers (at 40 it took 15.0 s a step, gloo 14.2 s; at 20, 9.5 s), dp=2
+#: FSDP 20 (17.6-18.5 s a step at 40, gloo 95 %), making room for the
+#: audit phase; tp=2 keeps the full depth, its losses beside the single
+#: card's
+TM_WORLDS = (("dp=2 FSDP", 2, 1, True, 20), ("tp=2", 1, 2, False, None),
+             ("dp=2 x tp=2 FSDP", 2, 2, True, 8))
 #: the f32 parity meshes at 4 layers: (label, data, model, FSDP,
 #: microbatches)
 TM_PARITY = (("dp=2", 2, 1, False, 1), ("dp=2 FSDP", 2, 1, True, 1),
@@ -4166,6 +4180,120 @@ def _tm_elastic(out, device, tmp, refs, resumed2, saved4):
               f"{r['param_rel']:.3e} from the uninterrupted run")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the audit and the dry-run
+# ---------------------------------------------------------------------------
+
+AUDIT_ARCH = "qwen2-7b"
+#: the audit's paged kernels: their launches the counts saw are held
+#: against the wrappers' own counts
+AUDIT_KERNELS = ("paged_decode", "paged_prefill", "paged_verify")
+DRYRUN_CELL = ("granite-3-2b", "decode_32k")
+
+
+def _audit_ratios(report) -> dict:
+    """Per target: the matmul ratio and the wire's relative error, from
+    the pricing findings' details."""
+    out: dict = {}
+    for f in report.findings:
+        d = f.details
+        t = d.get("target")
+        if t is None or f.pass_name != "pricing":
+            continue
+        rec = out.setdefault(t, {})
+        if f.code.startswith("pricing.matmul"):
+            rec["matmul"] = d["ratio"]
+        elif "rel_err" in d:
+            rec["wire_rel_err"] = d["rel_err"]
+    return out
+
+
+def phase_audit(device, summary):
+    """``repro_torch.analysis.run_audit`` at full width on the card:
+    qwen2-7b (the reference's default arch), ``AuditGeometry()``, the six
+    single-card targets, the LoRA target and ``decode/gather/tp2pp1`` on
+    two ranks sharing the card; the paged targets' K1-K3 launches the
+    counts saw held against the wrappers'; the rebuild pass on both
+    impls; then one dry-run cell on the meta device."""
+    import tempfile
+    from repro_torch import analysis, configs
+    from repro_torch.analysis import PricingTarget, hygiene
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    card = card_name_and_power_limit()
+    targets = (list(analysis.pricing.DEFAULT_TARGETS)
+               + [PricingTarget("decode", "gather", lora_rank=64),
+                  PricingTarget("decode", "gather", tp=2, pp=1)])
+    _reset_launches()                   # the audit's steps start here
+    report = analysis.run_audit(analysis.AuditConfig(
+        arch=AUDIT_ARCH, reduced=False, device="cuda", share_device=True,
+        targets=targets, run_engine=False))
+    launched = _launches()              # ... and end here
+    counted = {k: sum(c["kernel_launches"].get(k, 0)
+                      for c in report.meta["counted"].values())
+               for k in AUDIT_KERNELS}
+    check(report.meta["targets"] == [t.name for t in targets],
+          f"audit: executed {report.meta['targets']}")
+    check(all(counted[k] > 0 and launched[k] == counted[k]
+              for k in AUDIT_KERNELS),
+          f"audit: the counts saw {counted} launches, the wrappers "
+          f"{launched}")
+    t_retrace = time.perf_counter()
+    cfg = configs.get(AUDIT_ARCH)
+    retrace_launches = {}
+    for impl in ("gather", "paged"):
+        _reset_launches()
+        report.extend(hygiene.audit_retrace(cfg, impl, device=device))
+        for k, n in _launches().items():
+            retrace_launches[k] = retrace_launches.get(k, 0) + n
+    retrace_s = time.perf_counter() - t_retrace
+    ratios = _audit_ratios(report)
+    for t in report.meta["targets"]:
+        c, r = report.meta["counted"][t], ratios.get(t, {})
+        log(f"[audit] {AUDIT_ARCH} full width, {t}: matmul ratio "
+            f"{r.get('matmul', float('nan')):.4f} (counted dot "
+            f"{c['dot_flops']:.6g} FLOPs), bytes ratio "
+            f"{c['bytes'] / c['analytical_mem']:.4f} ({c['bytes']:.6g} B)"
+            + (f", wire rel err {r['wire_rel_err']:.4f} "
+               f"({c['wire_bytes']:.6g} B)" if "wire_rel_err" in r else "")
+            + f", kernels {c['kernel_launches']}, step {c['run_s']:.3f} s "
+            f"({card})")
+    for f in report.findings:
+        if f.pass_name != "pricing" or f.severity > analysis.Severity.INFO:
+            log(f"[audit] [{f.severity}] {f.code}: {f.message}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = dryrun.run_cell(*DRYRUN_CELL, out_dir=tmp, verbose=False)
+    check(rec["status"] == "OK", f"audit: dry-run cell {DRYRUN_CELL} "
+          f"{rec.get('error')}")
+    log(f"[audit] dry-run {DRYRUN_CELL[0]} x {DRYRUN_CELL[1]} on pod16x16 "
+        f"(meta device, rank 0): dominant {rec['roofline']['dominant']}, "
+        f"useful_flops_ratio {rec['useful_flops_ratio']:.4f}, per chip "
+        f"{rec['per_chip']['flops']:.6g} FLOPs, {rec['per_chip']['bytes']:.6g}"
+        f" B, wire {rec['per_chip']['collective_wire_bytes']:.6g} B; LIFE "
+        f"on nvidia-h100: {rec['life_forecast']['dominant']}")
+    codes = [(f.code, str(f.severity)) for f in report.findings]
+    out = dict(card=card, arch=AUDIT_ARCH, targets=report.meta["targets"],
+               counted=report.meta["counted"], ratios=ratios,
+               codes=codes, counts=report.counts(),
+               exit_code=report.exit_code(), kernel_launches=launched,
+               launches_total={k: launched.get(k, 0)
+                               + retrace_launches.get(k, 0)
+                               for k in AUDIT_KERNELS},
+               retrace_s=retrace_s,
+               dryrun={k: rec[k] for k in (
+                   "arch", "shape", "mesh", "roofline", "useful_flops_ratio",
+                   "model_flops_per_chip", "per_chip", "memory_analysis",
+                   "life_forecast", "count_s")},
+               wall_s=time.perf_counter() - t_phase)
+    summary["audit"] = out
+    log(f"[audit] findings {out['counts']}, exit code {out['exit_code']}; "
+        f"K1-K3 launches: counted {counted}, wrappers {launched}; rebuild "
+        f"runs {retrace_s:.1f} s; phase {out['wall_s']:.1f} s")
+    check(out["exit_code"] == 0,
+          f"audit: error findings {[c for c in codes if c[1] == 'error']}")
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase: a failure prints ``[fail] <phase>: <type>:
     <message>`` on stdout and is raised on (the exit stays non-zero;
@@ -4241,6 +4369,7 @@ def main() -> int:
             "engine_bf16", {}).get("tpot_p50_ms")),),
         "multidevice": (phase_multidevice, device, families),
         "trainmesh": (phase_trainmesh, device, families, trained),
+        "audit": (phase_audit, device, families),
         "profile": (phase_profile, device),
     }
     for name in PHASES + EXTRA_PHASES:
@@ -4261,6 +4390,8 @@ def main() -> int:
                 **trained.get("train", {}).get("launches", {}),
                 **quant_measure.get("quant", {}).get("launches", {})}
     for k, n in families.get("trainmesh", {}).get("launches", {}).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in families.get("audit", {}).get("launches_total", {}).items():
         launches[k] = launches.get(k, 0) + n
     lockstep = families.get("lockstep")
     md_k6 = families.get("multidevice", {})
@@ -4320,6 +4451,7 @@ def main() -> int:
     print(json.dumps({"multidevice": families.get("multidevice")}))
     print(json.dumps({"train": trained.get("train"),
                       "trainmesh": families.get("trainmesh")}))
+    print(json.dumps({"audit": families.get("audit")}))
     print(json.dumps({"engine": summary}))
     print(json.dumps({"kernels": record}))
     print(smi)

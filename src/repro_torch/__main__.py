@@ -16,9 +16,13 @@
 
 Every subcommand prints a human table by default or the Report's stable
 JSON with ``--json`` (pipe into a file to feed ``compare`` later).
-A copy of the JAX package's CLI: ``measure`` runs the port's engine on
-``--device`` (the card unless ``--device cpu`` is given), and the
-compile-time ``audit`` is not ported (ROADMAP queue 1, item 6).
+A copy of the JAX package's CLI: ``measure`` and ``audit`` run the
+port's engine on ``--device`` (the card unless ``--device cpu`` is
+given; without a card they raise):
+
+    python -m repro_torch audit --device cpu [--json] [--strict] \
+        [--perturb gemm=1.5]        # reduced qwen2-7b on the CPU
+    python -m repro_torch audit --full-size --share-device   # on the card
 """
 from __future__ import annotations
 
@@ -361,6 +365,37 @@ def _cmd_compare(args) -> int:
     return 0
 
 
+def _parse_perturb(items) -> dict:
+    out = {}
+    for item in items or []:
+        if "=" not in item:
+            raise ValueError(f"--perturb expects CLASS=FACTOR, got {item!r}")
+        cls, factor = item.split("=", 1)
+        out[cls.strip()] = float(factor)
+    return out
+
+
+def _cmd_audit(args) -> int:
+    from repro_torch import analysis, resolve_device
+    resolve_device(args.device)          # no card and no --device cpu: raise
+    cfg = analysis.AuditConfig(
+        arch=args.model, reduced=args.reduced,
+        perturb=_parse_perturb(args.perturb),
+        tol=analysis.Tolerances(matmul_rtol=args.tol_matmul,
+                                wire_rtol=args.tol_wire,
+                                unpriced_share=args.unpriced_share),
+        run_engine=not args.skip_engine,
+        sharded_tp=1 if args.no_multidevice else args.sharded_tp,
+        sharded_pp=1 if args.no_multidevice else args.sharded_pp,
+        device=args.device, share_device=args.share_device)
+    report = analysis.run_audit(cfg)
+    if args.json:
+        print(json.dumps(report.to_dict(), indent=1))
+    else:
+        print(analysis.format_report(report, verbose=args.verbose))
+    return report.exit_code(strict=args.strict)
+
+
 def _cmd_hardware(args) -> int:
     print(f"{'name':26s}{'compute':>13s}{'mem bw':>14s}{'interconnect':>17s}")
     for name in hardware.list():
@@ -439,6 +474,52 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("measured", help="measured report JSON path")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=_cmd_compare)
+
+    p = sub.add_parser(
+        "audit",
+        help="audit: lint the analytical DSL, reconcile the executed "
+        "engine steps' counted work against WorkloadModel pricing, check "
+        "engine hygiene")
+    p.add_argument("--model", default="qwen2-7b",
+                   help="architecture to audit (default: qwen2-7b)")
+    p.add_argument("--full-size", action="store_false", dest="reduced",
+                   help="audit the full-size config (default audits the "
+                   "reduced config)")
+    p.add_argument("--device", default="cuda",
+                   help="where the engine steps run: the card (default) "
+                   "or cpu")
+    p.add_argument("--share-device", action="store_true",
+                   dest="share_device",
+                   help="let a sharded target's ranks share the visible "
+                   "card(s) (gloo); else a target needing more cards than "
+                   "are visible is skipped")
+    p.add_argument("--strict", action="store_true",
+                   help="exit nonzero on warnings too (CI gate mode)")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--verbose", action="store_true",
+                   help="also print info-severity findings")
+    p.add_argument("--perturb", action="append", metavar="CLASS=FACTOR",
+                   help="scale an analytical op-class total before "
+                   "reconciliation (mutation test: a perturbed audit "
+                   "MUST fail); repeatable")
+    p.add_argument("--skip-engine", action="store_true",
+                   help="skip the engine run of the rebuild check")
+    p.add_argument("--no-multidevice", action="store_true",
+                   help="skip the sharded tp×pp targets (single device)")
+    p.add_argument("--sharded-tp", type=int, default=2, dest="sharded_tp",
+                   help="tensor-parallel degree of the sharded target")
+    p.add_argument("--sharded-pp", type=int, default=2, dest="sharded_pp",
+                   help="pipeline-parallel degree of the sharded target")
+    p.add_argument("--tol-matmul", type=float, default=0.15,
+                   dest="tol_matmul",
+                   help="relative tolerance of the dot-vs-gemm+bmm check")
+    p.add_argument("--tol-wire", type=float, default=0.5, dest="tol_wire",
+                   help="relative tolerance of the collective wire check")
+    p.add_argument("--unpriced-share", type=float, default=0.02,
+                   dest="unpriced_share",
+                   help="counted flops/bytes share above which an op "
+                   "family must have an analytical counterpart")
+    p.set_defaults(fn=_cmd_audit)
 
     p = sub.add_parser("hardware", help="list known hardware specs")
     p.set_defaults(fn=_cmd_hardware)

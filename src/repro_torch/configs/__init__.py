@@ -137,6 +137,23 @@ ARCHS = {
 }
 
 
+#: The 10 assigned architectures (the dry-run grid; the reference's list).
+ASSIGNED = [
+    "glm4-9b", "llama3-405b", "qwen2-7b", "granite-3-2b", "internvl2-26b",
+    "qwen2-moe-a2.7b", "deepseek-moe-16b", "whisper-base",
+    "recurrentgemma-2b", "falcon-mamba-7b",
+]
+
+#: Assigned input-shape set (LM-family): name -> (seq_len, global_batch,
+#: kind), the reference's
+SHAPES = {
+    "train_4k":    (4096,   256, "train"),
+    "prefill_32k": (32768,  32,  "prefill"),
+    "decode_32k":  (32768,  128, "decode"),
+    "long_500k":   (524288, 1,   "decode"),
+}
+
+
 def get(name: str) -> ArchConfig:
     try:
         return ARCHS[name]

@@ -1,8 +1,9 @@
 """LIFE core: the paper's analytical framework as a first-class feature.
 
 A copy of the JAX package's ``core`` (which imports no JAX) under the
-port's import names; ``hlo`` (XLA HLO text parsing for the compile-time
-audit) is left out, since the port never produces HLO.
+port's import names.  ``hlo`` (XLA HLO text parsing for the compile-time
+audit) has no copy, since the port never produces HLO: ``counts``
+counts the work a step executes instead.
 
 Public API:
     WorkloadModel   — analytical twin of an (arch × variant × ShardingPlan)

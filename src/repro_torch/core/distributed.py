@@ -12,9 +12,9 @@ roofline-report layer the dry-run grades against:
   :class:`DistributedForecaster` alias (analytical workload + plan).
 * **XLA-measured**  — from the JAX package's compiled dry-run
   (``cost_analysis()`` per-chip FLOPs/bytes + its ``core.hlo``
-  collective parser's wire bytes) via :func:`roofline`; the port has no
-  dry-run yet (ROADMAP queue 1, item 6), but :func:`roofline` takes any
-  measured per-chip totals.
+  collective parser's wire bytes) via :func:`roofline`; the port's
+  dry-run (``launch.dryrun``) prices its meta-device counts
+  (``core.counts``) the same way.
 
 Roofline terms (grading convention):
 

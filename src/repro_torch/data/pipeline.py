@@ -81,3 +81,25 @@ class SyntheticTokens:
         while True:
             yield self.batch(step)
             step += 1
+
+    # -- dry-run stand-ins ------------------------------------------------
+    def abstract_batch(self) -> Dict[str, torch.Tensor]:
+        """The reference's stand-ins of a batch, on the meta device (no
+        data): int32 ``inputs`` / ``targets``, f32 ``mask``, bf16
+        ``vision_embeds`` / ``frames`` where the family has them."""
+        d, cfg = self.data, self.cfg
+        n_text = d.seq_len
+        meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+        out: Dict[str, torch.Tensor] = {}
+        if cfg.family == "vlm":
+            n_text = d.seq_len - cfg.vision_prefix_len
+            out["vision_embeds"] = meta(
+                (d.global_batch, cfg.vision_prefix_len, cfg.d_model),
+                torch.bfloat16)
+        if cfg.family == "encdec":
+            out["frames"] = meta((d.global_batch, cfg.encoder_len,
+                                  cfg.d_model), torch.bfloat16)
+        out["inputs"] = meta((d.global_batch, n_text), torch.int32)
+        out["targets"] = meta((d.global_batch, n_text), torch.int32)
+        out["mask"] = meta((d.global_batch, n_text), torch.float32)
+        return out

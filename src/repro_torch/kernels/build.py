@@ -17,10 +17,22 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Dict
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+#: per library: ``nvcc`` runs, and loads into this process (each
+#: ``ops.load_library`` notes its one load), read by the audit's
+#: rebuild check (``repro_torch.analysis.hygiene.audit_retrace``)
+NVCC_RUNS: Dict[str, int] = {}
+LOADS: Dict[str, int] = {}
+
+
+def note_load(name: str) -> None:
+    LOADS[name] = LOADS.get(name, 0) + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +72,7 @@ def build(source: Path, name: str, force: bool = False) -> BuildResult:
     tmp = library.with_name(f"{library.name}.{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
+    NVCC_RUNS[name] = NVCC_RUNS.get(name, 0) + 1
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:

@@ -24,7 +24,9 @@ body's tiles and loop bounds, as the CUDA source computes them.
 ``LAUNCHES`` counts kernel launches: ``flash_fwd`` one per forward launch
 (under per-layer remat the forward runs twice per layer and step),
 ``flash_bwd`` one per backward call (its three kernels together);
-``BODY_LAUNCHES`` counts each by body.
+``BODY_LAUNCHES`` counts each by body.  Each launch also reports its
+work (:func:`flash_fwd_cost`, :func:`flash_bwd_cost`) to an active work
+count (``repro_torch.core.counts``).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import counts as _counts
 from repro_torch.kernels import build as _build
 from .ref import attention_ref, live_rows
 
@@ -128,6 +131,38 @@ def query_tile_range(t0: int, keys: int, s: int, L: int, *, causal: bool,
     return range((i_lo // tile) * tile, i_hi, tile)
 
 
+def _nbytes(*ts: torch.Tensor) -> float:
+    return float(sum(t.numel() * t.element_size() for t in ts))
+
+
+def flash_fwd_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                   ) -> _counts.KernelCost:
+    """K6 forward's work for q (b, s, H, d) against k, v (b, L, Hk, d):
+    the QK and PV products over every (query, key) pair, 4·d FLOPs each
+    (the plain version's count; the kernel skips the tiles a causal or
+    window mask empties); bytes: q, k, v, o and the rows' f32
+    log-sum-exp once."""
+    b, s, H, d = q.shape
+    L = k.shape[1]
+    return _counts.KernelCost(4.0 * b * H * s * L * d,
+                              2 * _nbytes(q) + _nbytes(k, v) + 4.0 * b * H * s)
+
+
+def flash_bwd_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                   ) -> _counts.KernelCost:
+    """K6 backward's work: the oracle's VJP (the reference's ``_fa_bwd``,
+    the plain version), i.e. the forward's two products recomputed and
+    the backward's four, 12·d FLOPs per (query, key) pair (the kernel
+    computes five of the six: it reads O for D = rowsum(dO·O) instead of
+    recomputing P·V); bytes: q, k, v, o, dO and the log-sum-exp read, dq,
+    dk, dv written, once each."""
+    b, s, H, d = q.shape
+    L = k.shape[1]
+    return _counts.KernelCost(12.0 * b * H * s * L * d,
+                              4 * _nbytes(q) + 2 * _nbytes(k, v)
+                              + 4.0 * b * H * s)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' shared library."""
     global _lib
@@ -150,6 +185,7 @@ def load_library() -> ctypes.CDLL:
         lib.flash_mma_tiles.restype = I
         lib.flash_error_string.argtypes = [I]
         lib.flash_error_string.restype = ctypes.c_char_p
+        _build.note_load(LIBRARY_NAME)
         _lib = lib
     return _lib
 
@@ -235,6 +271,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    stream)
     _raise_on(lib, err, f"flash_fwd ({body})")
     LAUNCHES["flash_fwd"] += 1
+    if _counts.ACTIVE is not None:
+        _counts.report_kernel("flash_fwd", flash_fwd_cost(q, k, v))
     BODY_LAUNCHES["flash_fwd"][body] += 1
     return o, lse
 
@@ -278,6 +316,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    stream)
     _raise_on(lib, err, f"flash_bwd ({body})")
     LAUNCHES["flash_bwd"] += 1
+    if _counts.ACTIVE is not None:
+        _counts.report_kernel("flash_bwd", flash_bwd_cost(q, k, v))
     BODY_LAUNCHES["flash_bwd"][body] += 1
     return dq, dk, dv
 
@@ -342,6 +382,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = ["BODY_LAUNCHES", "LAUNCHES", "MmaTiles", "attention_ref",
-           "flash_attention", "flash_body", "flash_bwd", "flash_fwd",
+           "flash_attention", "flash_body", "flash_bwd", "flash_bwd_cost",
+           "flash_fwd", "flash_fwd_cost",
            "key_tile_range", "load_library", "mma_tiles",
            "query_tile_range", "reset_launch_counts"]

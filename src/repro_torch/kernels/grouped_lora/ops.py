@@ -12,7 +12,9 @@ The kernel runs in two launches: ``x @ A`` once, its k split over blocks
 as :func:`split_plan` says, then ``@ B``.
 
 ``LAUNCHES`` counts the kernel's launches by wrapper (one per call of
-either), so a run can show that its main path went through it.
+either), so a run can show that its main path went through it.  Each
+launch also reports its work (:func:`grouped_lora_cost`) to an active
+work count (``repro_torch.core.counts``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import counts as _counts
 from repro_torch.kernels import build as _build
 from .ref import grouped_lora_pregathered, grouped_lora_ref
 
@@ -70,6 +73,24 @@ def split_plan(S: int, T: int, k: int, ns: Sequence[int],
     return SplitPlan(splits, k_split, col_tiles)
 
 
+def grouped_lora_cost(x: torch.Tensor,
+                      factors: Sequence[Tuple[torch.Tensor, torch.Tensor]]
+                      ) -> _counts.KernelCost:
+    """K4's work for x (S, T, k) and each ``(A (P, k, R), B (P, R, n))``:
+    ``x @ A[idx]`` and ``@ B[idx]`` for every slot (2·k·R + 2·R·n FLOPs
+    per row and projection); bytes: x and the outputs once, each slot's
+    factors once, idx."""
+    S, T, k = x.shape
+    flops = nbytes = 0.0
+    for A, B in factors:
+        R, n = A.shape[-1], B.shape[-1]
+        flops += 2.0 * S * T * (k * R + R * n)
+        nbytes += (S * T * n * x.element_size()
+                   + S * (k * R + R * n) * A.element_size())
+    return _counts.KernelCost(flops, nbytes + x.numel() * x.element_size()
+                              + 4 * S)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel's shared library."""
     global _lib
@@ -84,6 +105,7 @@ def load_library() -> ctypes.CDLL:
         lib.grouped_lora_max_rank.restype = I
         lib.grouped_lora_error_string.argtypes = [I]
         lib.grouped_lora_error_string.restype = ctypes.c_char_p
+        _build.note_load(LIBRARY_NAME)
         _lib = lib
     return _lib
 
@@ -149,6 +171,8 @@ def _launch(wrapper: str, x: torch.Tensor,
         raise RuntimeError(f"{wrapper} launch failed: "
                            f"{lib.grouped_lora_error_string(err).decode()}")
     LAUNCHES[wrapper] += 1
+    if _counts.ACTIVE is not None:
+        _counts.report_kernel(wrapper, grouped_lora_cost(x, factors))
     return outs
 
 
@@ -203,18 +227,18 @@ def make_sharded_grouped_lora(group, *, qkv=grouped_lora_qkv,
 
     ``qkv`` and ``one`` default to the kernel's wrappers; the engine's
     ``gather`` route passes its plain pregathered products."""
-    import torch.distributed as dist
+    from repro_torch.launch.mesh import all_reduce
 
     def sharded_qkv(x, q, k, v, idx):
         parts = qkv(x, q, k, v, idx)
         flat = torch.cat(parts, dim=-1)
-        dist.all_reduce(flat, group=group)
+        all_reduce(flat, group)
         return tuple(flat.split([d.shape[-1] for d in parts], dim=-1))
 
     return sharded_qkv, one
 
 
-__all__ = ["LAUNCHES", "SplitPlan", "grouped_lora",
+__all__ = ["LAUNCHES", "SplitPlan", "grouped_lora", "grouped_lora_cost",
            "grouped_lora_pregathered", "grouped_lora_qkv", "grouped_lora_ref",
            "load_library", "make_sharded_grouped_lora",
            "reset_launch_counts", "split_plan"]

@@ -19,7 +19,9 @@ and a head dim that is a multiple of 16 up to 128 runs on the tensor cores
 
 ``LAUNCHES`` counts the calls of each wrapper that launched, so a run can
 show that its main path went through the kernels; ``BODY_LAUNCHES``
-counts them by body.
+counts them by body.  Each launch also reports its work to an active
+work count (``repro_torch.core.counts``), from :func:`paged_decode_cost`,
+:func:`paged_prefill_cost` and :func:`paged_verify_cost`.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import counts as _counts
 from repro_torch.kernels import build as _build
 from .ref import paged_decode_ref, paged_prefill_ref, paged_verify_ref
 
@@ -111,6 +114,52 @@ def decode_split_plan(S: int, Hk: int, G: int, nb: int, bs: int,
     return DecodePlan(-(-nb // per), per)
 
 
+def _attend_cost(rows: int, tables: int, L: int, Hk: int, d: int,
+                 q: torch.Tensor, cache_k: torch.Tensor,
+                 index_bytes: int) -> _counts.KernelCost:
+    """``rows`` query rows (every head) each against the ``L = nb·bs``
+    key positions of their slot's table (one of ``tables``): the QK and
+    PV products, 2·d FLOPs per (row, key) each; bytes: q and the output
+    once, each table's K and V rows once, the index tensors."""
+    flops = 4.0 * rows * L * d
+    nbytes = (2 * rows * d * q.element_size()
+              + 2 * tables * L * Hk * d * cache_k.element_size()
+              + index_bytes)
+    return _counts.KernelCost(flops, float(nbytes))
+
+
+def paged_decode_cost(q: torch.Tensor, cache_k: torch.Tensor,
+                      block_tables: torch.Tensor) -> _counts.KernelCost:
+    """K1's work at these shapes (q (S, Hk, G, d), a table of nb blocks
+    of bs keys per slot): every key position of each slot's table, the
+    positions the kernel's grid covers whatever the cursors (a split past
+    a cursor returns at once), and what the plain version computes."""
+    S, Hk, G, d = q.shape
+    L = block_tables.shape[-1] * cache_k.shape[1]
+    return _attend_cost(S * Hk * G, S, L, Hk, d, q, cache_k,
+                        4 * (block_tables.numel() + S))
+
+
+def paged_prefill_cost(q: torch.Tensor, cache_k: torch.Tensor,
+                       block_table: torch.Tensor) -> _counts.KernelCost:
+    """K2's work at these shapes (q (C, Hk, G, d), one table): every
+    chunk row against every key position of the table."""
+    C, Hk, G, d = q.shape
+    L = block_table.shape[-1] * cache_k.shape[1]
+    return _attend_cost(C * Hk * G, 1, L, Hk, d, q, cache_k,
+                        4 * block_table.numel())
+
+
+def paged_verify_cost(q: torch.Tensor, cache_k: torch.Tensor,
+                      block_tables: torch.Tensor) -> _counts.KernelCost:
+    """K3's work at these shapes (q (S, Q, Hk, G, d)): each slot's Q
+    queries against every key position of its table."""
+    S, Q, Hk, G, d = q.shape
+    L = block_tables.shape[-1] * cache_k.shape[1]
+    return _attend_cost(S * Q * Hk * G, S, L, Hk, d, q, cache_k,
+                        4 * (block_tables.numel() + S))
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' shared library."""
     global _lib
@@ -144,6 +193,7 @@ def load_library() -> ctypes.CDLL:
         lib.paged_prefill_rows.restype = I
         lib.paged_error_string.argtypes = [I]
         lib.paged_error_string.restype = ctypes.c_char_p
+        _build.note_load(LIBRARY_NAME)
         _lib = lib
     return _lib
 
@@ -237,6 +287,8 @@ def paged_decode(q: torch.Tensor, cache_k: torch.Tensor,
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[cache_k.dtype], d ** -0.5, stream)
     _raise_on(lib, err, "paged_decode (split)")
     LAUNCHES["paged_decode"] += 1
+    if _counts.ACTIVE is not None:
+        _counts.report_kernel("paged_decode", paged_decode_cost(q, cache_k, block_tables))
     BODY_LAUNCHES["paged_decode"]["split"] += 1
     return out
 
@@ -282,6 +334,8 @@ def paged_prefill(q: torch.Tensor, cache_k: torch.Tensor,
             kv_code, d ** -0.5, stream)
     _raise_on(lib, err, f"paged_prefill ({body})")
     LAUNCHES["paged_prefill"] += 1
+    if _counts.ACTIVE is not None:
+        _counts.report_kernel("paged_prefill", paged_prefill_cost(q, cache_k, block_table))
     BODY_LAUNCHES["paged_prefill"][body] += 1
     return out
 
@@ -331,12 +385,15 @@ def paged_verify(q: torch.Tensor, cache_k: torch.Tensor,
             d ** -0.5, stream)
     _raise_on(lib, err, f"paged_verify ({body})")
     LAUNCHES["paged_verify"] += 1
+    if _counts.ACTIVE is not None:
+        _counts.report_kernel("paged_verify", paged_verify_cost(q, cache_k, block_tables))
     BODY_LAUNCHES["paged_verify"][body] += 1
     return out
 
 
 __all__ = ["BODY_LAUNCHES", "DecodePlan", "LAUNCHES", "decode_split_plan",
-           "load_library", "paged_decode", "paged_decode_ref",
-           "paged_prefill", "paged_prefill_ref", "paged_verify",
+           "load_library", "paged_decode", "paged_decode_cost",
+           "paged_decode_ref", "paged_prefill", "paged_prefill_cost",
+           "paged_prefill_ref", "paged_verify", "paged_verify_cost",
            "paged_verify_ref", "prefill_body", "reset_launch_counts",
            "verify_body"]

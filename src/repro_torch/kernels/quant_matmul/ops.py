@@ -15,6 +15,8 @@ cores, k split across blocks as :func:`splitk_plan` says).
 
 ``LAUNCHES`` counts the calls that launched a kernel, so a run can show
 that its main path went through it; ``BODY_LAUNCHES`` counts them by body.
+Each launch also reports its work (:func:`quant_matmul_cost`) to an
+active work count (``repro_torch.core.counts``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import counts as _counts
 from repro_torch.kernels import build as _build
 from .ref import dequant_ref, quant_matmul_ref, quantize_ref
 
@@ -106,6 +109,18 @@ def reset_launch_counts() -> None:
             counts[k] = 0
 
 
+def quant_matmul_cost(x: torch.Tensor, w_q: torch.Tensor,
+                      scales: torch.Tensor) -> _counts.KernelCost:
+    """K5's work for x (m, k) @ w_q (k, n): 2·m·k·n FLOPs; bytes: x,
+    the int8 weights, the scales and zeros, and the output once."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    nbytes = (x.numel() * x.element_size() + w_q.numel()
+              + 2 * scales.numel() * scales.element_size()
+              + m * n * x.element_size())
+    return _counts.KernelCost(2.0 * m * k * n, float(nbytes))
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel's shared library."""
     global _lib
@@ -120,6 +135,7 @@ def load_library() -> ctypes.CDLL:
         lib.quant_matmul_wgmma_launch.restype = I
         lib.quant_matmul_error_string.argtypes = [I]
         lib.quant_matmul_error_string.restype = ctypes.c_char_p
+        _build.note_load(LIBRARY_NAME)
         _lib = lib
     return _lib
 
@@ -197,6 +213,9 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
         raise RuntimeError(f"quant_matmul ({body}) launch failed: "
                            f"{lib.quant_matmul_error_string(err).decode()}")
     LAUNCHES["quant_matmul"] += 1
+    if _counts.ACTIVE is not None:
+        _counts.report_kernel("quant_matmul",
+                              quant_matmul_cost(x, w_q, scales))
     BODY_LAUNCHES[body] += 1
     return out
 
@@ -208,5 +227,6 @@ def _sm_count(device: torch.device) -> int:
 
 __all__ = ["BODY_LAUNCHES", "LAUNCHES", "SplitPlan", "WGMMA_MIN_ROWS",
            "dequant_ref", "load_library", "qmm_body", "quant_matmul",
+           "quant_matmul_cost",
            "quant_matmul_ref", "quantize_ref", "reset_launch_counts",
            "splitk_plan", "wgmma_plan"]

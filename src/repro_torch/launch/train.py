@@ -26,8 +26,9 @@ fsdp=...)``: the ``Trainer`` then runs on ``data × model`` ranks started
 by ``launch.mesh.spawn`` (one card each, NCCL; ``--share-device`` puts
 them all on the visible cards over gloo), and rank 0's log gives the
 summary.  The default 1 × 1 trains on one device in this process.  There
-is no ``--multi-pod`` (the reference's production meshes wait for the
-dry-run, ROADMAP queue 1, item 6).
+is no ``--multi-pod``: the port's production meshes
+(``launch.mesh.make_production_mesh``) are the dry-run's rank-0 views,
+which count collectives and run no rank.
 """
 from __future__ import annotations
 

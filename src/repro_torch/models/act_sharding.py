@@ -17,7 +17,8 @@ constrain.  It is kept so that code reads as the reference's.
 
 The collectives the sharded model needs live here, each written with
 ``all_reduce`` and ``broadcast`` alone (gloo gathers and scatters no
-CUDA tensors), and each a ``torch.autograd.Function`` where a gradient
+CUDA tensors; ``launch.mesh``'s helpers, which report each to an active
+work count), and each a ``torch.autograd.Function`` where a gradient
 flows through it (Megatron-LM's *f* and *g*):
 
 * :func:`tp_all_reduce` (*g*): the sum after a row-parallel product;
@@ -44,6 +45,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.launch.mesh import all_reduce
 
 _HINT = {"mesh": None, "dp": (), "tp": None, "pp": None, "fsdp": None}
 
@@ -124,25 +127,20 @@ def _wants_grad(x: torch.Tensor) -> bool:
 
 def _summed(x: torch.Tensor, group) -> torch.Tensor:
     """A contiguous copy of ``x`` summed over ``group``."""
-    import torch.distributed as dist
-    y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, group=group)
-    return y
+    return all_reduce(x.clone(memory_format=torch.contiguous_format), group)
 
 
 def _gathered(x: torch.Tensor, dim: int, group, ways: int, index: int
               ) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order: each
     rank writes its piece into a zero buffer of the whole width and one
-    ``all_reduce`` sums them."""
-    import torch.distributed as dist
+    ``all_reduce`` sums them (counted as the all-reduce it is)."""
     w = x.shape[dim]
     shape = list(x.shape)
     shape[dim] = ways * w
     full = x.new_zeros(shape)
     full.narrow(dim, index * w, w).copy_(x)
-    dist.all_reduce(full, group=group)
-    return full
+    return all_reduce(full, group)
 
 
 class _Sum(torch.autograd.Function):
@@ -197,9 +195,7 @@ def tp_all_reduce(x: torch.Tensor) -> torch.Tensor:
         return x
     if _wants_grad(x):
         return _Sum.apply(x, group)
-    import torch.distributed as dist
-    dist.all_reduce(x, group=group)
-    return x
+    return all_reduce(x, group)
 
 
 def tp_copy(x: torch.Tensor) -> torch.Tensor:
@@ -234,9 +230,7 @@ def dp_all_reduce(x: torch.Tensor) -> torch.Tensor:
         return x
     if _wants_grad(x):
         return _Sum.apply(x, group)
-    import torch.distributed as dist
-    dist.all_reduce(x, group=group)
-    return x
+    return all_reduce(x, group)
 
 
 def fsdp_gather(x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
@@ -301,7 +295,7 @@ def from_last_stage(mesh, make: Callable, shape, dtype, device
                     ) -> torch.Tensor:
     """``make()`` on the last pipeline stage, broadcast to every stage of
     the rank's column (just ``make()`` at pp = 1)."""
-    if mesh is None or mesh.shape["pipe"] == 1:
+    if mesh is None or mesh.shape.get("pipe", 1) == 1:
         return make()
     out = (make().contiguous() if mesh.last_stage
            else torch.empty(shape, dtype=dtype, device=device))

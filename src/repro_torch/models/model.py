@@ -9,8 +9,10 @@ in the reference; where the reference scans over it, the port loops over
 :func:`layer_params` views (no copies).  Hybrid and encoder-decoder
 stacks are unrolled as ``layers["l{i}"]``.  Per-layer remat is
 ``torch.utils.checkpoint`` around each layer (the reference's
-``jax.checkpoint`` with policy ``"full"``: nothing but the layer's input
-is saved, and the backward recomputes the layer).
+``jax.checkpoint``): policy ``"full"`` saves nothing but the layer's
+input and the backward recomputes the layer; ``"dots"`` and
+``"dots_no_batch"`` also save the matmuls' outputs (selective
+checkpointing, :data:`REMAT_POLICIES`).
 
 Under a mesh hint (``models.act_sharding``, installed by
 ``runtime.serve.make_serve_fns`` and by ``runtime.train``'s step)
@@ -29,6 +31,7 @@ uses from one gather).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -40,15 +43,27 @@ from . import act_sharding
 from . import attention as A
 from . import blocks as B
 from .act_sharding import from_last_stage, staged_scan
-from .layers import apply_norm, init_params
+from .layers import apply_norm, init_params, param_defs
 
-__all__ = ["decode_state_shapes", "forward", "init_decode_state",
+__all__ = ["REMAT_POLICIES", "abstract_decode_state", "abstract_params",
+           "decode_state_shapes", "forward", "init_decode_state",
            "init_params", "layer_params", "step", "_lm_head"]
 
 
 def _take(tree: Dict, i: int) -> Dict:
     return {k: (_take(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
+
+
+def abstract_params(cfg: ArchConfig,
+                    dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """The tree of :func:`init_params` on the meta device: every leaf's
+    shape and dtype, no data (the dry-run's stand-ins)."""
+    def walk(defs):
+        return {k: (walk(d) if isinstance(d, dict) else torch.empty(
+            d.shape, dtype=d.dtype or dtype, device="meta"))
+            for k, d in defs.items()}
+    return walk(param_defs(cfg))
 
 
 def layer_params(params: Dict) -> List[Dict]:
@@ -151,18 +166,53 @@ def _layer(cfg: ArchConfig, kind: str, p: Dict, x: torch.Tensor,
     return _seq_block(cfg, kind, p, x, use_flash=use_flash, enc_kv=enc_kv)
 
 
+#: remat policy names -> the aten ops whose outputs a layer's remat
+#: saves (the reference's ``jax.checkpoint`` policies: "full" saves
+#: nothing; "dots" every matmul's output, ``checkpoint_dots``;
+#: "dots_no_batch" those without a batch dim,
+#: ``dots_with_no_batch_dims_saveable``)
+REMAT_POLICIES = {
+    "full": (),
+    "dots": ("mm", "addmm", "bmm"),
+    "dots_no_batch": ("mm", "addmm"),
+}
+
+
+def _remat_context(remat_policy: str):
+    """``checkpoint``'s ``context_fn`` for a policy that saves ops'
+    outputs (selective activation checkpointing); None for "full"."""
+    names = REMAT_POLICIES[remat_policy]
+    if not names:
+        return None
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    saved = {getattr(torch.ops.aten, n).default for n in names}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
 def _run_stack(cfg: ArchConfig, params: Dict, x: torch.Tensor, *,
-               use_flash: bool, remat: bool, enc_out=None
+               use_flash: bool, remat: bool, enc_out=None,
+               remat_policy: str = "full"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Iterate the decoder layers, each under checkpoint if ``remat``;
-    the layers' aux losses are summed.  With ``enc_out`` (an
-    encoder-decoder) each layer first projects its cross K/V from it."""
+    """Iterate the decoder layers, each under checkpoint if ``remat``
+    (saving what ``remat_policy`` names); the layers' aux losses are
+    summed.  With ``enc_out`` (an encoder-decoder) each layer first
+    projects its cross K/V from it."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = layer_params(params)
     dims = act_sharding.fsdp_dims()
     dims = _layer_dims(None if dims is None else dims["layers"], len(layers))
+    ctx = _remat_context(remat_policy) if remat else None
     for kind, p, dm in zip(cfg.block_kinds(), layers, dims):
-        if remat:
+        if remat and ctx is not None:
+            x, aux = checkpoint(_layer, cfg, kind, p, x, dm, enc_out,
+                                use_flash, use_reentrant=False,
+                                context_fn=ctx)
+        elif remat:
             x, aux = checkpoint(_layer, cfg, kind, p, x, dm, enc_out,
                                 use_flash, use_reentrant=False)
         else:
@@ -239,11 +289,11 @@ def forward(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor, *,
     cover P + s positions; an encoder-decoder needs its encoder
     ``frames`` (b, F, d).  ``use_flash`` runs the decoder's (non-MLA)
     self-attention through the flash attention kernels; ``remat``
-    recomputes each layer in the backward (policy ``"full"``)."""
-    if remat_policy != "full":
-        raise NotImplementedError(
-            f"remat policy {remat_policy!r} (saving matmul outputs) serves "
-            f"the dry-run cells, not ported yet (ROADMAP.md queue 1, item 6)")
+    recomputes each decoder layer in the backward, saving what
+    ``remat_policy`` names (:data:`REMAT_POLICIES`)."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat_policy!r}; known: "
+                         f"{sorted(REMAT_POLICIES)}")
     params = _gather_outside_stack(params)
     x = _embed(cfg, params, token_ids, vision_embeds)
     enc_out = None
@@ -254,7 +304,7 @@ def forward(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor, *,
         enc_out = _encoder_forward(cfg, params, frames, remat=remat)
         use_flash = False           # the reference's encdec stack is eager
     x, aux = _run_stack(cfg, params, x, use_flash=use_flash, remat=remat,
-                        enc_out=enc_out)
+                        enc_out=enc_out, remat_policy=remat_policy)
     x = apply_norm(cfg.norm_kind, x, params["ln_f"])
     return _lm_head(cfg, params, x), aux
 
@@ -318,6 +368,17 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                                                 kv_dtype).items():
         state[key] = torch.full(shape, -1 if key == "cache_pos" else 0,
                                 dtype=dt, device=dev)
+    return state
+
+
+def abstract_decode_state(cfg: ArchConfig, batch: int, max_len: int,
+                          kv_dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """The tree of :func:`init_decode_state` on the meta device (``pos``
+    the host int 0)."""
+    state: Dict = {"pos": 0}
+    for key, (shape, dt) in decode_state_shapes(cfg, batch, max_len,
+                                                kv_dtype).items():
+        state[key] = torch.empty(shape, dtype=dt, device="meta")
     return state
 
 

@@ -28,6 +28,8 @@ from typing import Callable, Dict, Iterator, NamedTuple, Optional
 
 import torch
 
+from repro_torch.launch.mesh import all_reduce
+
 
 class AdamWState(NamedTuple):
     count: torch.Tensor       # scalar int32
@@ -116,8 +118,7 @@ class AdamW:
         total = None
         for groups, sq in by_groups.items():   # one order on every rank
             for group in groups:
-                import torch.distributed as dist
-                dist.all_reduce(sq, group=group)
+                all_reduce(sq, group)
             total = sq if total is None else total + sq
         return torch.sqrt(total)
 
@@ -174,7 +175,7 @@ def compress_int8(grads, groups: tuple = ()):
     if groups:
         import torch.distributed as dist
         for group in groups:
-            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+            all_reduce(amax, group, op=dist.ReduceOp.MAX)
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     return q.to(torch.float32) * scale

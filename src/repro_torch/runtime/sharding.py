@@ -265,12 +265,19 @@ def _cut_dims(path: Tuple[str, ...], axes: Tuple[Optional[str], ...],
               shape: Optional[Tuple[int, ...]] = None) -> Dict[str, int]:
     """Mesh axis -> the dim of one leaf it cuts, from :func:`rank_spec`
     (axes of one rank dropped).  Without ``shape`` every cut is taken to
-    divide (the engine refuses a plan whose heads or layers do not)."""
+    divide (the engine refuses a plan whose heads or layers do not).  A
+    combined cut over several data axes (``("pod", "data")``, the
+    dry-run's two-pod mesh) is filed under its last axis, whose group
+    then spans them all (``launch.mesh.make_production_mesh``)."""
     if shape is None:
         shape = (math.prod(sizes.values()),) * len(axes)
     spec = rank_spec(path, axes, shape, _Shape(sizes), policy)
-    return {a: i for i, a in enumerate(spec)
-            if isinstance(a, str) and sizes.get(a, 1) > 1}
+    out = {}
+    for i, a in enumerate(spec):
+        flat = a if isinstance(a, tuple) else (a,)
+        if a is not None and math.prod(sizes.get(x, 1) for x in flat) > 1:
+            out[flat[-1]] = i
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,8 +20,9 @@ count, and sums over the data-parallel group the gradient of every leaf
 that group does not cut (FSDP's leaves are summed by their gathers'
 backward).  Tensor-parallel ranks run Megatron's *f*/*g* pairs
 (``models.act_sharding``), so a whole leaf gets the same whole gradient
-on every rank.  A mesh with a ``pipe`` axis is refused (pipeline
-training: ROADMAP queue 1, item 5).
+on every rank.  A mesh with a ``pipe`` axis is refused: the reference
+trains on no pipeline axis either (its ``launch/specs.py`` train cell
+runs on the ``("data", "model")`` mesh).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import all_reduce
 from repro_torch.models import act_sharding, forward, init_params
 from repro_torch.optim.adamw import AdamW, tree_leaves, tree_like
 from repro_torch.runtime import sharding as S
@@ -48,7 +50,7 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     the tokens to divide by (a data-parallel rank's rows are part of a
     larger batch); the mask's own sum by default."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+    ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
     if count is None:
         count = mask.sum()
     return -(ll * mask).sum() / torch.clamp(count, min=1.0)
@@ -78,13 +80,12 @@ def make_loss_fn(cfg: ArchConfig, *, use_flash: bool = False,
 def _sum_over(tensors: list, group) -> None:
     """Sum ``tensors`` over ``group`` in place, as one flat buffer per
     dtype (one ``all_reduce`` each instead of one per leaf)."""
-    import torch.distributed as dist
     by_dtype: Dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
-        dist.all_reduce(flat, group=group)
+        all_reduce(flat, group)
         for t, part in zip(ts, flat.split([t.numel() for t in ts])):
             t.copy_(part.view_as(t))
 
@@ -92,7 +93,8 @@ def _sum_over(tensors: list, group) -> None:
 def make_train_step(cfg: ArchConfig, opt: AdamW, mesh=None,
                     policy: Optional[S.ShardingPolicy] = None, *,
                     microbatches: int = 1, use_flash: bool = False,
-                    remat: bool = True) -> Callable:
+                    remat: bool = True,
+                    remat_policy: str = "full") -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.
 
@@ -116,8 +118,10 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, mesh=None,
     if mesh is not None and mesh.shape.get(policy.pp_axis, 1) > 1:
         raise NotImplementedError(
             "training on a mesh with a pipe axis (pipeline-parallel "
-            "training) is not ported (ROADMAP queue 1, item 5)")
-    loss_fn = make_loss_fn(cfg, use_flash=use_flash, remat=remat)
+            "training) is refused: the reference trains on no pipe "
+            "axis either")
+    loss_fn = make_loss_fn(cfg, use_flash=use_flash, remat=remat,
+                           remat_policy=remat_policy)
     dp = S.dp_ways(mesh, policy)
     if dp > 1 and cfg.family == "moe":
         from repro_torch.models import blocks

@@ -953,3 +953,22 @@ def test_quantize_on_the_card_equals_the_cpu(cuda_device):
                            b.scales.view(torch.int16))
         assert torch.equal(a.zeros.cpu().view(torch.int16),
                            b.zeros.view(torch.int16))
+
+
+def test_audit_paged_decode_counts_k1_like_its_plain_version(cuda_device):
+    """One paged target of the audit on the card (reduced qwen2-7b): the
+    step launches K1 once per layer, the count sees each launch through
+    ``paged_decode_cost``, and the counted dot FLOPs equal the same step's
+    on the CPU, where ``FlopCounterMode`` counts the plain version."""
+    from repro_torch.analysis import PricingTarget, lower_target, reconcile
+    cfg = configs.reduced(configs.get("qwen2-7b"))
+    target = PricingTarget("decode", "paged")
+    ops.reset_launch_counts()
+    card = lower_target(cfg, target, device=cuda_device)
+    assert ops.LAUNCHES["paged_decode"] == cfg.n_layers
+    assert card.module_cost.kernel_launches == {
+        "paged_decode": cfg.n_layers}
+    cpu = lower_target(cfg, target, device="cpu")
+    assert card.module_cost.dot_flops == cpu.module_cost.dot_flops
+    assert [f.code for f in reconcile(card)] == \
+        [f.code for f in reconcile(cpu)]

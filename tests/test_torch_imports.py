@@ -66,7 +66,13 @@ def test_port_modules_cover_the_slice():
                 "repro_torch.api.scenario", "repro_torch.api.report",
                 "repro_torch.api.run", "repro_torch.__main__",
                 "repro_torch.launch.mesh", "repro_torch.runtime.sharding",
-                "repro_torch.models.act_sharding"):
+                "repro_torch.models.act_sharding",
+                # the audit and the dry-run
+                "repro_torch.analysis", "repro_torch.analysis.findings",
+                "repro_torch.analysis.lint", "repro_torch.analysis.pricing",
+                "repro_torch.analysis.hygiene", "repro_torch.analysis.audit",
+                "repro_torch.core.counts", "repro_torch.launch.specs",
+                "repro_torch.launch.dryrun"):
         assert mod in names
     # the lockstep slice's model functions
     from repro_torch import models
@@ -78,6 +84,14 @@ def test_port_modules_cover_the_slice():
         assert callable(getattr(attention, fn))
     for fn in ("mamba_forward", "mamba_step", "rglru_forward", "rglru_step"):
         assert callable(getattr(blocks, fn))
+    # the audit slice's entry points
+    from repro_torch import analysis
+    from repro_torch.launch import dryrun, specs
+    for fn in ("run_audit", "lower_target", "reconcile", "run_pricing",
+               "audit_donation", "audit_retrace", "lint_model"):
+        assert callable(getattr(analysis, fn))
+    assert callable(dryrun.run_cell) and callable(specs.build_cell)
+    assert callable(models.abstract_params)
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -218,10 +218,22 @@ def test_forward_matches_reference(arch, use_flash, remat):
 
 
 def test_remat_policies_other_than_full_are_not_ported():
-    cfg, _, ttree = _weights("granite-3-2b")
-    with pytest.raises(NotImplementedError, match=r"item 6\b"):
+    """Ported since the dry-run slice (the test keeps its name): the
+    "dots" and "dots_no_batch" policies give the reference's forward
+    with the same policy, and an unknown policy is refused."""
+    cfg, jtree, ttree = _weights("granite-3-2b")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
+    for policy in ("dots", "dots_no_batch"):
+        ref, _ = jax_forward(jconfigs.reduced(jconfigs.get("granite-3-2b")),
+                             jtree, jnp.asarray(toks, jnp.int32), remat=True,
+                             remat_policy=policy)
+        got, _ = forward(cfg, ttree, torch.from_numpy(toks), remat=True,
+                         remat_policy=policy)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                                   **TOL)
+    with pytest.raises(ValueError, match="unknown remat policy"):
         forward(cfg, ttree, torch.zeros((1, 4), dtype=torch.long),
-                remat=True, remat_policy="dots")
+                remat=True, remat_policy="everything")
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 1500),
