@@ -130,9 +130,8 @@ caught and ignored):
               before the next: llama2-7b at full width and depth at tp=2
               (the engine phase's plain pass, then its speculative pass
               with four LoRA tenants: K1 on split and bf16 K2/K3 on mma
-              over 16 heads a rank, K4 on 8 rank lanes), pp=2, tp=2 x
-              pp=2 (16 of the 32 layers, MD_WORLDS), qwen2-moe-a2.7b at
-              tp=2 (32 of 64 padded experts a
+              over 16 heads a rank, K4 on 8 rank lanes), pp=2 and tp=2 x
+              pp=2, qwen2-moe-a2.7b at tp=2 (32 of 64 padded experts a
               rank); TTFT, TPOT, TPS, each rank's shard and peak memory,
               ms per gloo collective, the share of bf16 tokens equal to
               tp=1's; at 4 layers in f32 weights every plan's tokens
@@ -160,8 +159,8 @@ caught and ignored):
               width through Trainer.run, bf16, 4 x 2048 Zipf tokens (the
               train phase's data, optimizer and seed), flash attention
               (K6 on mma at a rank's heads and rows) and remat, 3 steps,
-              at tp=2 (40 layers), and at dp=2 and dp=2 x tp=2 with
-              FSDP (TM_WORLDS' depths, 20 and 8 layers): step time,
+              at dp=2 with FSDP and at tp=2 (40 layers each), and at
+              dp=2 x tp=2 with FSDP (TM_WORLDS' depth): step time,
               tokens/s, peak memory and shard per rank, gloo bytes,
               calls and seconds per step, the losses beside the train
               phase's, each rank's K6 launches (zeroed before its run,
@@ -3178,17 +3177,14 @@ def _lockstep_parity(device):
 TP1_TOKENS: dict = {}
 
 #: the multidevice worlds, in order: (arch, tp, pp, serving passes at full
-#: width in bf16, parity jobs at 4 layers in f32 weights: a KV dtype, or
-#: ``spec_lora`` with f32 KV, the serving passes' layers: None is the
-#: full depth).  tp=2 x pp=2 serves 16 of llama2-7b's 32 layers, to make
-#: room for the audit phase in the run's time limit (at 32 its tokens
-#: were set beside tp=1's, which a cut depth cannot be)
+#: width and depth in bf16, parity jobs at 4 layers in f32 weights: a KV
+#: dtype, or ``spec_lora`` with f32 KV)
 MD_WORLDS = (
     ("llama2-7b", 2, 1, ("plain", "spec_lora"), ("fp32", "bf16", "int8",
-                                                  "spec_lora"), None),
-    ("llama2-7b", 1, 2, ("plain",), ("fp32", "bf16", "int8"), None),
-    ("llama2-7b", 2, 2, ("plain",), ("fp32", "bf16", "int8"), 16),
-    (MOE_ARCH, 2, 1, ("plain",), ("fp32", "bf16", "int8"), None),
+                                                  "spec_lora")),
+    ("llama2-7b", 1, 2, ("plain",), ("fp32", "bf16", "int8")),
+    ("llama2-7b", 2, 2, ("plain",), ("fp32", "bf16", "int8")),
+    (MOE_ARCH, 2, 1, ("plain",), ("fp32", "bf16", "int8")),
 )
 MD_PARITY_LAYERS = 4
 
@@ -3240,10 +3236,9 @@ def _md_tokens(cfg, params, tag: str, device, mesh=None):
     return [r.tokens for r in eng.run(_md_requests(cfg, tag, True))]
 
 
-def _md_rank(mesh, arch, passes, parity, layers=None):
+def _md_rank(mesh, arch, passes, parity):
     """One rank of a multidevice world (every rank on the one card): its
-    shard of the seed-0 bf16 weights at full width (and depth, or
-    ``layers``), the
+    shard of the seed-0 bf16 weights at full width and depth, the
     serving passes, each with this process's launch counts zeroed before
     it and read after it; then its shard of the f32 weights at 4 layers
     and the parity jobs' tokens.  Returns what the parent checks."""
@@ -3255,8 +3250,6 @@ def _md_rank(mesh, arch, passes, parity, layers=None):
 
     dev = mesh.device
     cfg = configs.get(arch)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
     out = dict(rank=mesh.rank, coords=dict(mesh.coords),
                backend=mesh.backend, passes={}, parity={})
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3297,8 +3290,7 @@ def _md_rank(mesh, arch, passes, parity, layers=None):
     del params
     torch.cuda.empty_cache()
     if parity:
-        cfg4 = dataclasses.replace(configs.get(arch),
-                                   n_layers=MD_PARITY_LAYERS)
+        cfg4 = dataclasses.replace(cfg, n_layers=MD_PARITY_LAYERS)
         params = init_shard(cfg4, 0, mesh, device=dev, dtype=torch.float32)
         for tag in parity:
             out["parity"][tag] = _md_tokens(cfg4, params, tag, dev, mesh)
@@ -3589,15 +3581,12 @@ def phase_multidevice(device, summary):
             del eng, params
             torch.cuda.empty_cache()
 
-    for arch, tp, pp, passes, parity, layers in MD_WORLDS:
-        label = f"{arch} tp={tp} x pp={pp}" + (
-            f" x{layers} layers" if layers else "")
+    for arch, tp, pp, passes, parity in MD_WORLDS:
+        label = f"{arch} tp={tp} x pp={pp}"
         cfg = configs.get(arch)
-        if layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=layers)
         t0 = time.perf_counter()
-        ranks = spawn(_md_rank, (arch, passes, parity, layers), model=tp,
-                      pipe=pp, device=device, share_device=True)
+        ranks = spawn(_md_rank, (arch, passes, parity), model=tp, pipe=pp,
+                      device=device, share_device=True)
         world = dict(wall_s=time.perf_counter() - t0, backend=ranks[0][
             "backend"], ranks=[{k: r[k] for k in (
                 "coords", "init_s", "params_gb", "init_peak_gb", "peak_gb",
@@ -3637,7 +3626,7 @@ def phase_multidevice(device, summary):
                 for b, v in c.items():
                     tot[b] = tot.get(b, 0) + v
             same = None
-            if tag == "plain" and layers is None:
+            if tag == "plain":
                 want = TP1_TOKENS[arch]
                 pairs = [(a, b) for g, w_ in zip(first["tokens"], want)
                          for a, b in zip(g, w_)]
@@ -3712,12 +3701,10 @@ def phase_multidevice(device, summary):
 TM_STEPS = 3
 #: the worlds at full width: (label, data, model, FSDP, layers; None is
 #: the full depth), the 2-rank worlds in one spawn and the 4-rank world
-#: in another.  Cut for the 1200 s limit: dp=2 x tp=2 runs 8 of the 40
-#: layers (at 40 it took 15.0 s a step, gloo 14.2 s; at 20, 9.5 s), dp=2
-#: FSDP 20 (17.6-18.5 s a step at 40, gloo 95 %), making room for the
-#: audit phase; tp=2 keeps the full depth, its losses beside the single
-#: card's
-TM_WORLDS = (("dp=2 FSDP", 2, 1, True, 20), ("tp=2", 1, 2, False, None),
+#: in another.  dp=2 x tp=2 runs 8 of the 40 layers, for the 1200 s
+#: limit: at 40 it took 15.0 s a step (gloo 14.2 s), at 20 9.5 s; the cut
+#: from 20 to 8 makes room for the audit phase
+TM_WORLDS = (("dp=2 FSDP", 2, 1, True, None), ("tp=2", 1, 2, False, None),
              ("dp=2 x tp=2 FSDP", 2, 2, True, 8))
 #: the f32 parity meshes at 4 layers: (label, data, model, FSDP,
 #: microbatches)

@@ -230,7 +230,7 @@ def _run_step(cfg: ArchConfig, params, target: PricingTarget,
     t0 = time.perf_counter()
     shape = tuple(state["cache_k"].shape)
     with torch.no_grad(), counts.count_work(
-            track_live=True, watch=(shape, shape[1:])) as mc:
+            watch=(shape, shape[1:])) as mc:
         out = step()
     if cuda:
         torch.cuda.synchronize(device)

@@ -23,7 +23,7 @@ reconciliation and the dry-run read, filled when the block exits:
   ``index`` → ``gather``, ``index_put_`` → ``scatter``, ``add`` →
   ``add``, ...), so the pricing pass's family map applies unchanged;
 * **collectives**, reported by the port's collective helpers
-  (``launch.mesh.all_reduce`` and ``broadcast``) through
+  (``core.collectives.all_reduce`` and ``broadcast``) through
   :func:`report_collective`: the op the port issues, its element count
   and dtype and its group size, under the ring convention of
   ``hlo.parse_collectives``;
@@ -36,11 +36,11 @@ reconciliation and the dry-run read, filled when the block exits:
 With no count active, :data:`ACTIVE` is None and every hook costs the
 caller one ``None`` check.  Counts do not nest.
 
-``track_live=True`` also keeps the peak of the bytes of live tensors the
-block allocates (``ModuleCost.peak_live_bytes``) and the largest single
-one (``largest_alloc_bytes``): each new storage is added when an op
-makes it and taken off by a finalizer when it dies, so it works on the
-meta device, where nothing is allocated (the dry-run's temporaries).
+A count also keeps the peak of the bytes of live tensors the block
+allocates (``ModuleCost.peak_live_bytes``) and the largest single one
+(``largest_alloc_bytes``): each new storage is added when an op makes it
+and taken off by a finalizer when it dies, so it works on the meta
+device, where nothing is allocated (the dry-run's temporaries).
 
 Not counted, as nothing in the port has them: XLA's while-loop trip
 folding (``unknown_trip_loops`` stays 0) and its unfolded
@@ -94,7 +94,7 @@ class ModuleCost:
     #: hand-written kernel launches reported, by kernel
     kernel_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
     #: peak bytes of the live tensors the block made, and the largest
-    #: single storage it made (``track_live``)
+    #: single storage it made
     peak_live_bytes: float = 0.0
     largest_alloc_bytes: float = 0.0
     #: tensors the block made of one of ``count_work``'s ``watch`` shapes
@@ -241,14 +241,13 @@ def family_of(func, args) -> Optional[str]:
 class _Count:
     """The running sums of one :func:`count_work` block."""
 
-    def __init__(self, track_live: bool, watch=()):
+    def __init__(self, watch=()):
         self.flops_by_op: Dict[str, float] = {}
         self.bytes_by_op: Dict[str, float] = {}
         self.wire = {k: 0.0 for k in COLLECTIVES}
         self.counts = {k: 0 for k in COLLECTIVES}
         self.welems: Dict[str, float] = {}
         self.kernels: Dict[str, int] = {}
-        self.track_live = track_live
         self.live = [0, 0]                      # bytes now, peak
         self.largest = 0                        # largest storage made
         self.watch = frozenset(tuple(w) for w in watch)
@@ -259,11 +258,9 @@ class _Count:
 
     def op(self, func, args, kwargs, out) -> None:
         outs = list(_tensors(out))
-        if ((self.track_live or self.watch) and not func.is_view
-                and not func._schema.is_mutable):
+        if not func.is_view and not func._schema.is_mutable:
             for t in outs:
-                if self.track_live:
-                    self._made(t)
+                self._made(t)
                 if tuple(t.shape) in self.watch:
                     self.watched += 1
         fam = family_of(func, args)
@@ -310,10 +307,9 @@ class _Count:
         self.counts[op] += 1
         self._add(self.bytes_by_op, op, 2.0 * nb)
 
-    def kernel(self, name: str, flops: float, nbytes_: float,
-               family: str = "dot") -> None:
-        self._add(self.flops_by_op, family, float(flops))
-        self._add(self.bytes_by_op, family, float(nbytes_))
+    def kernel(self, name: str, flops: float, nbytes_: float) -> None:
+        self._add(self.flops_by_op, "dot", float(flops))
+        self._add(self.bytes_by_op, "dot", float(nbytes_))
         self.kernels[name] = self.kernels.get(name, 0) + 1
 
     def finish(self, cost: ModuleCost, matmul: Dict[str, float]) -> None:
@@ -353,11 +349,11 @@ class KernelCost(NamedTuple):
     bytes: float
 
 
-def report_kernel(name: str, cost: KernelCost,
-                  family: str = "dot") -> None:
-    """One hand-written kernel launch's work into the active count."""
+def report_kernel(name: str, cost: KernelCost) -> None:
+    """One hand-written kernel launch's work into the active count, under
+    the matmul family ``dot`` (every kernel of the port is a product)."""
     if ACTIVE is not None:
-        ACTIVE.kernel(name, cost.flops, cost.bytes, family)
+        ACTIVE.kernel(name, cost.flops, cost.bytes)
 
 
 def _dispatch_mode(count: _Count):
@@ -379,7 +375,7 @@ _MATMUL_FAMILY = {"convolution": "convolution",
 
 
 @contextlib.contextmanager
-def count_work(track_live: bool = False, watch=()) -> Iterator[ModuleCost]:
+def count_work(watch=()) -> Iterator[ModuleCost]:
     """Count the work run inside the block; yields the
     :class:`ModuleCost`, filled when the block exits.  ``watch`` is a
     collection of shapes: the tensors the block makes of one of them are
@@ -388,7 +384,7 @@ def count_work(track_live: bool = False, watch=()) -> Iterator[ModuleCost]:
     from torch.utils.flop_counter import FlopCounterMode
     if ACTIVE is not None:
         raise RuntimeError("count_work blocks do not nest")
-    count = _Count(track_live, watch)
+    count = _Count(watch)
     cost = ModuleCost()
     flops = FlopCounterMode(display=False)
     ACTIVE = count

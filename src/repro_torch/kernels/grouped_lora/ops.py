@@ -227,7 +227,7 @@ def make_sharded_grouped_lora(group, *, qkv=grouped_lora_qkv,
 
     ``qkv`` and ``one`` default to the kernel's wrappers; the engine's
     ``gather`` route passes its plain pregathered products."""
-    from repro_torch.launch.mesh import all_reduce
+    from repro_torch.core.collectives import all_reduce
 
     def sharded_qkv(x, q, k, v, idx):
         parts = qkv(x, q, k, v, idx)

@@ -143,7 +143,9 @@ def paged_decode_cost(q: torch.Tensor, cache_k: torch.Tensor,
 def paged_prefill_cost(q: torch.Tensor, cache_k: torch.Tensor,
                        block_table: torch.Tensor) -> _counts.KernelCost:
     """K2's work at these shapes (q (C, Hk, G, d), one table): every
-    chunk row against every key position of the table."""
+    chunk row against every key position of the table, the plain
+    version's products (the kernel stops at the key limit start +
+    valid)."""
     C, Hk, G, d = q.shape
     L = block_table.shape[-1] * cache_k.shape[1]
     return _attend_cost(C * Hk * G, 1, L, Hk, d, q, cache_k,
@@ -153,7 +155,9 @@ def paged_prefill_cost(q: torch.Tensor, cache_k: torch.Tensor,
 def paged_verify_cost(q: torch.Tensor, cache_k: torch.Tensor,
                       block_tables: torch.Tensor) -> _counts.KernelCost:
     """K3's work at these shapes (q (S, Q, Hk, G, d)): each slot's Q
-    queries against every key position of its table."""
+    queries against every key position of its table, the plain
+    version's products (the kernel stops at each query's causal limit
+    past the cursor)."""
     S, Q, Hk, G, d = q.shape
     L = block_tables.shape[-1] * cache_k.shape[1]
     return _attend_cost(S * Q * Hk * G, S, L, Hk, d, q, cache_k,

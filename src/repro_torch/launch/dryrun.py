@@ -103,7 +103,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
         cell = specs_mod.build_cell(arch, shape, mesh, **cell_kwargs)
         # LIFE forecast FIRST (hardware-agnostic, before the count)
         record["life_forecast"] = specs_mod.life_prediction(cell)
-        with counts.count_work(track_live=True) as mc:
+        with counts.count_work() as mc:
             out = cell.fn(*cell.args)
         run_s = time.time() - t0
         out_bytes = _tensors_bytes(out, _ids(cell.args))

@@ -26,14 +26,14 @@ the one it takes on stderr:
   ``all_reduce``, ``broadcast`` and ``barrier``, the collectives gloo
   runs on CUDA tensors.
 
-Every collective of the port goes through :func:`all_reduce` and
-:func:`broadcast`, which report it to an active work count
-(``repro_torch.core.counts``) and then issue it.
+Every collective of the port goes through ``all_reduce`` and
+``broadcast`` of :mod:`repro_torch.core.collectives`, which report it to an active work count (``repro_torch.core.counts``)
+and then issue it.
 
 :func:`make_production_mesh` gives rank 0's view of the reference's
 production meshes (16×16 ``("data", "model")`` and 2×16×16 ``("pod",
 "data", "model")``) for the dry-run: it spawns no process, and its
-groups are :class:`CountedGroup` objects, whose collectives are counted and
+groups are ``CountedGroup`` objects, whose collectives are counted and
 move nothing (on meta tensors the result is a tensor of the output's
 shape).
 
@@ -54,7 +54,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.core import counts as _counts
+from repro_torch.core.collectives import CountedGroup, broadcast
 
 #: seconds a rank waits in a collective, and the run waits for its ranks,
 #: before it fails
@@ -78,51 +78,6 @@ def choose_backend(device_type: str, n_ranks: int, n_cards: int,
         f"gloo")
 
 
-@dataclasses.dataclass(frozen=True)
-class CountedGroup:
-    """A group of a mesh that spawns no process (the dry-run's
-    :func:`make_production_mesh`): its collectives are counted and move
-    nothing."""
-    size: int
-
-
-def group_size(group) -> int:
-    """Ranks in ``group`` (a process group or a :class:`CountedGroup`;
-    None is the default group)."""
-    if isinstance(group, CountedGroup):
-        return group.size
-    import torch.distributed as dist
-    return dist.get_world_size(group)
-
-
-def all_reduce(x: torch.Tensor, group=None, op=None) -> torch.Tensor:
-    """``dist.all_reduce`` of ``x`` in place over ``group`` (a sum unless
-    ``op`` is given), reported to an active work count; over a
-    :class:`CountedGroup`, counted only.  Returns ``x``."""
-    if _counts.ACTIVE is not None:
-        _counts.report_collective("all-reduce", x, group_size(group))
-    if isinstance(group, CountedGroup):
-        return x
-    import torch.distributed as dist
-    dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
-    return x
-
-
-def broadcast(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
-    """``dist.broadcast`` of ``x`` in place from global rank ``src`` over
-    ``group``, reported to an active work count as the point-to-point
-    transfer it is (``collective-permute``: the result's bytes on the
-    wire); over a :class:`CountedGroup`, counted only."""
-    if _counts.ACTIVE is not None:
-        _counts.report_collective("collective-permute", x,
-                                  group_size(group))
-    if isinstance(group, CountedGroup):
-        return x
-    import torch.distributed as dist
-    dist.broadcast(x, src=src, group=group)
-    return x
-
-
 @dataclasses.dataclass
 class Mesh:
     """One rank's view of a ``data × model × pipe`` mesh.
@@ -141,8 +96,6 @@ class Mesh:
     backend: Optional[str] = None
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
     hops: Dict[int, Any] = dataclasses.field(default_factory=dict)
-    #: a view that spawns no process (:func:`make_production_mesh`)
-    counted: bool = False
 
     @property
     def size(self) -> int:
@@ -193,14 +146,14 @@ class Mesh:
 
     def from_rank0(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank gets rank 0's ``x``; the identity on one rank."""
-        if self.size > 1 and not self.counted:
+        if self.size > 1:
             import torch.distributed as dist
             dist.broadcast(x, src=0)
         return x
 
     def barrier(self) -> None:
         """Wait for every rank; nothing on one rank."""
-        if self.size > 1 and not self.counted:
+        if self.size > 1:
             import torch.distributed as dist
             dist.barrier()
 
@@ -274,7 +227,7 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """Rank 0's view of the reference's production mesh: 16×16 ``("data",
     "model")`` (256 chips) or 2×16×16 ``("pod", "data", "model")`` (512
     chips), on the meta device.  It spawns no process and holds no
-    device: its groups are :class:`CountedGroup` objects, ``groups["data"]``
+    device: its groups are ``CountedGroup`` objects, ``groups["data"]``
     spanning every data-parallel axis (pod × data)."""
     shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
              else {"data": 16, "model": 16})
@@ -283,7 +236,7 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     groups["data"] = CountedGroup(dp)
     groups["pipe"] = None
     return Mesh(shape, {a: 0 for a in shape}, 0, torch.device("meta"),
-                groups=groups, counted=True)
+                groups=groups)
 
 
 def _rank_main(rank: int, fn: Callable, args: tuple, data: int, model: int,
@@ -352,6 +305,5 @@ def spawn(fn: Callable, args: tuple = (), *, data: int = 1, model: int = 1,
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-__all__ = ["CountedGroup", "Mesh", "all_reduce", "broadcast",
-           "choose_backend", "group_size", "make_host_mesh",
+__all__ = ["Mesh", "choose_backend", "make_host_mesh",
            "make_production_mesh", "spawn"]

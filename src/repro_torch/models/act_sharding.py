@@ -46,7 +46,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import all_reduce
+from repro_torch.core.collectives import all_reduce
 
 _HINT = {"mesh": None, "dp": (), "tp": None, "pp": None, "fsdp": None}
 

@@ -35,7 +35,7 @@ import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -180,10 +180,11 @@ REMAT_POLICIES = {
 
 def _remat_context(remat_policy: str):
     """``checkpoint``'s ``context_fn`` for a policy that saves ops'
-    outputs (selective activation checkpointing); None for "full"."""
+    outputs (selective activation checkpointing); the default,
+    ``noop_context_fn``, for "full"."""
     names = REMAT_POLICIES[remat_policy]
     if not names:
-        return None
+        return noop_context_fn
     from torch.utils.checkpoint import (CheckpointPolicy,
                                         create_selective_checkpoint_contexts)
     saved = {getattr(torch.ops.aten, n).default for n in names}
@@ -208,13 +209,10 @@ def _run_stack(cfg: ArchConfig, params: Dict, x: torch.Tensor, *,
     dims = _layer_dims(None if dims is None else dims["layers"], len(layers))
     ctx = _remat_context(remat_policy) if remat else None
     for kind, p, dm in zip(cfg.block_kinds(), layers, dims):
-        if remat and ctx is not None:
+        if remat:
             x, aux = checkpoint(_layer, cfg, kind, p, x, dm, enc_out,
                                 use_flash, use_reentrant=False,
                                 context_fn=ctx)
-        elif remat:
-            x, aux = checkpoint(_layer, cfg, kind, p, x, dm, enc_out,
-                                use_flash, use_reentrant=False)
         else:
             x, aux = _layer(cfg, kind, p, x, dm, enc_out, use_flash)
         aux_total = aux_total + aux

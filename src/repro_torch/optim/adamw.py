@@ -28,7 +28,7 @@ from typing import Callable, Dict, Iterator, NamedTuple, Optional
 
 import torch
 
-from repro_torch.launch.mesh import all_reduce
+from repro_torch.core.collectives import all_reduce
 
 
 class AdamWState(NamedTuple):

@@ -37,7 +37,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.mesh import all_reduce
+from repro_torch.core.collectives import all_reduce
 from repro_torch.models import act_sharding, forward, init_params
 from repro_torch.optim.adamw import AdamW, tree_leaves, tree_like
 from repro_torch.runtime import sharding as S

@@ -384,9 +384,10 @@ def test_kernel_costs_equal_flop_counter_of_plain_versions(small):
 
 
 def test_counted_collectives_follow_the_ring_convention():
-    """The mesh's helpers report to an active count (a CountedGroup moves
-    nothing); with no count active, nothing is recorded."""
-    from repro_torch.launch.mesh import CountedGroup, all_reduce, broadcast
+    """The collective helpers report to an active count (a CountedGroup
+    moves nothing); with no count active, nothing is recorded."""
+    from repro_torch.core.collectives import (CountedGroup, all_reduce,
+                                              broadcast)
     x = torch.zeros(4, 8, dtype=torch.bfloat16)
     with counts.count_work() as mc:
         all_reduce(x, CountedGroup(4))
@@ -400,7 +401,8 @@ def test_counted_collectives_follow_the_ring_convention():
     assert mc.collective_wire_elements == {"all-reduce": 48.0,
                                            "collective-permute": 32.0}
     assert counts.ACTIVE is None
-    all_reduce(x, CountedGroup(4))             # no count: nothing recorded
+    counts.report_collective("all-reduce", x, 4)   # no count: nothing
+    assert counts.ACTIVE is None
 
 
 def test_counted_families_and_bytes():

@@ -22,7 +22,8 @@ import torch
 from repro_torch import configs
 from repro_torch.core import counts
 from repro_torch.launch import specs
-from repro_torch.launch.mesh import CountedGroup, Mesh, make_production_mesh
+from repro_torch.core.collectives import CountedGroup
+from repro_torch.launch.mesh import Mesh, make_production_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -53,7 +54,7 @@ def _one_rank_mesh():
     return Mesh({"data": 1, "model": 1}, {"data": 0, "model": 0}, 0,
                 torch.device("meta"),
                 groups={"data": CountedGroup(1), "model": CountedGroup(1),
-                        "pipe": None}, counted=True)
+                        "pipe": None})
 
 
 def _materialize(tree, gen):
@@ -118,7 +119,9 @@ def test_production_meshes_are_counted_views():
     assert one.shape == {"data": 16, "model": 16} and one.size == 256
     assert two.shape == {"pod": 2, "data": 16, "model": 16}
     assert two.groups["data"] == CountedGroup(32)
-    assert one.device.type == "meta" and one.counted
+    assert one.device.type == "meta"
+    assert all(isinstance(g, CountedGroup) for a, g in one.groups.items()
+               if a != "pipe")
 
 
 def test_decode_cell_on_the_pod_counts_its_collectives():

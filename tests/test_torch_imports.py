@@ -71,7 +71,8 @@ def test_port_modules_cover_the_slice():
                 "repro_torch.analysis", "repro_torch.analysis.findings",
                 "repro_torch.analysis.lint", "repro_torch.analysis.pricing",
                 "repro_torch.analysis.hygiene", "repro_torch.analysis.audit",
-                "repro_torch.core.counts", "repro_torch.launch.specs",
+                "repro_torch.core.counts", "repro_torch.core.collectives",
+                "repro_torch.launch.specs",
                 "repro_torch.launch.dryrun"):
         assert mod in names
     # the lockstep slice's model functions
