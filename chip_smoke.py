@@ -130,8 +130,9 @@ caught and ignored):
               before the next: llama2-7b at full width and depth at tp=2
               (the engine phase's plain pass, then its speculative pass
               with four LoRA tenants: K1 on split and bf16 K2/K3 on mma
-              over 16 heads a rank, K4 on 8 rank lanes), pp=2 and tp=2 x
-              pp=2, qwen2-moe-a2.7b at tp=2 (32 of 64 padded experts a
+              over 16 heads a rank, K4 on 8 rank lanes; the vocabulary
+              cut over the ranks), pp=2, and at MD_WORLDS' depth tp=2 x
+              pp=2 and qwen2-moe-a2.7b at tp=2 (32 of 64 padded experts a
               rank); TTFT, TPOT, TPS, each rank's shard and peak memory,
               ms per gloo collective, the share of bf16 tokens equal to
               tp=1's; at 4 layers in f32 weights every plan's tokens
@@ -159,8 +160,8 @@ caught and ignored):
               width through Trainer.run, bf16, 4 x 2048 Zipf tokens (the
               train phase's data, optimizer and seed), flash attention
               (K6 on mma at a rank's heads and rows) and remat, 3 steps,
-              at dp=2 with FSDP and at tp=2 (40 layers each), and at
-              dp=2 x tp=2 with FSDP (TM_WORLDS' depth): step time,
+              at dp=2 with FSDP, at tp=2 and at dp=2 x tp=2 with FSDP
+              (TM_WORLDS' depth): step time,
               tokens/s, peak memory and shard per rank, gloo bytes,
               calls and seconds per step, the losses beside the train
               phase's, each rank's K6 launches (zeroed before its run,
@@ -173,16 +174,32 @@ caught and ignored):
               uninterrupted run.  The kernels phase holds K6 to its
               plain version and times it at the two rank shapes.
 
+13. audit   — repro_torch.analysis.run_audit on qwen2-7b at full width:
+              the single-card targets, LoRA rank 64 and tp=2 on two
+              ranks sharing the card (the vocabulary cut over them),
+              each step's counted work against WorkloadModel; K1-K3
+              launches counted == the wrappers'; the rebuild pass; one
+              dry-run cell on the meta device.  Fails on an error
+              finding.
+
+14. examples — examples/serve_batched_torch.py (qwen2-7b at full width,
+              paged: K2 and K1, bf16 and int8 KV; its launches read in
+              its process) and examples/train_100m_torch.py at its
+              defaults, each run from the repo root in its own process:
+              the five scenarios' measured tok/s and twin ratio on
+              nvidia-h100, the shared prompt's measured prefix hit rate
+              equal to the forecast's, the 100M run's parameter count,
+              time per step and falling loss.
+
 ``--phases profile`` (run only when named) profiles engine steps and one
 training step of the train phase's configuration.
 
 The last lines are the quant/measure, moe/vlm/lockstep, multidevice,
-train/trainmesh and engine JSON summaries, the kernels' JSON record
-(K1-K4 launches summed over the engine, moe and multidevice phases, K6's
-over the train and trainmesh phases and the lockstep prefills on one
-rank and on a mesh),
-the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  A phase that fails prints
+train/trainmesh, audit/examples and engine JSON summaries, the kernels'
+JSON record (K1-K4 launches summed over the engine, moe, multidevice,
+audit and examples phases, K6's over the train and trainmesh phases and
+the lockstep prefills on one rank and on a mesh), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.  A phase that fails prints
 ``[fail] <phase>: ...`` on stdout; the script exits non-zero.
 """
 from __future__ import annotations
@@ -191,6 +208,7 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -200,7 +218,7 @@ from typing import Optional
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "engine", "train", "parity", "quant",
           "measure", "moe", "vlm", "lockstep", "multidevice", "trainmesh",
-          "audit")
+          "audit", "examples")
 EXTRA_PHASES = ("profile",)     # run only when named
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
@@ -1477,7 +1495,7 @@ def phase_engine(device, summary):
     launches = _launches()                    # ... and ends here
     bodies = _engine_bodies()
     _check_results(cfg, reqs, results, "engine bf16")
-    TP1_TOKENS["llama2-7b"] = [r.tokens for r in results]
+    TP1_TOKENS[("llama2-7b", None)] = [r.tokens for r in results]
     check(launches["paged_decode"] > 0 and launches["paged_prefill"] > 0,
           f"main path did not launch both kernels: {launches}")
     _check_engine_bodies("engine bf16", launches, bodies)
@@ -2490,7 +2508,7 @@ def phase_moe(device, summary):
         bodies = _engine_bodies()
         _check_results(cfg, reqs_t, results, f"moe {tag}")
         if tag == "plain":
-            TP1_TOKENS[MOE_ARCH] = [r.tokens for r in results]
+            TP1_TOKENS[(MOE_ARCH, None)] = [r.tokens for r in results]
         check(all(launches[k] > 0 for k in path),
               f"moe {tag} did not launch {path}: {launches}")
         _check_engine_bodies(f"moe {tag}", launches, bodies)
@@ -2785,14 +2803,14 @@ def _serve_lockstep(tag, cfg, params, device, *, batch, prompt_len, n_new,
     for off in range(0, prompt_len, step):
         logits, state = server.prefill(state, prompts[:, off:off + step],
                                        extra if off == 0 else None)
-    tok = sample(logits, 0.0)
+    tok = sample(logits, 0.0, vocab=cfg.vocab_size)
     torch.cuda.synchronize()
     ttft = time.perf_counter() - t0
     finite = bool(torch.isfinite(logits).all())
     toks = [tok]
     for _ in range(n_new - 1):
         logits, state = server.decode(state, tok[:, None])
-        tok = sample(logits, 0.0)
+        tok = sample(logits, 0.0, vocab=cfg.vocab_size)
         toks.append(tok)
     toks = torch.stack(toks, dim=1)
     torch.cuda.synchronize()
@@ -3172,20 +3190,32 @@ def _lockstep_parity(device):
 # phase 11: tensor- and pipeline-parallel serving, ranks sharing the card
 # ---------------------------------------------------------------------------
 
-#: each plain pass's tp = 1 tokens, kept by the engine and moe phases for
-#: the multidevice phase's bf16 agreement share
+#: each plain pass's tp = 1 tokens by (arch, layers; None: the full
+#: depth), kept by the engine and moe phases for the multidevice phase's
+#: bf16 agreement share
 TP1_TOKENS: dict = {}
 
-#: the multidevice worlds, in order: (arch, tp, pp, serving passes at full
-#: width and depth in bf16, parity jobs at 4 layers in f32 weights: a KV
-#: dtype, or ``spec_lora`` with f32 KV)
+#: the multidevice worlds, in order: (arch, tp, pp, layers of the serving
+#: passes (None: the full depth), serving passes at full width in bf16,
+#: parity jobs at 4 layers in f32 weights: a KV dtype, or ``spec_lora``
+#: with f32 KV).  tp=2 x pp=2 and qwen2-moe-a2.7b's tp=2 serve 8 layers,
+#: for the 1200 s limit (at full depth 61.2 and 63.1 s a world on a slow
+#: host, the script 1240 s with the examples phase)
 MD_WORLDS = (
-    ("llama2-7b", 2, 1, ("plain", "spec_lora"), ("fp32", "bf16", "int8",
-                                                  "spec_lora")),
-    ("llama2-7b", 1, 2, ("plain",), ("fp32", "bf16", "int8")),
-    ("llama2-7b", 2, 2, ("plain",), ("fp32", "bf16", "int8")),
-    (MOE_ARCH, 2, 1, ("plain",), ("fp32", "bf16", "int8")),
+    ("llama2-7b", 2, 1, None, ("plain", "spec_lora"),
+     ("fp32", "bf16", "int8", "spec_lora")),
+    ("llama2-7b", 1, 2, None, ("plain",), ("fp32", "bf16", "int8")),
+    ("llama2-7b", 2, 2, 8, ("plain",), ("fp32", "bf16", "int8")),
+    (MOE_ARCH, 2, 1, 8, ("plain",), ("fp32", "bf16", "int8")),
 )
+
+
+def _md_cfg(arch: str, layers=None):
+    """``arch``'s config at full width, cut to ``layers`` if given."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
 MD_PARITY_LAYERS = 4
 
 
@@ -3236,20 +3266,20 @@ def _md_tokens(cfg, params, tag: str, device, mesh=None):
     return [r.tokens for r in eng.run(_md_requests(cfg, tag, True))]
 
 
-def _md_rank(mesh, arch, passes, parity):
+def _md_rank(mesh, arch, layers, passes, parity):
     """One rank of a multidevice world (every rank on the one card): its
-    shard of the seed-0 bf16 weights at full width and depth, the
-    serving passes, each with this process's launch counts zeroed before
-    it and read after it; then its shard of the f32 weights at 4 layers
-    and the parity jobs' tokens.  Returns what the parent checks."""
+    shard of the seed-0 bf16 weights at full width (``layers`` deep;
+    None: the full depth), the serving passes, each with this process's
+    launch counts zeroed before it and read after it; then its shard of
+    the f32 weights at 4 layers and the parity jobs' tokens.  Returns
+    what the parent checks."""
     import numpy as np
     import torch
-    from repro_torch import configs
     from repro_torch.engine import Engine
     from repro_torch.runtime.sharding import init_shard
 
     dev = mesh.device
-    cfg = configs.get(arch)
+    cfg = _md_cfg(arch, layers)
     out = dict(rank=mesh.rank, coords=dict(mesh.coords),
                backend=mesh.backend, passes={}, parity={})
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3561,32 +3591,39 @@ def phase_multidevice(device, summary):
                                    n_layers=MD_PARITY_LAYERS)
         params = init_params(cfg4, 0, device=device, dtype=torch.float32)
         refs[arch] = {tag: _md_tokens(cfg4, params, tag, device)
-                      for w in MD_WORLDS if w[0] == arch for tag in w[4]}
+                      for w in MD_WORLDS if w[0] == arch for tag in w[5]}
         del params
         torch.cuda.empty_cache()
-        if arch not in TP1_TOKENS:          # the engine or moe phase's
-            cfg = configs.get(arch)
+    # the plain pass's tp = 1 tokens at each world's depth (the full
+    # depth's kept by the engine or moe phase, if it ran)
+    for arch, layers in dict.fromkeys((w[0], w[3]) for w in MD_WORLDS):
+        if (arch, layers) not in TP1_TOKENS:
+            cfg = _md_cfg(arch, layers)
             params = init_params(cfg, 0, device=device)
             reqs = _md_requests(cfg, "plain", False)
             eng, results = _serve(cfg, params, _md_config("plain", False),
                                   reqs, device)
-            TP1_TOKENS[arch] = [r.tokens for r in results]
-            tp1 = out.setdefault("tp1", {})[arch] = dict(
-                ttft_p50_ms=float(np.median([r.ttft for r in results]) * 1e3),
-                tpot_p50_ms=float(np.median([r.tpot for r in results]) * 1e3),
-                tps=eng.aggregate_tps())
-            log(f"[multidevice] {arch} tp=1 plain (one rank, the same "
-                f"requests): TTFT p50 {tp1['ttft_p50_ms']:.2f} ms, TPOT p50 "
+            TP1_TOKENS[(arch, layers)] = [r.tokens for r in results]
+            tp1 = out.setdefault("tp1", {})[f"{arch} x{cfg.n_layers}"] = \
+                dict(ttft_p50_ms=float(np.median([r.ttft for r in results])
+                                       * 1e3),
+                     tpot_p50_ms=float(np.median([r.tpot for r in results])
+                                       * 1e3),
+                     tps=eng.aggregate_tps())
+            log(f"[multidevice] {arch} x{cfg.n_layers} tp=1 plain (one "
+                f"rank, the same requests): TTFT p50 "
+                f"{tp1['ttft_p50_ms']:.2f} ms, TPOT p50 "
                 f"{tp1['tpot_p50_ms']:.3f} ms, TPS {tp1['tps']:.1f}")
             del eng, params
             torch.cuda.empty_cache()
 
-    for arch, tp, pp, passes, parity in MD_WORLDS:
-        label = f"{arch} tp={tp} x pp={pp}"
-        cfg = configs.get(arch)
+    for arch, tp, pp, layers, passes, parity in MD_WORLDS:
+        cfg = _md_cfg(arch, layers)
+        label = f"{arch} tp={tp} x pp={pp}" + (
+            f" x{layers} layers" if layers else "")
         t0 = time.perf_counter()
-        ranks = spawn(_md_rank, (arch, passes, parity), model=tp, pipe=pp,
-                      device=device, share_device=True)
+        ranks = spawn(_md_rank, (arch, layers, passes, parity), model=tp,
+                      pipe=pp, device=device, share_device=True)
         world = dict(wall_s=time.perf_counter() - t0, backend=ranks[0][
             "backend"], ranks=[{k: r[k] for k in (
                 "coords", "init_s", "params_gb", "init_peak_gb", "peak_gb",
@@ -3627,7 +3664,7 @@ def phase_multidevice(device, summary):
                     tot[b] = tot.get(b, 0) + v
             same = None
             if tag == "plain":
-                want = TP1_TOKENS[arch]
+                want = TP1_TOKENS[(arch, layers)]
                 pairs = [(a, b) for g, w_ in zip(first["tokens"], want)
                          for a, b in zip(g, w_)]
                 same = sum(a == b for a, b in pairs) / len(pairs)
@@ -3701,10 +3738,12 @@ def phase_multidevice(device, summary):
 TM_STEPS = 3
 #: the worlds at full width: (label, data, model, FSDP, layers; None is
 #: the full depth), the 2-rank worlds in one spawn and the 4-rank world
-#: in another.  dp=2 x tp=2 runs 8 of the 40 layers, for the 1200 s
-#: limit: at 40 it took 15.0 s a step (gloo 14.2 s), at 20 9.5 s; the cut
-#: from 20 to 8 makes room for the audit phase
-TM_WORLDS = (("dp=2 FSDP", 2, 1, True, None), ("tp=2", 1, 2, False, None),
+#: in another.  Each runs 8 of the 40 layers, for the 1200 s limit:
+#: dp=2 x tp=2 took 15.0 s a step at 40 (gloo 14.2 s), 9.5 s at 20 (cut
+#: to 8 for the audit phase); dp=2 FSDP 16.3-18.1 s and tp=2 10.2-11.9 s
+#: a step at 40 on a slow host, where the script took 1240 s with the
+#: examples phase
+TM_WORLDS = (("dp=2 FSDP", 2, 1, True, 8), ("tp=2", 1, 2, False, 8),
              ("dp=2 x tp=2 FSDP", 2, 2, True, 8))
 #: the f32 parity meshes at 4 layers: (label, data, model, FSDP,
 #: microbatches)
@@ -3967,8 +4006,8 @@ def _flat_paths(tree, path=()):
 def phase_trainmesh(device, summary, trained):
     """The trainer on a mesh, every rank on this one card (gloo on CUDA
     tensors, ``share_device``): granite-3-2b at full width through
-    ``Trainer.run`` at dp = 2 with FSDP and at tp = 2 (full depth), and
-    at dp = 2 x tp = 2 with FSDP (``TM_WORLDS``' depth); then the f32
+    ``Trainer.run`` at dp = 2 with FSDP, at tp = 2 and at dp = 2 x
+    tp = 2 with FSDP (``TM_WORLDS``' depth); then the f32
     parity meshes at 4 layers against this process's one-rank step, and
     the elastic resume: saved at dp = 2 x tp = 2 FSDP, restored and
     continued at tp = 1 and tp = 2, against an uninterrupted run."""
@@ -4281,6 +4320,113 @@ def phase_audit(device, summary):
           f"audit: error findings {[c for c in codes if c[1] == 'error']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the examples, run as a user runs them
+# ---------------------------------------------------------------------------
+
+#: the serve example's scenarios, in its order (the reference example's)
+SERVE_LABELS = ("baseline bf16-KV", "chunked admission(16)",
+                "int8 KV blocks", "sampled T=0.8", "shared system prompt")
+SERVE_LINE = re.compile(
+    r"^(?P<label>.+?)\s+-> (?P<toks>\d+) toks over (?P<reqs>\d+) reqs on "
+    r"\d+ slots  cuda\s+(?P<tps>[\d.]+) tok/s \((?P<hw>\S+)-twin ratio"
+    r"\s+(?P<ratio>[\d.]+)x\)")
+#: runs an example as ``__main__`` in a fresh process, then prints the
+#: paged kernels' launches in that process (zero when it starts) as its
+#: last line
+_EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "from repro_torch.kernels.paged_attention import ops\n"
+    "print(json.dumps({'launches': dict(ops.LAUNCHES), 'bodies': {\n"
+    "    w: dict(c) for w, c in ops.BODY_LAUNCHES.items()}}))\n")
+
+
+def _run_example(args, timeout: int):
+    """One example script as a subprocess from the repo root (the repo's
+    ``src`` on ``PYTHONPATH``); returns (stdout lines, seconds).  A
+    non-zero exit fails the phase with the end of its stderr."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _EXAMPLE_RUNNER, *args],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0, f"examples: {args[0]} exited "
+          f"{out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout.strip().splitlines(), seconds
+
+
+def phase_examples(device, summary):
+    """``examples/serve_batched_torch.py`` (qwen2-7b at full width on the
+    card, paged attention: K2 and K1 in bf16 and int8 KV) and
+    ``examples/train_100m_torch.py`` at its defaults (300 steps of 8 x
+    256, a fresh checkpoint directory), each in its own process: the
+    serve example's five lines (tokens, measured tok/s, the twin's ratio
+    on nvidia-h100, the shared prompt's measured prefix hit rate equal
+    to the forecast's) and its K1/K2 launches; the train run's parameter
+    count, wall time per step and falling loss."""
+    import tempfile
+    import torch
+    torch.cuda.empty_cache()                 # the examples' processes
+    card = card_name_and_power_limit()       # take the card's memory
+    lines, serve_s = _run_example(["examples/serve_batched_torch.py"], 600)
+    counted = json.loads(lines[-1])
+    rows = {}
+    for line in lines[:-1]:
+        m = SERVE_LINE.match(line)
+        if m:
+            rows[m["label"]] = dict(line=line, tokens=int(m["toks"]),
+                                    requests=int(m["reqs"]),
+                                    tps=float(m["tps"]), twin_hw=m["hw"],
+                                    twin_tps_ratio=float(m["ratio"]))
+    check(tuple(rows) == SERVE_LABELS, f"examples: serve printed "
+          f"{list(rows)}, not {list(SERVE_LABELS)}: {lines[:-1]}")
+    hits = re.search(r"prefix hits: measured ([\d.]+)% = forecast "
+                     r"([\d.]+)%", rows[SERVE_LABELS[-1]]["line"])
+    check(hits is not None and float(hits[1]) > 0 and hits[1] == hits[2],
+          f"examples: the shared prompt's line {rows[SERVE_LABELS[-1]]}")
+    check(all(r["tokens"] == 120 and r["requests"] == 6
+              and r["twin_hw"] == "nvidia-h100" for r in rows.values()),
+          f"examples: serve lines {rows}")
+    launches = {k: n for k, n in counted["launches"].items() if n}
+    check(launches.get("paged_decode", 0) > 0
+          and launches.get("paged_prefill", 0) > 0,
+          f"examples: serve launched {counted}")
+    for label, r in rows.items():
+        log(f"[examples] serve_batched_torch {label}: {r['tokens']} tokens, "
+            f"measured {r['tps']} tok/s, twin on {r['twin_hw']} "
+            f"{r['twin_tps_ratio']}x the measured tok/s ({card})")
+    log(f"[examples] serve_batched_torch (qwen2-7b full width): "
+        f"{serve_s:.1f} s, prefix hits measured {hits[1]}% = forecast "
+        f"{hits[2]}%, launches {launches}, bodies {counted['bodies']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, train_s = _run_example(
+            ["examples/train_100m_torch.py", "--ckpt-dir",
+             str(Path(tmp) / "ck")], 600)
+    text = "\n".join(lines[:-1])
+    check(lines[0].startswith("[LIFE→nvidia-h100]") and "OK: loss improved"
+          in text, f"examples: train printed {lines}")
+    run = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    curve = run["loss_curve"]
+    check(curve[-1][1] < curve[0][1], f"examples: train loss {curve}")
+    step_ms = run["wall_s"] / run["steps"] * 1e3
+    log(f"[examples] train_100m_torch: {run['params']} params, "
+        f"{run['steps']} steps in {run['wall_s']} s ({step_ms:.1f} ms a "
+        f"step, init and checkpoints included), loss {curve[0][1]} -> "
+        f"{curve[-1][1]}; process {train_s:.1f} s ({card})")
+    summary["examples"] = dict(
+        card=card, serve=rows, serve_s=serve_s,
+        prefix_hits=[float(hits[1]), float(hits[2])],
+        serve_launches=launches, serve_bodies=counted["bodies"],
+        train=dict(params=run["params"], steps=run["steps"],
+                   wall_s=run["wall_s"], step_ms=step_ms,
+                   loss_first=curve[0][1], loss_last=curve[-1][1]),
+        train_s=train_s)
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase: a failure prints ``[fail] <phase>: <type>:
     <message>`` on stdout and is raised on (the exit stays non-zero;
@@ -4357,6 +4503,7 @@ def main() -> int:
         "multidevice": (phase_multidevice, device, families),
         "trainmesh": (phase_trainmesh, device, families, trained),
         "audit": (phase_audit, device, families),
+        "examples": (phase_examples, device, families),
         "profile": (phase_profile, device),
     }
     for name in PHASES + EXTRA_PHASES:
@@ -4379,6 +4526,9 @@ def main() -> int:
     for k, n in families.get("trainmesh", {}).get("launches", {}).items():
         launches[k] = launches.get(k, 0) + n
     for k, n in families.get("audit", {}).get("launches_total", {}).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in families.get("examples", {}).get("serve_launches",
+                                                 {}).items():
         launches[k] = launches.get(k, 0) + n
     lockstep = families.get("lockstep")
     md_k6 = families.get("multidevice", {})
@@ -4438,7 +4588,8 @@ def main() -> int:
     print(json.dumps({"multidevice": families.get("multidevice")}))
     print(json.dumps({"train": trained.get("train"),
                       "trainmesh": families.get("trainmesh")}))
-    print(json.dumps({"audit": families.get("audit")}))
+    print(json.dumps({"audit": families.get("audit"),
+                      "examples": families.get("examples")}))
     print(json.dumps({"engine": summary}))
     print(json.dumps({"kernels": record}))
     print(smi)

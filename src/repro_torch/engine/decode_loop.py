@@ -41,16 +41,19 @@ Tensor parallelism (a mesh whose ``"model"`` axis has ``tp > 1`` ranks,
 (``runtime.sharding``) and of the block pool, ``n_kv_heads/tp`` heads of
 every block, and runs the layer bodies on its ``n_heads/tp`` query heads
 (``sharding.local_config``).  q/k/v and gate/up are column-parallel,
-o_proj and down_proj row-parallel, and the only traffic between ranks is
-one ``all_reduce`` after each row-parallel product, as in the reference,
-where XLA inserts it.  The paged kernels run unchanged on the rank's
-heads: a rank only ever holds its shard, so nothing needs the
-reference's ``shard_map``.  Grouped LoRA splits the pool's rank lanes
-(``grouped_lora.ops.make_sharded_grouped_lora``): the q/k/v deltas are
-summed in one ``all_reduce``; the o projection's input is sharded by
-head, so the rank first gathers it (an ``all_reduce`` of a zero-filled
-buffer), and its partial delta joins o_proj's partial in that
-projection's one ``all_reduce``.  An MoE layer runs expert-parallel
+o_proj and down_proj row-parallel, with one ``all_reduce`` after each
+row-parallel product, as in the reference, where XLA inserts it.  The
+vocabulary is cut too: the token lookup is a masked lookup and one
+``all_reduce`` (``act_sharding.vocab_embed``), ``lm_head`` gives the
+rank's block of the logits, and greedy sampling gathers each rank's
+(max, index) pair (``act_sharding.tp_argmax``).  The paged kernels run
+unchanged on the rank's heads: a rank only ever holds its shard, so
+nothing needs the reference's ``shard_map``.  Grouped LoRA splits the
+pool's rank lanes (``grouped_lora.ops.make_sharded_grouped_lora``): the
+q/k/v deltas are summed in one ``all_reduce``; the o projection's input
+is sharded by head, so the rank first gathers it (an ``all_reduce`` of a
+zero-filled buffer), and its partial delta joins o_proj's partial in
+that projection's one ``all_reduce``.  An MoE layer runs expert-parallel
 (``models.blocks.moe_forward``).
 
 Pipeline parallelism (a ``"pipe"`` axis of ``pp > 1`` stages):
@@ -88,7 +91,7 @@ from repro_torch.models.act_sharding import from_last_stage, staged_scan
 from repro_torch.models import attention as A
 from repro_torch.models.blocks import mlp_sharded, moe_forward
 from repro_torch.models.layers import apply_norm
-from repro_torch.models.model import _lm_head, layer_params
+from repro_torch.models.model import _lm_head, layer_params, vocab_held
 from repro_torch.runtime import sharding as S
 
 from .adapter_pool import LORA_FACTORS
@@ -413,15 +416,17 @@ def make_engine_fns(cfg: ArchConfig, cache: BlockPagedKVCache, *,
         the device
 
     On a ``mesh`` (``repro_torch.launch.mesh``), ``params`` and ``state``
-    are this rank's shards, and every rank gets the same logits and
-    tokens.
+    are this rank's shards; every rank gets the same tokens, and the
+    logits of its block of the vocabulary where tp cuts it
+    (``models.model.vocab_held``; ``sampling.sample`` takes them).
     """
     lcfg = _plan(cfg, cache, mesh, policy, attn_impl)
     bs = cache.block_size
 
     def prefill(params, state, tokens, slot: int, start: int, valid: int):
         dev = state["pos"].device
-        x = params["embed"][tokens]                              # (1, C, d)
+        x = act_sharding.vocab_embed(params["embed"], tokens,
+                                     cfg.vocab_size)             # (1, C, d)
         pos_q = start + torch.arange(chunk_size, dtype=torch.int32,
                                      device=dev)
         bt_slot = state["block_tables"][slot]                   # (max_bps,)
@@ -441,7 +446,7 @@ def make_engine_fns(cfg: ArchConfig, cache: BlockPagedKVCache, *,
         logits = from_last_stage(
             mesh, lambda: _lm_head(cfg, params, apply_norm(
                 cfg.norm_kind, x, params["ln_f"])[:, valid - 1:valid])[0, 0],
-            (cfg.vocab_size,), x.dtype, dev)                     # (V,)
+            (vocab_held(cfg, params),), x.dtype, dev)            # (V,)
         state["pos"][slot] += valid
         return logits, state
 
@@ -465,7 +470,8 @@ def make_engine_fns(cfg: ArchConfig, cache: BlockPagedKVCache, *,
         ck_all, cv_all = state["cache_k"], state["cache_v"]
         toks, prods = [], []
         for _ in range(decode_block):
-            x = params["embed"][tok][:, None]                    # (S, 1, d)
+            x = act_sharding.vocab_embed(
+                params["embed"], tok, cfg.vocab_size)[:, None]   # (S, 1, d)
             wpos = torch.minimum(pos[live], cap).long()
             dst = (bt_live[rows, wpos // bs], wpos % bs, act[live])
 
@@ -478,7 +484,8 @@ def make_engine_fns(cfg: ArchConfig, cache: BlockPagedKVCache, *,
             def sample_next():
                 h = apply_norm(cfg.norm_kind, x, params["ln_f"])
                 logits = _lm_head(cfg, params, h[:, -1:])[:, 0]  # (S, V)
-                return sample(logits, temperature, generator).to(torch.int32)
+                return sample(logits, temperature, generator,
+                              cfg.vocab_size).to(torch.int32)
             nxt = from_last_stage(mesh, sample_next, tok.shape,
                                    torch.int32, dev)
             produced = act
@@ -520,15 +527,16 @@ def make_verify_fn(cfg: ArchConfig, cache: BlockPagedKVCache, *,
         dev = state["pos"].device
         qtoks = np.asarray(qtoks)
         S_, Q = qtoks.shape
-        x = params["embed"][torch.as_tensor(qtoks, dtype=torch.long,
-                                            device=dev)]      # (S, Q, d)
+        x = act_sharding.vocab_embed(params["embed"], torch.as_tensor(
+            qtoks, dtype=torch.long, device=dev), cfg.vocab_size)  # (S, Q, d)
         live = (np.asarray(active, bool)[:, None]
                 & (np.arange(Q)[None, :] < np.asarray(valid_q)[:, None]))
         x = _multi_query_pass(lcfg, params, state, x, state["block_tables"],
                               state["pos"], live, attn_impl,
                               state.get("adapter_slots"), mesh)
         logits = from_last_stage(mesh, lambda: _lm_head(cfg, params, x),
-                                  (S_, Q, cfg.vocab_size), x.dtype, dev)
+                                  (S_, Q, vocab_held(cfg, params)), x.dtype,
+                                  dev)
         return logits, state                                  # (S, Q, V)
 
     return verify
@@ -561,8 +569,8 @@ def make_prefill_batch_fn(cfg: ArchConfig, cache: BlockPagedKVCache, *,
         B, C = qtoks.shape
         slots_t = torch.as_tensor(np.asarray(slots), dtype=torch.long,
                                   device=dev)
-        x = params["embed"][torch.as_tensor(qtoks, dtype=torch.long,
-                                            device=dev)]      # (B, C, d)
+        x = act_sharding.vocab_embed(params["embed"], torch.as_tensor(
+            qtoks, dtype=torch.long, device=dev), cfg.vocab_size)  # (B, C, d)
         bt = state["block_tables"][slots_t]                   # (B, max_bps)
         pos = state["pos"][slots_t]                           # (B,)
         live = np.arange(C)[None, :] < valids[:, None]
@@ -575,7 +583,7 @@ def make_prefill_batch_fn(cfg: ArchConfig, cache: BlockPagedKVCache, *,
         logits = from_last_stage(
             mesh, lambda: _lm_head(cfg, params, x[torch.arange(
                 B, device=dev), last][:, None])[:, 0],          # (B, V)
-            (B, cfg.vocab_size), x.dtype, dev)
+            (B, vocab_held(cfg, params)), x.dtype, dev)
         adv = torch.as_tensor(np.maximum(valids, 0).astype(np.int32),
                               device=dev)
         state["pos"].index_add_(0, slots_t, adv)

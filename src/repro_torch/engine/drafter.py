@@ -21,6 +21,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from .sampling import sample
+
 
 class Drafter:
     """Interface: propose ``k`` draft tokens given a request's history."""
@@ -90,7 +92,8 @@ class DraftModelDrafter(Drafter):
             with torch.no_grad():
                 logits, _ = forward(self.cfg, self.params,
                                     torch.from_numpy(ids).to(dev))
-            nxt = int(torch.argmax(logits[0, t - 1], dim=-1))
+            nxt = int(sample(logits[0, t - 1], 0.0,
+                             vocab=self.cfg.vocab_size))
             out.append(nxt)
             toks.append(nxt)
         return out

@@ -6,6 +6,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models import act_sharding
+
 KV_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
              "int8": torch.int8, "fp32": torch.float32}
 
@@ -28,14 +30,21 @@ def to_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def sample(logits: torch.Tensor, temperature: float,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None,
+           vocab: Optional[int] = None) -> torch.Tensor:
     """Greedy (T=0) or temperature sampling over the last axis -> int64.
 
-    Temperature draws come from ``generator``; they follow the same
-    categorical distribution as the reference's ``jax.random.categorical``
-    but not its bits."""
+    ``vocab`` is the whole vocabulary's size when ``logits`` may be a tp
+    rank's block of it (None: they are whole): greedy then takes
+    ``act_sharding.tp_argmax``, and temperature sampling draws from the
+    gathered whole logits, the same draw with the same generator on
+    every rank.  Temperature draws come from ``generator``; they follow
+    the same categorical distribution as the reference's
+    ``jax.random.categorical`` but not its bits."""
+    vocab = logits.shape[-1] if vocab is None else vocab
     if temperature <= 0.0:
-        return torch.argmax(logits, dim=-1)
+        return act_sharding.tp_argmax(logits, vocab)
+    logits = act_sharding.tp_whole_logits(logits, vocab)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
     flat = probs.reshape(-1, probs.shape[-1])
     draw = torch.multinomial(flat, 1, generator=generator)

@@ -22,12 +22,14 @@ once per decode block and once per speculative step (the logits).
 On a mesh (``Engine(..., mesh=..., policy=...)``, inside a rank started
 by ``repro_torch.launch.mesh.spawn``) every rank runs this same host
 scheduler on the same tokens (the step functions give every rank the
-same logits and tokens), so admissions, prefix hits, copy-on-write forks
-and adapter loads agree on every rank and the ranks' collectives stay in
-step; each rank holds its shard of the weights, of the block pool and of
-the adapter pool.  ``tp``/``pp`` come from the mesh and the trace's
-header carries them; a sharded run returns rank 0's results to its
-caller (``repro_torch.launch.mesh.spawn``, ``api.measure``).
+same tokens; a verify's targets are taken from the ranks' blocks of the
+logits by ``act_sharding.tp_argmax``), so admissions, prefix hits,
+copy-on-write forks and adapter loads agree on every rank and the ranks'
+collectives stay in step; each rank holds its shard of the weights, of
+the block pool and of the adapter pool.  ``tp``/``pp`` come from the
+mesh and the trace's header carries them; a sharded run returns rank 0's
+results to its caller (``repro_torch.launch.mesh.spawn``,
+``api.measure``).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import DEFAULT_KV_BLOCK_SIZE
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import act_sharding
 from repro_torch.runtime.sharding import ShardingPolicy, pp_degree, tp_degree
 
 from .adapter_pool import LORA_FACTORS, AdapterPool, AdapterStore
@@ -454,7 +457,8 @@ class Engine:
         """Sample the request's first token from its final prefill logits
         and start decoding it (or finish it at once)."""
         ec = self.ec
-        first = sample(logits[None], ec.temperature, self._gen)
+        first = sample(logits[None], ec.temperature, self._gen,
+                       self.cfg.vocab_size)
         if self.pp > 1:
             # only the last stage samples decode steps, so only its
             # generator is the run's: its first token is everyone's
@@ -717,13 +721,19 @@ class Engine:
             qtoks[slot, 1:] = d
         logits, self.state = self.verify_fn(self.params, self.state, qtoks,
                                             active, valid_q)
-        logits = logits.float().cpu().numpy()               # (S, k+1, V)
+        # greedy: each query's target, taken on the device; sampled: the
+        # whole logits (S, k+1, V)
+        vocab = self.cfg.vocab_size
+        rows = (act_sharding.tp_argmax(logits, vocab)
+                if ec.temperature <= 0.0 else
+                act_sharding.tp_whole_logits(logits, vocab).float()
+                ).cpu().numpy()
         now = self._now()
         accepted = []
         for slot, req in order:
             res = self.results[req.rid]
             vq = int(valid_q[slot])
-            emitted = self._accept(logits[slot, :vq], drafts[slot][:vq - 1])
+            emitted = self._accept(rows[slot, :vq], drafts[slot][:vq - 1])
             accepted.append(len(emitted) - 1)
             if ec.eos_id is not None and ec.eos_id in emitted:
                 emitted = emitted[:emitted.index(ec.eos_id) + 1]
@@ -743,9 +753,10 @@ class Engine:
         self.spec_accepted += sum(accepted)
         self.spec_steps += 1
 
-    def _accept(self, logits: np.ndarray, drafts: List[int]) -> List[int]:
+    def _accept(self, rows: np.ndarray, drafts: List[int]) -> List[int]:
         """Standard speculative rejection sampling against the verify
-        logits (``(vq, V)`` — row i scores the token *after* query i).
+        logits (``(vq, V)`` — row i scores the token *after* query i; at
+        temperature 0 ``rows`` are their argmaxes, ``(vq,)``).
 
         Returns the emitted tokens: the accepted draft prefix plus one —
         the bonus token on full acceptance, or the corrected sample at
@@ -755,14 +766,13 @@ class Engine:
         """
         temp = self.ec.temperature
         if temp <= 0.0:
-            targets = np.argmax(logits, axis=-1)
             a = 0
-            while a < len(drafts) and drafts[a] == int(targets[a]):
+            while a < len(drafts) and drafts[a] == int(rows[a]):
                 a += 1
-            return [int(t) for t in targets[:a + 1]]
+            return [int(t) for t in rows[:a + 1]]
         # the n-gram/greedy drafter is a point mass at d: accept with
         # probability p(d); on rejection sample the residual p \ {d}
-        x = logits.astype(np.float64) / temp
+        x = rows.astype(np.float64) / temp
         x -= x.max(axis=-1, keepdims=True)
         p = np.exp(x)
         p /= p.sum(axis=-1, keepdims=True)

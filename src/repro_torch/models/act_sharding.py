@@ -29,6 +29,13 @@ flows through it (Megatron-LM's *f* and *g*):
 * :func:`tp_all_gather`: an all-gather as an ``all_reduce`` of a
   zero-filled buffer (a sum with zeros, so exact); its backward is the
   rank's slice of the gradient;
+* over a vocabulary cut over tp (``embed``'s rows, ``lm_head``'s
+  columns, the logits): :func:`vocab_embed`, Megatron-LM's
+  vocab-parallel lookup (*g* after a masked lookup),
+  :func:`tp_argmax`, the greedy token from every rank's (max, index)
+  pair, and :func:`tp_whole_logits`, the gathered logits for what needs
+  the whole distribution; each is the plain operation where the rank
+  holds the whole vocabulary;
 * :func:`dp_all_reduce`: the sum over the data-parallel group, the
   identity in the backward (the MoE router's per-expert means over the
   global batch; the gradient sums);
@@ -222,6 +229,49 @@ def tp_all_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return _gathered(x, dim, group, tp_size(), tp_rank())
 
 
+def vocab_embed(table: torch.Tensor, ids: torch.Tensor, vocab: int
+                ) -> torch.Tensor:
+    """``table[ids]`` for a ``table`` of ``vocab`` rows, of which this
+    rank may hold its contiguous block (its tp rank's): an id outside
+    the block reads a zero row, and one :func:`tp_all_reduce` sums the
+    ranks' rows (exact: one rank's row and zeros).  *g*'s backward is
+    the identity, so each rank's gradient lands on its own rows."""
+    held = table.shape[0]
+    if held == vocab:
+        return table[ids]
+    local = ids - tp_rank() * held
+    outside = (local < 0) | (local >= held)
+    x = table[local.masked_fill(outside, 0)]
+    return tp_all_reduce(x.masked_fill(outside[..., None], 0))
+
+
+def tp_argmax(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``torch.argmax(whole logits, -1)`` of logits whose last dim is
+    this rank's block of ``vocab``: each rank's max and first argmax
+    over its block (made global), one :func:`tp_all_gather` of every
+    rank's (value, index) pair, then the largest value; a tie goes to
+    the lower rank, hence the lower index, as ``torch.argmax`` and
+    ``jnp.argmax`` give it.  The pair travels as f32: exact for any
+    logit dtype up to f32 and any index below 2**24."""
+    held = logits.shape[-1]
+    if held == vocab:
+        return torch.argmax(logits, dim=-1)
+    idx = torch.argmax(logits, dim=-1, keepdim=True)
+    pair = torch.cat([logits.gather(-1, idx).float(),
+                      (idx + tp_rank() * held).float()], dim=-1)
+    pairs = tp_all_gather(pair, -1).unflatten(-1, (tp_size(), 2))
+    best = torch.argmax(pairs[..., 0], dim=-1, keepdim=True)
+    return pairs[..., 1].gather(-1, best)[..., 0].long()
+
+
+def tp_whole_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The whole ``vocab`` logits from this rank's block of them (a
+    :func:`tp_all_gather`; the logits as they are when whole): for what
+    needs the whole distribution (temperature sampling, sampled
+    verify)."""
+    return logits if logits.shape[-1] == vocab else tp_all_gather(logits)
+
+
 def dp_all_reduce(x: torch.Tensor) -> torch.Tensor:
     """Sum ``x`` over the data-parallel group (the identity in the
     backward; in place when no gradient flows); the identity at dp = 1."""
@@ -306,4 +356,5 @@ __all__ = ["clear_mesh", "constrain", "current_mesh", "dp_all_reduce",
            "dp_group", "dp_rank", "dp_size", "from_last_stage",
            "fsdp_dims", "fsdp_gather", "fsdp_gather_tree", "set_mesh",
            "stage_layers", "staged_scan", "tp_all_gather", "tp_all_reduce",
-           "tp_copy", "tp_group", "tp_rank", "tp_size"]
+           "tp_argmax", "tp_copy", "tp_group", "tp_rank", "tp_size",
+           "tp_whole_logits", "vocab_embed"]

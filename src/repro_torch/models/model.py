@@ -47,7 +47,7 @@ from .layers import apply_norm, init_params, param_defs
 
 __all__ = ["REMAT_POLICIES", "abstract_decode_state", "abstract_params",
            "decode_state_shapes", "forward", "init_decode_state",
-           "init_params", "layer_params", "step", "_lm_head"]
+           "init_params", "layer_params", "step", "vocab_held", "_lm_head"]
 
 
 def _take(tree: Dict, i: int) -> Dict:
@@ -77,17 +77,29 @@ def layer_params(params: Dict) -> List[Dict]:
     return [_take(layers, i) for i in range(n)]
 
 
-def _lm_head(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
+def vocab_held(cfg: ArchConfig, params: Dict) -> int:
+    """The width of this rank's logits: ``cfg.vocab_size``, or its tp
+    rank's block of it when the vocabulary is cut
+    (``runtime.sharding``)."""
     if cfg.tie_embeddings:
-        return x @ params["embed"].t()
-    return x @ params["lm_head"]
+        return params["embed"].shape[0]
+    return params["lm_head"].shape[1]
+
+
+def _lm_head(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """This rank's logits: over its block of the vocabulary when the
+    head is cut (a column-parallel product, *f* at its input)."""
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    if w.shape[1] < cfg.vocab_size:
+        x = act_sharding.tp_copy(x)
+    return x @ w
 
 
 def _embed(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor,
            vision_embeds: Optional[torch.Tensor]) -> torch.Tensor:
     """Token embeddings; a VLM's ``vision_embeds`` (b, P, d) go through
     ``vision_proj`` and are prepended."""
-    x = params["embed"][token_ids]
+    x = act_sharding.vocab_embed(params["embed"], token_ids, cfg.vocab_size)
     if cfg.family == "vlm" and vision_embeds is not None:
         # the reference's dense() promotes mixed dtypes (bf16 embeddings
         # against f32 weights compute in f32)
@@ -281,7 +293,8 @@ def forward(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor, *,
             remat_policy: str = "full"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (b, s, V), aux loss): the MoE layers' load-balance
-    losses summed, 0 for other stacks.
+    losses summed, 0 for other stacks.  On a tp rank whose vocabulary is
+    cut the logits are its block of V (:func:`vocab_held`).
 
     A VLM's ``vision_embeds`` (b, P, d) are prepended, so the logits
     cover P + s positions; an encoder-decoder needs its encoder
@@ -466,7 +479,8 @@ def step(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor,
     """Cached model step: a prefill chunk (s tokens) or a decode step
     (s = 1) against ``state`` from :func:`init_decode_state`.
 
-    Returns (logits of the last position (b, V), state).  The state is
+    Returns (logits of the last position (b, V), state); on a tp rank
+    whose vocabulary is cut, its block of V (:func:`vocab_held`).  The state is
     updated in place (the reference's server donates it) and returned.
     A VLM's ``vision_embeds`` are prepended and advance ``pos`` with the
     tokens; an encoder-decoder given ``frames`` encodes them and stores
@@ -512,5 +526,5 @@ def step(cfg: ArchConfig, params: Dict, token_ids: torch.Tensor,
                                    and vision_embeds is not None) else 0)
     head = lambda: _lm_head(cfg, params, apply_norm(
         cfg.norm_kind, x[:, -1:], params["ln_f"]))[:, 0]
-    return from_last_stage(mesh, head, (x.shape[0], cfg.vocab_size),
+    return from_last_stage(mesh, head, (x.shape[0], vocab_held(cfg, params)),
                            x.dtype, x.device), state

@@ -16,10 +16,12 @@ decode state are cut by ``runtime.sharding`` (the reference's
 ``spec_for`` rules and the port's overrides listed there); the model's
 step runs the rank's heads and channels with one ``all_reduce`` after
 each row-parallel product, and its pipeline stage's layers.  Every rank
-ends a step with the same logits, so every rank samples the same token
-from the same seeded generator.  Where the reference jits the two
-functions with in/out shardings and donates the state, the port calls
-the step eagerly and writes the state in place.
+ends a step with the same logits, or with its block of them where tp
+cuts the vocabulary (``sampling.sample`` then gathers what it needs), so
+every rank samples the same token from the same seeded generator.  Where
+the reference jits the two functions with in/out shardings and donates
+the state, the port calls the step eagerly and writes the state in
+place.
 """
 from __future__ import annotations
 
@@ -128,10 +130,12 @@ class Server:
         for off in range(0, prompt_ids.shape[1], chunk):
             logits, state = self.prefill(state, prompt_ids[:, off:off + chunk],
                                          extra if off == 0 else None)
-        tok = sample(logits, self.sc.temperature, gen)
+        tok = sample(logits, self.sc.temperature, gen,
+                         self.cfg.vocab_size)
         outs = [tok]
         for _ in range(n_new - 1):
             logits, state = self.decode(state, tok[:, None])
-            tok = sample(logits, self.sc.temperature, gen)
+            tok = sample(logits, self.sc.temperature, gen,
+                         self.cfg.vocab_size)
             outs.append(tok)
         return torch.stack(outs, dim=1), {"final_pos": state["pos"]}

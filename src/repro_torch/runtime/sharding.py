@@ -15,16 +15,14 @@ whole.  :func:`param_specs` and :func:`decode_state_specs` give the
 reference's spec of every leaf.  The reference hands those specs to
 GSPMD, which places the data; a rank of the port holds only its own
 shard, cut here by the same specs, rank ``m`` of a cut axis holding its
-``m``-th contiguous block.
+``m``-th contiguous block.  ``vocab`` is cut as the reference cuts it:
+a rank holds its block of ``embed``'s rows and ``lm_head``'s columns,
+and its logits are its block of the vocabulary (the lookup, the argmax,
+the whole logits and the training loss over that cut are in
+``models.act_sharding`` and ``runtime.train``).
 
 The port's overrides, all in where data lives and none in any result:
 
-* ``embed`` and ``lm_head`` stay whole over the tensor-parallel axis
-  (the reference shards ``vocab``), so every rank computes the same
-  logits with no all-gather, which gloo cannot do on CUDA tensors; under
-  FSDP their ``embed`` dim is still cut over the data axes, as every
-  other leaf's is, and gathered whole where it is used
-  (``models.act_sharding.fsdp_gather``);
 * the MoE ``router`` stays whole, since every rank routes every token
   over all experts; the stacked ``experts`` axis is zero-padded to a
   multiple of ``MOE_EXPERT_PAD_TO`` (``models.blocks.pad_experts``, the
@@ -248,7 +246,7 @@ def rank_spec(path: Tuple[str, ...], axes: Tuple[Optional[str], ...],
     the pipeline (a stage holds its own layers, :func:`stage_range`)."""
     names, check = list(axes), list(shape)
     for i, name in enumerate(axes):
-        if name == "vocab" or name == "kv_len" or (
+        if name == "kv_len" or (
                 name == "experts" and path[-1] in WHOLE_LEAVES):
             names[i] = None                       # whole on every tp rank
         elif name == "experts":

@@ -11,18 +11,19 @@ mesh of ranks (the PyTorch counterpart of the JAX package's
 
 The reference's step is jit-compiled and GSPMD shards it over a mesh;
 this one runs eagerly, on one device without a mesh, and with a
-``launch.mesh.Mesh`` of ``data × model`` ranks as one rank's part of
-the same arithmetic: the rank holds its shard of params and optimizer
-state (``runtime.sharding``: heads, ``mlp``, ``inner`` and experts over
-``"model"``; FSDP's ``embed`` over ``"data"``), takes its rows of each
-global microbatch, normalises its loss by the global microbatch's mask
-count, and sums over the data-parallel group the gradient of every leaf
-that group does not cut (FSDP's leaves are summed by their gathers'
+``launch.mesh.Mesh`` of ``data × model`` ranks as one rank's part of the
+same arithmetic: the rank holds its shard of params and optimizer state
+(``runtime.sharding``: ``vocab``, heads, ``mlp``, ``inner`` and experts
+over ``"model"``; FSDP's ``embed`` over ``"data"``), takes its rows of
+each global microbatch, normalises its loss by the global microbatch's
+mask count, and sums over the data-parallel group the gradient of every
+leaf that group does not cut (FSDP's leaves are summed by their gathers'
 backward).  Tensor-parallel ranks run Megatron's *f*/*g* pairs
 (``models.act_sharding``), so a whole leaf gets the same whole gradient
-on every rank.  A mesh with a ``pipe`` axis is refused: the reference
-trains on no pipeline axis either (its ``launch/specs.py`` train cell
-runs on the ``("data", "model")`` mesh).
+on every rank, and the loss over a cut vocabulary is the vocab-parallel
+cross-entropy (:func:`cross_entropy`).  A mesh with a ``pipe`` axis is
+refused: the reference trains on no pipeline axis either (its
+``launch/specs.py`` train cell runs on the ``("data", "model")`` mesh).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
@@ -43,14 +45,56 @@ from repro_torch.optim.adamw import AdamW, tree_leaves, tree_like
 from repro_torch.runtime import sharding as S
 
 
+class _VocabParallelLogLik(torch.autograd.Function):
+    """Each token's log-likelihood of its target from logits whose last
+    dim is this tp rank's block of the vocabulary (Megatron-LM's
+    vocab-parallel cross-entropy, in f32): the row max, the sum of
+    exponentials and the target's logit (from the rank that holds it)
+    are each one ``all_reduce`` over the tp group.  The backward is the
+    rank's own: its block of (one-hot − softmax)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, group):
+        held = logits.shape[-1]
+        x = logits.to(torch.float32)
+        m = x.amax(dim=-1)
+        all_reduce(m, group, op=dist.ReduceOp.MAX)
+        x = x - m[..., None]
+        e = torch.exp(x)
+        total = all_reduce(e.sum(dim=-1), group)
+        local = targets.long() - act_sharding.tp_rank() * held
+        outside = (local < 0) | (local >= held)
+        local = local.masked_fill(outside, 0)
+        xt = all_reduce(x.gather(-1, local[..., None])[..., 0]
+                        .masked_fill(outside, 0.0), group)
+        ctx.save_for_backward(e.div_(total[..., None]), local, outside)
+        ctx.dtype = logits.dtype
+        return xt - torch.log(total)
+
+    @staticmethod
+    def backward(ctx, dll):
+        p, local, outside = ctx.saved_tensors
+        onehot = torch.zeros_like(p).scatter_(
+            -1, local[..., None], (~outside)[..., None].to(p.dtype))
+        return (dll[..., None] * (onehot - p)).to(ctx.dtype), None, None
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: torch.Tensor,
-                  count: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  count: Optional[torch.Tensor] = None,
+                  vocab: Optional[int] = None) -> torch.Tensor:
     """Masked mean token cross-entropy, log-softmax in f32.  ``count``:
     the tokens to divide by (a data-parallel rank's rows are part of a
-    larger batch); the mask's own sum by default."""
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    larger batch); the mask's own sum by default.  ``vocab``: the whole
+    vocabulary's size when ``logits`` may be a tp rank's block of it
+    (None: they are whole); the loss is then the vocab-parallel one,
+    equal on every rank of the group."""
+    if vocab is not None and logits.shape[-1] < vocab:
+        ll = _VocabParallelLogLik.apply(logits, targets,
+                                        act_sharding.tp_group())
+    else:
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
     if count is None:
         count = mask.sum()
     return -(ll * mask).sum() / torch.clamp(count, min=1.0)
@@ -72,7 +116,8 @@ def make_loss_fn(cfg: ArchConfig, *, use_flash: bool = False,
                               remat_policy=remat_policy)
         if cfg.family == "vlm" and ve is not None:
             logits = logits[:, ve.shape[1]:]       # the text positions
-        loss = cross_entropy(logits, batch["targets"], batch["mask"], count)
+        loss = cross_entropy(logits, batch["targets"], batch["mask"], count,
+                             cfg.vocab_size)
         return loss + aux_weight * aux, {"ce": loss, "aux": aux}
     return loss_fn
 

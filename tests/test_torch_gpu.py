@@ -621,6 +621,52 @@ def test_train_dp2_tp2_on_one_card_equals_one_rank(cuda_device):
     assert (num / den) ** 0.5 <= 1e-4
 
 
+def _vocab_on_rank(mesh, logits, targets):
+    """One rank of :func:`test_vocab_parallel_on_one_card_equals_whole`:
+    the greedy token and the vocab-parallel loss and gradient from its
+    block of the logits (on the card)."""
+    from repro_torch.models import act_sharding
+    from repro_torch.runtime.train import cross_entropy
+    act_sharding.set_mesh(mesh)
+    w = logits.shape[-1] // mesh.shape["model"]
+    r = mesh.coords["model"]
+    mine = logits[..., r * w:(r + 1) * w].to(mesh.device).requires_grad_()
+    tok = act_sharding.tp_argmax(mine.detach().bfloat16(), logits.shape[-1])
+    loss = cross_entropy(mine, targets.to(mesh.device),
+                         torch.ones(targets.shape, device=mesh.device),
+                         vocab=logits.shape[-1])
+    loss.backward()
+    return tok.cpu(), float(loss.detach()), mine.grad.cpu()
+
+
+def test_vocab_parallel_on_one_card_equals_whole(cuda_device):
+    """qwen2-7b's vocabulary (152064) cut over two ranks sharing the card
+    (gloo on CUDA tensors, its MAX and SUM all-reduces): the greedy token
+    equals ``torch.argmax`` of the whole bf16 logits, and the f32 loss and
+    gradient equal ``cross_entropy`` on the whole logits within 1e-5
+    (relative; the gradient by its norm): f32 sums of 76,032 and of
+    152,064 exponentials, taken in other orders."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.runtime.train import cross_entropy
+    V = configs.get("qwen2-7b").vocab_size
+    gen = torch.Generator().manual_seed(0)
+    logits = 4 * torch.randn(3, 5, V, generator=gen)
+    targets = torch.randint(0, V, (3, 5), generator=gen)
+    whole = logits.to(cuda_device).requires_grad_()
+    loss = cross_entropy(whole, targets.to(cuda_device),
+                         torch.ones(targets.shape, device=cuda_device))
+    loss.backward()
+    loss = float(loss.detach())
+    ranks = spawn(_vocab_on_rank, (logits, targets), model=2,
+                  device="cuda", share_device=True)
+    want = torch.argmax(logits.bfloat16(), -1)
+    for r, (tok, got, grad) in enumerate(ranks):
+        assert torch.equal(tok, want)
+        assert abs(got - loss) <= 1e-5 * abs(loss)
+        part = whole.grad[..., r * V // 2:(r + 1) * V // 2].cpu()
+        assert float((grad - part).norm() / part.norm()) <= 1e-5
+
+
 #: the reference's eight flash attention kernel cases, as chip_smoke.py's
 #: FA_CASES: (b, s, L, H, Hk, d, causal, window, q_offset): MHA, GQA, MQA,
 #: ragged s, a decode step, a window, non-causal, head_dim 256

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-entry points refuse to fall back to the CPU, and its launcher runs."""
+"""The port stands alone: it (and its examples) imports neither JAX nor
+the JAX package, its entry points refuse to fall back to the CPU, and
+its launcher runs."""
 import json
 import os
 import pkgutil
@@ -97,7 +98,8 @@ def test_port_modules_cover_the_slice():
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "examples/serve_batched_torch.py",
+       "examples/train_100m_torch.py"]))
 def test_no_jax_or_reference_import_statement(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
 

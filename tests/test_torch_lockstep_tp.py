@@ -168,10 +168,10 @@ def _whole(arch):
 
 def test_tp2_ranks_hold_their_shards(worlds):
     """At tp = 2: Mamba and the RG-LRU hold half their ``inner`` channels
-    and state, attention half its query heads; recurrentgemma-2b's one
-    KV head and its cache, MLA's latent cache, ``embed``, ``lm_head`` and
-    the router stay whole; whisper's encoder and cross K/V are cut over
-    heads; no rank loaded JAX."""
+    and state, attention half its query heads, ``embed`` and ``lm_head``
+    half the vocabulary; recurrentgemma-2b's one KV head and its cache,
+    MLA's latent cache and the router stay whole; whisper's encoder and
+    cross K/V are cut over heads; no rank loaded JAX."""
     for r in worlds["tp2"].result():
         assert r["jax_loaded"] == []
         p, st = r["params"], r["state"]
@@ -180,7 +180,8 @@ def test_tp2_ranks_hold_their_shards(worlds):
         assert ssm["layers/ssm/x_proj"][:2] == (2, 128)
         assert ssm["layers/ssm/dt_proj"][2] == 128
         assert ssm["layers/ssm/out_proj"] == (2, 128, 128)
-        assert ssm["embed"] == (512, 128)
+        assert ssm["embed"] == (256, 128)                     # V/tp rows
+        assert p["llama2-7b-mla"]["lm_head"] == (128, 256)
         assert st["falcon-mamba-7b"] == {"conv_state": (2, 2, 3, 128),
                                          "ssm_state": (2, 2, 128, 8)}
         rg = p["recurrentgemma-2b"]

@@ -81,15 +81,16 @@ def test_specs_equal_the_reference(name, mesh):
 
 def test_rank_spec_overrides():
     """What a rank holds differs from the reference's spec only by the
-    documented overrides: ``vocab`` and the router whole, experts checked
-    padded, ``kv_len`` never cut, ``layers`` cut by stage for any count,
-    Mamba's ``in_proj`` checked per half."""
+    documented overrides: the router whole, experts checked padded,
+    ``kv_len`` never cut, ``layers`` cut by stage for any count, Mamba's
+    ``in_proj`` checked per half.  ``vocab`` is no override: it is cut
+    where the reference cuts it."""
     mesh = _Shape({"data": 1, "model": 2, "pipe": 3})
     pol = S.ShardingPolicy()
     assert S.spec_for(("vocab", "embed"), (512, 128), mesh, pol) == \
         ("model", None)
     assert S.rank_spec(("embed",), ("vocab", "embed"), (512, 128), mesh) \
-        == (None, None)
+        == ("model", None)
     assert S.rank_spec(("layers", "mlp", "router"),
                        ("layers", "embed", "experts"), (3, 128, 60), mesh) \
         == ("pipe", None, None)

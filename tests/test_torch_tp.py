@@ -305,9 +305,10 @@ def unshard(shards, cfg, model, pipe):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_shards_concatenate_to_the_whole_tree(arch, plan):
     """``shard_params``, then the shards concatenated back, gives the
-    whole tree bit for bit; each shard is an owned contiguous copy; ``embed``,
-    ``lm_head`` and the router stay whole over tp; and a rank's
-    ``init_shard`` draw is the one-device draw, cut."""
+    whole tree bit for bit; each shard is an owned contiguous copy;
+    ``embed`` and ``lm_head`` hold the rank's block of the vocabulary and
+    the router stays whole over tp; and a rank's ``init_shard`` draw is
+    the one-device draw, cut."""
     model, pipe = plan
     cfg = configs.reduced(configs.get(arch))
     full = init_params(cfg, 7, device="cpu", dtype=torch.float32)
@@ -321,8 +322,11 @@ def test_shards_concatenate_to_the_whole_tree(arch, plan):
             for (path, a), (_, b) in zip(_leaves(shard), _leaves(drawn)):
                 assert torch.equal(a, b), path
                 assert a.is_contiguous()
-            assert torch.equal(shard["embed"], full["embed"])
-            assert torch.equal(shard["lm_head"], full["lm_head"])
+            w = cfg.vocab_size // model
+            assert torch.equal(shard["embed"], full["embed"][m * w:
+                                                             (m + 1) * w])
+            assert torch.equal(shard["lm_head"],
+                               full["lm_head"][:, m * w:(m + 1) * w])
             shards[(m, s)] = shard
     back = unshard(shards, cfg, model, pipe)
     for (path, a), (_, b) in zip(_leaves(back), _leaves(full)):

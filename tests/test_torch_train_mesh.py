@@ -354,8 +354,8 @@ def test_mesh_training_matches_the_reference(worlds, arch, name):
 @pytest.mark.parametrize("name", ["tp2", "dp2xtp2_fsdp"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_whole_leaves_stay_equal_on_every_tp_rank(worlds, arch, name):
-    """Norms, the embedding, the router and every leaf tp does not cut
-    get the same whole gradient on each tp rank (Megatron's f/g), so
+    """Norms, the router and every leaf tp does not cut get the same
+    whole gradient on each tp rank (Megatron's f/g), so
     after three steps the ranks of a replica hold them bit for bit
     alike."""
     jobs = [r["jobs"][(arch, name)] for r in _ranks(worlds, name)]
