@@ -123,22 +123,23 @@ caught and ignored):
               decode steps); TTFT, TPOT, TPS, peak memory; then K6 timed
               at the two lockstep shapes beside SDPA with a boolean mask.
 
-11. multidevice — tensor- and pipeline-parallel serving with every rank
-              on this one card (gloo on CUDA tensors, the explicit
+11. multidevice — tensor- and pipeline-parallel serving with every rank on
+              this one card (gloo on CUDA tensors, the explicit
               share_device opt-in; NCCL puts no two ranks on one card),
               each world spawned, its ranks' launches summed and freed
-              before the next: llama2-7b at full width and depth at tp=2
-              (the engine phase's plain pass, then its speculative pass
-              with four LoRA tenants: K1 on split and bf16 K2/K3 on mma
-              over 16 heads a rank, K4 on 8 rank lanes; the vocabulary
-              cut over the ranks), pp=2, and at MD_WORLDS' depth tp=2 x
-              pp=2 and qwen2-moe-a2.7b at tp=2 (32 of 64 padded experts a
-              rank); TTFT, TPOT, TPS, each rank's shard and peak memory,
-              ms per gloo collective, the share of bf16 tokens equal to
-              tp=1's; at 4 layers in f32 weights every plan's tokens
-              equal tp=1's with f32 KV (with bf16 and int8 KV too at pp;
-              at tp their share is reported); then api.measure at tp=2
-              against api.forecast for 2 x nvidia-h100.  Then the
+              before the next: llama2-7b at full width at tp=2
+              (MD_WORLDS' depth; the engine phase's plain pass, then its
+              speculative pass with four LoRA tenants: K1 on split and
+              bf16 K2/K3 on mma over 16 heads a rank, K4 on 8 rank
+              lanes; the vocabulary cut over the ranks), pp=2 at full
+              depth, and at MD_WORLDS' depth tp=2 x pp=2 and
+              qwen2-moe-a2.7b at tp=2 (32 of 64 padded experts a rank);
+              TTFT, TPOT, TPS, each rank's shard and peak memory, ms per
+              gloo collective, the share of bf16 tokens equal to tp=1's;
+              at 4 layers in f32 weights every plan's tokens equal
+              tp=1's with f32 KV (with bf16 and int8 KV too at pp; at tp
+              their share is reported); then api.measure at tp=2 against
+              api.forecast for 2 x nvidia-h100.  Then the
               lockstep Server on a mesh (the lockstep phase's runs, its
               tp=1 records reused where it ran): at tp=2 falcon-mamba-7b,
               recurrentgemma-2b (K6 on fma at 5 query heads over the one
@@ -3198,11 +3199,12 @@ TP1_TOKENS: dict = {}
 #: the multidevice worlds, in order: (arch, tp, pp, layers of the serving
 #: passes (None: the full depth), serving passes at full width in bf16,
 #: parity jobs at 4 layers in f32 weights: a KV dtype, or ``spec_lora``
-#: with f32 KV).  tp=2 x pp=2 and qwen2-moe-a2.7b's tp=2 serve 8 layers,
-#: for the 1200 s limit (at full depth 61.2 and 63.1 s a world on a slow
-#: host, the script 1240 s with the examples phase)
+#: with f32 KV).  Every world but pp=2 serves 8 layers, for the 1200 s
+#: limit: at full depth llama2-7b's tp=2 took 96.9-105.5 s, tp=2 x pp=2
+#: 61.2 s and qwen2-moe-a2.7b's tp=2 63.1 s a world on a slow host, where
+#: the script took 1240 s with the examples phase
 MD_WORLDS = (
-    ("llama2-7b", 2, 1, None, ("plain", "spec_lora"),
+    ("llama2-7b", 2, 1, 8, ("plain", "spec_lora"),
      ("fp32", "bf16", "int8", "spec_lora")),
     ("llama2-7b", 1, 2, None, ("plain",), ("fp32", "bf16", "int8")),
     ("llama2-7b", 2, 2, 8, ("plain",), ("fp32", "bf16", "int8")),
