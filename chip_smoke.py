@@ -127,21 +127,22 @@ caught and ignored):
               this one card (gloo on CUDA tensors, the explicit
               share_device opt-in; NCCL puts no two ranks on one card),
               each world spawned, its ranks' launches summed and freed
-              before the next: llama2-7b at full width at tp=2
-              (MD_WORLDS' depth; the engine phase's plain pass, then its
-              speculative pass with four LoRA tenants: K1 on split and
-              bf16 K2/K3 on mma over 16 heads a rank, K4 on 8 rank
-              lanes; the vocabulary cut over the ranks), pp=2 at full
-              depth, and at MD_WORLDS' depth tp=2 x pp=2 and
-              qwen2-moe-a2.7b at tp=2 (32 of 64 padded experts a rank);
+              before the next: llama2-7b at full width and depth at
+              tp=2 (the engine phase's plain pass, then its speculative
+              pass with four LoRA tenants: K1 on split and bf16 K2/K3 on
+              mma over 16 heads a rank, K4 on 8 rank lanes; the
+              vocabulary cut over the ranks) and pp=2, and at 8 layers
+              (MD_WORLDS) tp=2 x pp=2 and qwen2-moe-a2.7b at tp=2 (32 of
+              64 padded experts a rank);
               TTFT, TPOT, TPS, each rank's shard and peak memory, ms per
               gloo collective, the share of bf16 tokens equal to tp=1's;
               at 4 layers in f32 weights every plan's tokens equal
               tp=1's with f32 KV (with bf16 and int8 KV too at pp; at tp
               their share is reported); then api.measure at tp=2 against
               api.forecast for 2 x nvidia-h100.  Then the
-              lockstep Server on a mesh (the lockstep phase's runs, its
-              tp=1 records reused where it ran): at tp=2 falcon-mamba-7b,
+              lockstep Server on a mesh (the lockstep phase's runs; at
+              tp=2 8 layers of each (MDL_WORLDS), its tp=1 records served
+              at that depth first): at tp=2 falcon-mamba-7b,
               recurrentgemma-2b (K6 on fma at 5 query heads over the one
               KV head), llama2-7b-mla (bf16, int8 KV), whisper-base and
               llama2-7b 1 x 4096 (K6 on mma at 16 heads), each rank's K6
@@ -161,9 +162,8 @@ caught and ignored):
               width through Trainer.run, bf16, 4 x 2048 Zipf tokens (the
               train phase's data, optimizer and seed), flash attention
               (K6 on mma at a rank's heads and rows) and remat, 3 steps,
-              at dp=2 with FSDP, at tp=2 and at dp=2 x tp=2 with FSDP
-              (TM_WORLDS' depth): step time,
-              tokens/s, peak memory and shard per rank, gloo bytes,
+              at tp=2 (40 layers), and at dp=2 and dp=2 x tp=2 with
+              FSDP (8 layers; TM_WORLDS): step time, tokens/s, peak memory and shard per rank, gloo bytes,
               calls and seconds per step, the losses beside the train
               phase's, each rank's K6 launches (zeroed before its run,
               read after) summed; at 4 layers in f32, three steps at
@@ -3001,8 +3001,10 @@ LOCKSTEP_RUNS = {
     "llama2-7b": ("llama2-7b", dict(batch=1, prompt_len=4096, n_new=64,
                                     max_len=5120, capture=True)),
 }
-#: each run's one-rank record with its greedy tokens, kept by the
-#: lockstep phase for the multidevice phase's comparison
+#: each run's one-rank record with its greedy tokens by (tag, layers;
+#: None: the full depth), kept by the lockstep phase (and the
+#: multidevice phase at a world's cut depth) for the multidevice
+#: phase's comparison
 TP1_LOCKSTEP: dict = {}
 
 
@@ -3019,14 +3021,15 @@ def _lockstep_extra(cfg, device):
         torch.bfloat16)}
 
 
-def _run_lockstep(tag, cfg, params, device, mesh=None):
-    """:func:`_serve_lockstep` of ``LOCKSTEP_RUNS[tag]``; on one rank its
-    record and tokens are kept in ``TP1_LOCKSTEP``."""
+def _run_lockstep(tag, cfg, params, device, mesh=None, layers=None):
+    """:func:`_serve_lockstep` of ``LOCKSTEP_RUNS[tag]`` (``cfg`` cut to
+    ``layers``; None: the full depth); on one rank its record and tokens
+    are kept in ``TP1_LOCKSTEP`` under ``(tag, layers)``."""
     kw = LOCKSTEP_RUNS[tag][1]
     out = _serve_lockstep(tag, cfg, params, device, mesh=mesh,
                           extra=_lockstep_extra(cfg, device), **kw)
     if mesh is None:
-        TP1_LOCKSTEP[tag] = dict(out[0])
+        TP1_LOCKSTEP[(tag, layers)] = dict(out[0])
     return out
 
 
@@ -3199,26 +3202,28 @@ TP1_TOKENS: dict = {}
 #: the multidevice worlds, in order: (arch, tp, pp, layers of the serving
 #: passes (None: the full depth), serving passes at full width in bf16,
 #: parity jobs at 4 layers in f32 weights: a KV dtype, or ``spec_lora``
-#: with f32 KV).  Every world but pp=2 serves 8 layers, for the 1200 s
-#: limit: at full depth llama2-7b's tp=2 took 96.9-105.5 s, tp=2 x pp=2
-#: 61.2 s and qwen2-moe-a2.7b's tp=2 63.1 s a world on a slow host, where
-#: the script took 1240 s with the examples phase
+#: with f32 KV).  llama2-7b's tp=2 and pp=2 serve the full depth;
+#: tp=2 x pp=2 and qwen2-moe-a2.7b's tp=2 serve 8 layers, for the 1200 s
+#: limit (61.2 and 63.1 s a world at full depth on a slow host, where the
+#: script took 1240 s with the examples phase)
 MD_WORLDS = (
-    ("llama2-7b", 2, 1, 8, ("plain", "spec_lora"),
+    ("llama2-7b", 2, 1, None, ("plain", "spec_lora"),
      ("fp32", "bf16", "int8", "spec_lora")),
     ("llama2-7b", 1, 2, None, ("plain",), ("fp32", "bf16", "int8")),
     ("llama2-7b", 2, 2, 8, ("plain",), ("fp32", "bf16", "int8")),
     (MOE_ARCH, 2, 1, 8, ("plain",), ("fp32", "bf16", "int8")),
 )
+MD_PARITY_LAYERS = 4
 
 
-def _md_cfg(arch: str, layers=None):
-    """``arch``'s config at full width, cut to ``layers`` if given."""
+def _depth_cfg(arch: str, layers=None):
+    """``arch``'s config at full width, cut to ``layers`` if given and
+    shallower than the model."""
     from repro_torch import configs
     cfg = configs.get(arch)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          n_layers=layers)
-MD_PARITY_LAYERS = 4
+    if layers is None or layers >= cfg.n_layers:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers)
 
 
 def _md_exact(tag: str, tp: int) -> bool:
@@ -3281,7 +3286,7 @@ def _md_rank(mesh, arch, layers, passes, parity):
     from repro_torch.runtime.sharding import init_shard
 
     dev = mesh.device
-    cfg = _md_cfg(arch, layers)
+    cfg = _depth_cfg(arch, layers)
     out = dict(rank=mesh.rank, coords=dict(mesh.coords),
                backend=mesh.backend, passes={}, parity={})
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3358,14 +3363,16 @@ def _md_collectives(mesh, width: int) -> dict:
     return out
 
 
-#: the lockstep worlds: (tp, pp, ``LOCKSTEP_RUNS`` served at full width
-#: and depth in bf16, families whose 4-layer f32 tokens are held to tp =
-#: 1's with each of ``MDL_KVS``)
+#: the lockstep worlds: (tp, pp, layers of the served runs (None: the
+#: full depth; whisper-base's 6 stay whole), ``LOCKSTEP_RUNS`` served at
+#: full width in bf16, families whose 4-layer f32 tokens are held to
+#: tp = 1's with each of ``MDL_KVS``).  tp=2 serves 8 layers, for the
+#: 1200 s limit: its world took 100.3-139.5 s at full depth
 MDL_FAMILIES = ("falcon-mamba-7b", "recurrentgemma-2b", "llama2-7b-mla",
                 "whisper-base")
 MDL_WORLDS = (
-    (2, 1, tuple(LOCKSTEP_RUNS), MDL_FAMILIES),
-    (1, 2, ("falcon-mamba-7b",), MDL_FAMILIES),
+    (2, 1, 8, tuple(LOCKSTEP_RUNS), MDL_FAMILIES),
+    (1, 2, None, ("falcon-mamba-7b",), MDL_FAMILIES),
 )
 MDL_KVS = ("fp32", "bf16", "int8")
 
@@ -3398,9 +3405,10 @@ def _mdl_parity_tokens(cfg, params, kv, device, mesh=None):
     return toks.tolist()
 
 
-def _mdl_rank(mesh, runs, parity):
+def _mdl_rank(mesh, layers, runs, parity):
     """One rank of a lockstep world (every rank on the one card): for each
-    run its shard of the seed-0 bf16 weights at full width and depth,
+    run its shard of the seed-0 bf16 weights at full width (``layers``
+    deep; None: the full depth),
     drawn leaf by leaf, and :func:`_run_lockstep` with this process's
     launch counts zeroed before the timed run and read after it (the
     first K6 call held to the plain loop), the collectives' ms at the
@@ -3414,8 +3422,7 @@ def _mdl_rank(mesh, runs, parity):
     out = dict(rank=mesh.rank, coords=dict(mesh.coords),
                backend=mesh.backend, runs={}, parity={})
     for tag in runs:
-        arch = LOCKSTEP_RUNS[tag][0]
-        cfg = configs.get(arch)
+        cfg = _depth_cfg(LOCKSTEP_RUNS[tag][0], layers)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         params = init_shard(cfg, 0, mesh, device=dev)
@@ -3450,7 +3457,8 @@ def _mdl_rank(mesh, runs, parity):
 def _md_lockstep(device, out, card):
     """The lockstep worlds of ``MDL_WORLDS``, each freed before the next,
     against one rank in this process: the lockstep phase's records where
-    it ran (else each run here first) and the 4-layer f32 parity tokens;
+    it ran and the world serves the full depth (else each run here first,
+    at the world's depth) and the 4-layer f32 parity tokens;
     then ``api.measure`` of falcon-mamba-7b at tp = 2.  Returns the K6
     launches and bodies summed over every rank."""
     import torch
@@ -3461,7 +3469,7 @@ def _md_lockstep(device, out, card):
     fa_ops = _kernel_ops()[2]
     k6 = {"launches": 0, "bodies": {b: 0 for b in fa_ops.BODIES}}
     refs = {}
-    for arch in dict.fromkeys(a for w in MDL_WORLDS for a in w[3]):
+    for arch in dict.fromkeys(a for w in MDL_WORLDS for a in w[4]):
         cfg4 = dataclasses.replace(configs.get(arch),
                                    n_layers=MD_PARITY_LAYERS)
         params = init_params(cfg4, 0, device=device, dtype=torch.float32)
@@ -3469,28 +3477,29 @@ def _md_lockstep(device, out, card):
                       for kv in MDL_KVS}
         del params
         torch.cuda.empty_cache()
-    for tag in dict.fromkeys(t for w in MDL_WORLDS for t in w[2]):
-        if tag not in TP1_LOCKSTEP:           # the lockstep phase's, or:
-            arch = LOCKSTEP_RUNS[tag][0]
-            cfg = configs.get(arch)
+    for tag, layers in dict.fromkeys((t, w[2]) for w in MDL_WORLDS
+                                     for t in w[3]):
+        if (tag, layers) not in TP1_LOCKSTEP:   # the lockstep phase's, or:
+            cfg = _depth_cfg(LOCKSTEP_RUNS[tag][0], layers)
             params = init_params(cfg, 0, device=device)
-            _run_lockstep(tag, cfg, params, device)
+            _run_lockstep(tag, cfg, params, device, layers=layers)
             del params
             torch.cuda.empty_cache()
     worlds = {}
-    for tp, pp, runs, parity in MDL_WORLDS:
-        label = f"lockstep tp={tp} x pp={pp}"
+    for tp, pp, layers, runs, parity in MDL_WORLDS:
+        label = f"lockstep tp={tp} x pp={pp}" + (
+            f" x{layers} layers" if layers else "")
         t0 = time.perf_counter()
-        ranks = spawn(_mdl_rank, (runs, parity), model=tp, pipe=pp,
+        ranks = spawn(_mdl_rank, (layers, runs, parity), model=tp, pipe=pp,
                       device=device, share_device=True)
         world = dict(wall_s=time.perf_counter() - t0, runs={}, parity={})
         check(all(r["backend"] == "gloo" for r in ranks),
               f"{label}: ranks sharing a card must run gloo")
         for tag in runs:
             arch, kw = LOCKSTEP_RUNS[tag]
-            cfg = configs.get(arch)
+            cfg = _depth_cfg(arch, layers)
             recs = [r["runs"][tag] for r in ranks]
-            first, one = recs[0], TP1_LOCKSTEP[tag]
+            first, one = recs[0], TP1_LOCKSTEP[(tag, layers)]
             want_k6 = {"recurrentgemma-2b": cfg.block_kinds().count("attn"),
                        "llama2-7b": cfg.n_layers}.get(tag, 0) // pp
             body = fa_ops.flash_body(torch.bfloat16, cfg.head_dim or 128)
@@ -3600,7 +3609,7 @@ def phase_multidevice(device, summary):
     # depth's kept by the engine or moe phase, if it ran)
     for arch, layers in dict.fromkeys((w[0], w[3]) for w in MD_WORLDS):
         if (arch, layers) not in TP1_TOKENS:
-            cfg = _md_cfg(arch, layers)
+            cfg = _depth_cfg(arch, layers)
             params = init_params(cfg, 0, device=device)
             reqs = _md_requests(cfg, "plain", False)
             eng, results = _serve(cfg, params, _md_config("plain", False),
@@ -3620,7 +3629,7 @@ def phase_multidevice(device, summary):
             torch.cuda.empty_cache()
 
     for arch, tp, pp, layers, passes, parity in MD_WORLDS:
-        cfg = _md_cfg(arch, layers)
+        cfg = _depth_cfg(arch, layers)
         label = f"{arch} tp={tp} x pp={pp}" + (
             f" x{layers} layers" if layers else "")
         t0 = time.perf_counter()
@@ -3740,12 +3749,12 @@ def phase_multidevice(device, summary):
 TM_STEPS = 3
 #: the worlds at full width: (label, data, model, FSDP, layers; None is
 #: the full depth), the 2-rank worlds in one spawn and the 4-rank world
-#: in another.  Each runs 8 of the 40 layers, for the 1200 s limit:
-#: dp=2 x tp=2 took 15.0 s a step at 40 (gloo 14.2 s), 9.5 s at 20 (cut
-#: to 8 for the audit phase); dp=2 FSDP 16.3-18.1 s and tp=2 10.2-11.9 s
-#: a step at 40 on a slow host, where the script took 1240 s with the
-#: examples phase
-TM_WORLDS = (("dp=2 FSDP", 2, 1, True, 8), ("tp=2", 1, 2, False, 8),
+#: in another.  tp=2 trains all 40 layers, so its losses stand beside
+#: the train phase's; the FSDP worlds train 8, for the 1200 s limit:
+#: dp=2 x tp=2 took 15.0 s a step at 40 (gloo 14.2 s), 9.5 s at 20;
+#: dp=2 16.3-18.1 s a step at 40 on a slow host, where the script took
+#: 1240 s with the examples phase
+TM_WORLDS = (("dp=2 FSDP", 2, 1, True, 8), ("tp=2", 1, 2, False, None),
              ("dp=2 x tp=2 FSDP", 2, 2, True, 8))
 #: the f32 parity meshes at 4 layers: (label, data, model, FSDP,
 #: microbatches)
@@ -3757,13 +3766,6 @@ TM_PARITY_LAYERS = 4
 #: params' relative norm (``_train_parity``'s limits: f32 summed in
 #: other orders, AdamW normalising each element's update)
 TM_LOSS_TOL, TM_PARAM_TOL = 1e-5, 1e-4
-
-
-def _tm_cfg(layers=None):
-    from repro_torch import configs
-    cfg = configs.get(TRAIN_ARCH)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          n_layers=layers)
 
 
 def _tm_trainer(cfg, mesh, policy, ckpt_dir, total, ckpt_every, dtype,
@@ -3835,7 +3837,7 @@ def _tm_main(mesh, policy, layers):
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     dev = mesh.device
-    cfg = _tm_cfg(layers)
+    cfg = _depth_cfg(TRAIN_ARCH, layers)
     marks, meter = [], _GlooMeter()
 
     def mark(step):
@@ -3877,7 +3879,7 @@ def _tm_parity(mesh, policy, microbatches, refs):
     from repro_torch.runtime import make_train_step
     from repro_torch.runtime.sharding import init_shard
     dev = mesh.device
-    cfg = _tm_cfg(TM_PARITY_LAYERS)
+    cfg = _depth_cfg(TRAIN_ARCH, TM_PARITY_LAYERS)
     params = init_shard(cfg, 0, mesh, policy, device=dev,
                         dtype=torch.float32)
     opt = AdamW(lr=3e-4, warmup_steps=1, total_steps=3)
@@ -3942,7 +3944,7 @@ def _tm_rank(mesh, jobs):
         elif job["kind"] == "parity":
             rec = _tm_parity(m, policy, job["microbatches"], job["refs"])
         else:                     # "save" (2 steps) or "resume" (to 4)
-            trainer = _tm_trainer(_tm_cfg(TM_PARITY_LAYERS), m, policy,
+            trainer = _tm_trainer(_depth_cfg(TRAIN_ARCH, TM_PARITY_LAYERS), m, policy,
                                   job["ckpt"], 2 if job["kind"] == "save"
                                   else 4, 2, torch.float32)
             params, state, log = trainer.run(seed=0)
@@ -3967,7 +3969,7 @@ def _tm_one_rank(device, tmp):
     from repro_torch.models import init_params
     from repro_torch.optim import AdamW
     from repro_torch.runtime import make_train_step
-    cfg = _tm_cfg(TM_PARITY_LAYERS)
+    cfg = _depth_cfg(TRAIN_ARCH, TM_PARITY_LAYERS)
     data = SyntheticTokens(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, 2),
                            device=device)
     refs = {}
@@ -4008,8 +4010,8 @@ def _flat_paths(tree, path=()):
 def phase_trainmesh(device, summary, trained):
     """The trainer on a mesh, every rank on this one card (gloo on CUDA
     tensors, ``share_device``): granite-3-2b at full width through
-    ``Trainer.run`` at dp = 2 with FSDP, at tp = 2 and at dp = 2 x
-    tp = 2 with FSDP (``TM_WORLDS``' depth); then the f32
+    ``Trainer.run`` at tp = 2, and at dp = 2 and dp = 2 x tp = 2 with
+    FSDP (``TM_WORLDS``' depths); then the f32
     parity meshes at 4 layers against this process's one-rank step, and
     the elastic resume: saved at dp = 2 x tp = 2 FSDP, restored and
     continued at tp = 1 and tp = 2, against an uninterrupted run."""
@@ -4104,7 +4106,7 @@ def _tm_world(out, label, job, recs, single):
     launches two forwards (remat) and one backward per layer and step,
     all on the mma body."""
     import math
-    cfg = _tm_cfg(job["layers"])
+    cfg = _depth_cfg(TRAIN_ARCH, job["layers"])
     n = job["data"] * job["model"]
     steps = recs[0]["steps"]
     steady = steps[1:]
@@ -4125,7 +4127,7 @@ def _tm_world(out, label, job, recs, single):
                   for k in ("flash_fwd", "flash_bwd")},
         wall_s=[r["wall_s"] for r in recs],
         single_card_loss=(single[:TM_STEPS] if single
-                          and cfg.n_layers == _tm_cfg().n_layers else None))
+                          and job["layers"] is None else None))
     out["worlds"][label] = world
     one = world["single_card_loss"]
     log(f"[trainmesh] {TRAIN_ARCH} {label}: {n} ranks on one card "
@@ -4172,7 +4174,7 @@ def _tm_elastic(out, device, tmp, refs, resumed2, saved4):
     """The resume at tp = 1 (here) from the 2 x 2 FSDP save, beside the
     2-rank world's at tp = 2: both against the uninterrupted run."""
     import torch
-    trainer = _tm_trainer(_tm_cfg(TM_PARITY_LAYERS), None, None,
+    trainer = _tm_trainer(_depth_cfg(TRAIN_ARCH, TM_PARITY_LAYERS), None, None,
                           str(Path(tmp) / "tp1"), 4, 2, torch.float32,
                           device=device)
     params, _, log1 = trainer.run(seed=0)
@@ -4430,14 +4432,18 @@ def phase_examples(device, summary):
 
 
 def run_phase(name: str, fn, *args):
-    """Run one phase: a failure prints ``[fail] <phase>: <type>:
+    """Run one phase and log its wall time (``[time] <phase> <s> s``):
+    a failure prints ``[fail] <phase>: <type>:
     <message>`` on stdout and is raised on (the exit stays non-zero;
     nothing is swallowed)."""
+    t0 = time.perf_counter()
     try:
         return fn(*args)
     except BaseException as e:
         print(f"[fail] {name}: {type(e).__name__}: {e}", flush=True)
         raise
+    finally:
+        log(f"[time] {name} {time.perf_counter() - t0:.1f} s")
 
 
 def phase_build():

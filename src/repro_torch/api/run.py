@@ -662,13 +662,13 @@ def _measure_lockstep(scenario: Scenario, hw_name: str, arch, variant,
     logits = None
     for off in range(0, scenario.prompt_len, chunk):
         logits, state = server.prefill(state, prompts[:, off:off + chunk])
-    tok = sample(logits, sc.temperature, gen, arch.vocab_size)
+    tok = sample(logits, sc.temperature, gen, vocab=arch.vocab_size)
     sync()
     ttft_s = time.perf_counter() - t0
     n_toks = n_req
     for _ in range(n_new - 1):
         logits, state = server.decode(state, tok[:, None])
-        tok = sample(logits, sc.temperature, gen, arch.vocab_size)
+        tok = sample(logits, sc.temperature, gen, vocab=arch.vocab_size)
         n_toks += n_req
     sync()
     wall = time.perf_counter() - t0

@@ -485,7 +485,7 @@ def make_engine_fns(cfg: ArchConfig, cache: BlockPagedKVCache, *,
                 h = apply_norm(cfg.norm_kind, x, params["ln_f"])
                 logits = _lm_head(cfg, params, h[:, -1:])[:, 0]  # (S, V)
                 return sample(logits, temperature, generator,
-                              cfg.vocab_size).to(torch.int32)
+                              vocab=cfg.vocab_size).to(torch.int32)
             nxt = from_last_stage(mesh, sample_next, tok.shape,
                                    torch.int32, dev)
             produced = act

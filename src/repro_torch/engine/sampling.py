@@ -30,18 +30,17 @@ def to_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def sample(logits: torch.Tensor, temperature: float,
-           generator: Optional[torch.Generator] = None,
-           vocab: Optional[int] = None) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None, *,
+           vocab: int) -> torch.Tensor:
     """Greedy (T=0) or temperature sampling over the last axis -> int64.
 
-    ``vocab`` is the whole vocabulary's size when ``logits`` may be a tp
-    rank's block of it (None: they are whole): greedy then takes
-    ``act_sharding.tp_argmax``, and temperature sampling draws from the
-    gathered whole logits, the same draw with the same generator on
-    every rank.  Temperature draws come from ``generator``; they follow
-    the same categorical distribution as the reference's
-    ``jax.random.categorical`` but not its bits."""
-    vocab = logits.shape[-1] if vocab is None else vocab
+    ``vocab`` is the whole vocabulary's size; ``logits`` hold all of it
+    or a tp rank's block of it.  Greedy takes ``act_sharding.tp_argmax``,
+    and temperature sampling draws from ``act_sharding.tp_whole_logits``,
+    the same draw with the same generator on every rank.  Temperature
+    draws come from ``generator``; they follow the same categorical
+    distribution as the reference's ``jax.random.categorical`` but not
+    its bits."""
     if temperature <= 0.0:
         return act_sharding.tp_argmax(logits, vocab)
     logits = act_sharding.tp_whole_logits(logits, vocab)

@@ -458,7 +458,7 @@ class Engine:
         and start decoding it (or finish it at once)."""
         ec = self.ec
         first = sample(logits[None], ec.temperature, self._gen,
-                       self.cfg.vocab_size)
+                       vocab=self.cfg.vocab_size)
         if self.pp > 1:
             # only the last stage samples decode steps, so only its
             # generator is the run's: its first token is everyone's

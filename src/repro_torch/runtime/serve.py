@@ -131,11 +131,11 @@ class Server:
             logits, state = self.prefill(state, prompt_ids[:, off:off + chunk],
                                          extra if off == 0 else None)
         tok = sample(logits, self.sc.temperature, gen,
-                         self.cfg.vocab_size)
+                         vocab=self.cfg.vocab_size)
         outs = [tok]
         for _ in range(n_new - 1):
             logits, state = self.decode(state, tok[:, None])
             tok = sample(logits, self.sc.temperature, gen,
-                         self.cfg.vocab_size)
+                         vocab=self.cfg.vocab_size)
             outs.append(tok)
         return torch.stack(outs, dim=1), {"final_pos": state["pos"]}

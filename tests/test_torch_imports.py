@@ -1,6 +1,6 @@
-"""The port stands alone: it (and its examples) imports neither JAX nor
-the JAX package, its entry points refuse to fall back to the CPU, and
-its launcher runs."""
+"""The port stands alone: it (and its examples and tools) imports
+neither JAX nor the JAX package, its entry points refuse to fall back to
+the CPU, and its launcher runs."""
 import json
 import os
 import pkgutil
@@ -99,7 +99,7 @@ def test_port_modules_cover_the_slice():
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "examples/serve_batched_torch.py",
-       "examples/train_100m_torch.py"]))
+       "examples/train_100m_torch.py", "tools/measure_shared_card.py"]))
 def test_no_jax_or_reference_import_statement(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
 
@@ -240,6 +240,21 @@ def test_launcher_features_reduced_cpu():
     assert 0.0 <= summary["spec_acceptance"] <= 1.0
     assert summary["spec_tokens_per_step"] >= 1.0
     assert summary["adapter_hit_rate"] == 0.0      # two tenants, two misses
+
+
+def test_measure_shared_card_reduced_cpu():
+    """``tools/measure_shared_card.py`` serves a reduced llama2-7b on two
+    gloo ranks of the CPU and prints one JSON line naming the package it
+    imported."""
+    out = subprocess.run(
+        [sys.executable, "tools/measure_shared_card.py", "--device", "cpu",
+         "--reduced", "--requests", "3", "--slots", "2", "--prompt", "32",
+         "--gen", "8", "--chunk", "16"], env=_env(), cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["src"] == str(ROOT / "src") and rec["tp"] == 2
+    assert rec["tokens"] == 24 and rec["tpot_ms"] > 0 and rec["card"] is None
 
 
 def test_chip_smoke_refuses_without_gpu(gpu_less):

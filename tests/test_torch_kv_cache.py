@@ -134,15 +134,15 @@ def test_block_pool_and_radix_index_match_reference(seed):
 
 def test_sample_greedy_and_temperature_distribution():
     logits = torch.tensor([[0.1, 2.0, -1.0, 1.5, 0.0]])
-    assert sample(logits, 0.0).tolist() == [1]
-    assert sample(logits[0], -1.0).item() == 1
+    assert sample(logits, 0.0, vocab=5).tolist() == [1]
+    assert sample(logits[0], -1.0, vocab=5).item() == 1
     gen = torch.Generator().manual_seed(0)
     n, temp = 40_000, 0.7
-    draws = sample(logits.expand(n, -1), temp, gen)
+    draws = sample(logits.expand(n, -1), temp, gen, vocab=5)
     freq = np.bincount(draws.numpy(), minlength=5) / n
     want = torch.softmax(logits[0] / temp, -1).numpy()
     # 4 sigma of a binomial proportion at n=40k is below 0.01
     np.testing.assert_allclose(freq, want, atol=0.01)
     again = sample(logits.expand(n, -1), temp,
-                   torch.Generator().manual_seed(0))
+                   torch.Generator().manual_seed(0), vocab=5)
     assert torch.equal(draws, again)       # the generator fixes the draws

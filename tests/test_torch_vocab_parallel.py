@@ -66,7 +66,7 @@ def _rank(mesh):
                logits.bfloat16(), V).numpy(),
            "whole": act_sharding.tp_whole_logits(logits, V).numpy()}
     gen = torch.Generator().manual_seed(3)
-    out["drawn"] = sample(logits, 0.7, gen, V).numpy()
+    out["drawn"] = sample(logits, 0.7, gen, vocab=V).numpy()
 
     table = torch.from_numpy(x["table"][r * w:(r + 1) * w]).requires_grad_()
     ids = torch.from_numpy(x["ids"])
@@ -104,7 +104,7 @@ def _whole():
     return dict(logits=x["logits"], embed=emb.detach().numpy(),
                 embed_grad=table.grad.numpy(), loss=float(loss.detach()),
                 loss_grad=lg.grad.numpy(),
-                drawn=sample(logits, 0.7, gen).numpy())
+                drawn=sample(logits, 0.7, gen, vocab=V).numpy())
 
 
 def test_tp_argmax_equals_argmax_with_ties_across_the_seam(ranks):
