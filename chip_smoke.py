@@ -31,7 +31,8 @@ caught and ignored):
               q_offset, a window, non-causal, head_dim 256) in bf16 and
               f32 and at the training shape, bf16 on both bodies (mma
               on the tensor cores, fma on the CUDA cores) where the rule
-              picks mma; the int4 dequant-matmul at
+              picks mma (the forward up to d = 256, the backward up to
+              128); the int4 dequant-matmul at
               every llama2-7b linear shape at m = 4, 64 and 256, one int8
               case and a ragged one (m=5, n=200, g=64) in f32 and bf16.
               Then each kernel's time (CUDA events, and device time by
@@ -114,14 +115,15 @@ caught and ignored):
               64), chunks of 256; a profiled decode step by class;
               api.measure against api.forecast on nvidia-h100),
               recurrentgemma-2b (4 x 2048 unchunked: its 8 local layers
-              through K6 on the fma body, the first held to the plain
-              blockwise loop; 63 decode steps on the ring),
+              through K6's wide mma forward at d = 256, the first held
+              to the plain blockwise loop; 63 decode steps on the ring),
               llama2-7b-mla (4 x (512 + 64), bf16 then int8 KV),
               whisper-base (4 x (16 + 64), 1500 encoder frames at
               prefill), llama2-7b (1 x 4096 over a 5120-position cache:
               32 K6 launches on mma, layer 0 held to the plain loop; 16
               decode steps); TTFT, TPOT, TPS, peak memory; then K6 timed
-              at the two lockstep shapes beside SDPA with a boolean mask.
+              at the two lockstep shapes on mma and on fma beside SDPA
+              with a boolean mask.
 
 11. multidevice — tensor- and pipeline-parallel serving with every rank on
               this one card (gloo on CUDA tensors, the explicit
@@ -143,7 +145,7 @@ caught and ignored):
               lockstep Server on a mesh (the lockstep phase's runs; at
               tp=2 8 layers of each (MDL_WORLDS), its tp=1 records served
               at that depth first): at tp=2 falcon-mamba-7b,
-              recurrentgemma-2b (K6 on fma at 5 query heads over the one
+              recurrentgemma-2b (K6 on mma at 5 query heads over the one
               KV head), llama2-7b-mla (bf16, int8 KV), whisper-base and
               llama2-7b 1 x 4096 (K6 on mma at 16 heads), each rank's K6
               launches counted and its first held to the plain loop;
@@ -864,11 +866,13 @@ def check_flash(device, gen, worst, results):
     body: the same f32 arithmetic summed in another order) and 2e-2 in
     bf16 (D = rowsum(dO*O) reads the bf16-rounded output where autograd
     uses the f32 one, every gradient rounds once to bf16, and the ``mma``
-    body rounds P and dS once to bf16).  Every bf16 case runs on the body
-    ``flash_body`` picks and, where that is ``mma``, on the ``fma`` body
-    forced too.  Then both bodies timed at the train phase's shape (CUDA
-    events and torch.profiler's device time), beside the plain version
-    and SDPA (``is_causal``, ``enable_gqa``; the port never calls it)."""
+    body rounds P and dS once to bf16).  Every bf16 case runs on the
+    bodies ``flash_body`` picks for each direction (at d = 256 the wide
+    ``mma`` forward and the ``fma`` backward) and, where the forward's is
+    ``mma``, on the ``fma`` body forced too.  Then both bodies timed at
+    the train phase's shape (CUDA events and torch.profiler's device
+    time), beside the plain version and SDPA (``is_causal``,
+    ``enable_gqa``; the port never calls it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -884,16 +888,18 @@ def check_flash(device, gen, worst, results):
                                         device=device).to(dtype)
         q, k, v, do = mk(b, s, H, d), mk(b, L, Hk, d), mk(b, L, Hk, d), \
             mk(b, s, H, d)
+        want = {n: body or ops.flash_body(n, dtype, d)
+                for n in ops.BODY_LAUNCHES}
         before = {n: dict(c) for n, c in ops.BODY_LAUNCHES.items()}
-        o, lse = ops.flash_fwd(q, k, v, body=body, **kw)
-        grads = ops.flash_bwd(q, k, v, o, lse, do, body=body, **kw)
+        o, lse = ops.flash_fwd(q, k, v, body=want["flash_fwd"], **kw)
+        grads = ops.flash_bwd(q, k, v, o, lse, do, body=want["flash_bwd"],
+                              **kw)
         ran = {n: _body_of(ops.BODY_LAUNCHES[n], before[n])
                for n in before}
-        check(ran["flash_fwd"] == ran["flash_bwd"]
-              == (body or ops.flash_body(dtype, d)),
-              f"flash {what}: ran on {ran}")
-        body = ran["flash_fwd"]
-        what = f"{what} ({body})"
+        check(ran == want, f"flash {what}: ran on {ran}, expected {want}")
+        body, bwd_body = ran["flash_fwd"], ran["flash_bwd"]
+        what = (f"{what} ({body})" if body == bwd_body
+                else f"{what} (forward {body}, backward {bwd_body})")
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         ref = ops.attention_ref(*leaves, **kw)
         ref_grads = torch.autograd.grad(ref, leaves, do)
@@ -906,8 +912,9 @@ def check_flash(device, gen, worst, results):
         grad_err = max(float((a.float() - r.float()).abs().max())
                        for a, r in zip(grads, ref_grads))
         if dtype == torch.bfloat16:
-            largest[body] = [max(x, y) for x, y in
-                             zip(largest[body], [ratio, *rel])]
+            largest[body][0] = max(largest[body][0], ratio)
+            largest[bwd_body][1:] = [max(x, y) for x, y in
+                                     zip(largest[bwd_body][1:], rel)]
         log(f"[kernels] flash_bwd {what} dq/dk/dv rel err "
             f"{rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} (limit "
             f"{limit[dtype]:.0e}) max_abs_err={grad_err:.3e}")
@@ -918,7 +925,7 @@ def check_flash(device, gen, worst, results):
     for case in FA_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             one(case, dtype, f"{case} {str(dtype)[6:]}")
-        if ops.flash_body(torch.bfloat16, case[5]) == "mma":
+        if ops.flash_body("flash_fwd", torch.bfloat16, case[5]) == "mma":
             one(case, torch.bfloat16, f"{case} bfloat16", body="fma")
     (q, k, v, do, o, lse), err, grad_err = one(FA_MAIN, torch.bfloat16,
                                                "main-path shape")
@@ -2609,7 +2616,7 @@ def _vlm_forward(cfg, params, device):
         k6 = (_launches()["flash_fwd"],
               dict(fa_ops.BODY_LAUNCHES["flash_fwd"]))
         logits["eager"], _ = forward(cfg, params, toks, vision_embeds=ve)
-    body = fa_ops.flash_body(dtype, cfg.head_dim)
+    body = fa_ops.flash_body("flash_fwd", dtype, cfg.head_dim)
     check(k6[0] == cfg.n_layers and k6[1][body] == cfg.n_layers,
           f"vlm forward: K6 launches {k6}, expected one per layer on "
           f"{body}")
@@ -2922,11 +2929,20 @@ K6_LOCKSTEP_TP2 = {
     "llama2-7b": (1, 4096, 5120, 16, 16, 128, True, None, 0)}
 
 
+def _k6_fwd_kernel(body: str, d: int) -> str:
+    """The CUDA function K6's forward runs on ``body`` at head dim d."""
+    if body == "fma":
+        return "flash_fwd_kernel"
+    return "flash_fwd_mma_wide_kernel" if d > 128 else "flash_fwd_mma_kernel"
+
+
 def _time_k6_lockstep(case, device, tag="lockstep"):
-    """K6 at a lockstep shape (bf16, the body ``flash_body`` picks) held
-    to the plain blockwise loop, then timed (events and device time)
-    beside the plain loop, SDPA with an explicit boolean mask (its device
-    time too) and the bound."""
+    """K6 at a lockstep shape (bf16) on the body ``flash_body`` picks for
+    the forward and, where that is ``mma``, on the ``fma`` body forced
+    (its time the earlier one), each held to the plain blockwise loop,
+    then timed (events and device time; ``fma`` in fewer calls) beside
+    the plain loop, SDPA with an explicit boolean mask (its device time
+    too) and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.models import attention
@@ -2940,12 +2956,18 @@ def _time_k6_lockstep(case, device, tag="lockstep"):
     q, k, v = mk(b, s, H, d), mk(b, L, Hk, d), mk(b, L, Hk, d)
     q5 = q.view(b, s, Hk, H // Hk, d)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    fn = lambda: fa_ops.flash_fwd(q, k, v, **kw)
+    on = lambda body: (lambda: fa_ops.flash_fwd(q, k, v, body=body, **kw))
     plain = lambda: attention.blockwise_attention(q5, k, v, d ** -0.5,
                                                   **kw)
-    worst = [0.0]
-    err = _compare(fn()[0].reshape(b, s, H * d), plain(), v,
-                   f"flash_fwd lockstep {case}", worst)
+    want = plain()
+    rule = fa_ops.flash_body("flash_fwd", torch.bfloat16, d)
+    held = {}
+    for body in dict.fromkeys((rule, "fma")):
+        worst = [0.0]
+        err = _compare(on(body)()[0].reshape(b, s, H * d), want, v,
+                       f"flash_fwd lockstep {case} ({body})", worst)
+        held[body] = (err, worst[0])
+    del want
     qp = q_offset + torch.arange(s, device=device)[:, None]
     kp = torch.arange(L, device=device)[None, :]
     mask = kp <= qp
@@ -2958,15 +2980,26 @@ def _time_k6_lockstep(case, device, tag="lockstep"):
     shape = (f"b={b} s={s} L={L} H={H} Hk={Hk} d={d} causal"
              f"{f' window={window}' if window else ''} q_offset={q_offset} "
              f"bf16 (lockstep)")
-    rec = dict(ms=time_ms(fn), **device_rec("device_ms", fn),
-               body=fa_ops.flash_body(torch.bfloat16, d),
+    rec = dict(ms=time_ms(on(rule)), **device_rec("device_ms", on(rule)),
+               body=rule, kernel=_k6_fwd_kernel(rule, d),
                plain_ms=time_ms(plain, iters=5, warmup=1),
                library_ms=time_ms(sdpa),
                **device_rec("library_device_ms", sdpa),
-               bound_ms=bound, bound_by=bound_by, max_abs_err=err,
-               err_ratio=worst[0], shape=shape)
-    log(f"[{tag}] K6 at {shape} on {rec['body']}: {rec['ms']:.4f} ms "
-        f"(device {fmt_ms(rec['device_ms'])}), plain blockwise "
+               bound_ms=bound, bound_by=bound_by, max_abs_err=held[rule][0],
+               err_ratio=held[rule][1], shape=shape)
+    earlier = ""
+    if rule != "fma":
+        rec["fma"] = dict(ms=time_ms(on("fma"), iters=5, warmup=1),
+                          **device_rec("device_ms", on("fma"), iters=5),
+                          kernel=_k6_fwd_kernel("fma", d),
+                          max_abs_err=held["fma"][0],
+                          err_ratio=held["fma"][1])
+        earlier = (f" [fma {rec['fma']['ms']:.4f} ms, device "
+                   f"{fmt_ms(rec['fma']['device_ms'])}]")
+        _log_misses(f"{tag} fma", rec["fma"])
+    log(f"[{tag}] K6 at {shape} on {rec['body']} ({rec['kernel']}): "
+        f"{rec['ms']:.4f} ms (device {fmt_ms(rec['device_ms'])}){earlier}, "
+        f"err/limit {rec['err_ratio']:.4f}, plain blockwise "
         f"{rec['plain_ms']:.4f} ms, SDPA with a boolean mask "
         f"{rec['library_ms']:.4f} ms (device "
         f"{fmt_ms(rec['library_device_ms'])}), bound {bound:.4f} ms "
@@ -3092,7 +3125,8 @@ def phase_lockstep(device, summary, engine_tpot_ms=None):
     n_local = cfg.block_kinds().count("attn")
     rec, server, state, _, cap = _run_lockstep("recurrentgemma-2b", cfg,
                                                params, device)
-    count_k6(rec, n_local, fa_ops.flash_body(torch.bfloat16, cfg.head_dim))
+    count_k6(rec, n_local, fa_ops.flash_body("flash_fwd", torch.bfloat16,
+                                             cfg.head_dim))
     rec["k6_first_layer"] = cap.held("recurrentgemma-2b")
     out["recurrentgemma-2b"] = rec
     del server, state, params, cap
@@ -3123,7 +3157,8 @@ def phase_lockstep(device, summary, engine_tpot_ms=None):
     cfg, params = load("llama2-7b")
     rec, server, state, _, cap = _run_lockstep("llama2-7b", cfg, params,
                                                device)
-    count_k6(rec, cfg.n_layers, fa_ops.flash_body(torch.bfloat16,
+    count_k6(rec, cfg.n_layers, fa_ops.flash_body("flash_fwd",
+                                                  torch.bfloat16,
                                                   cfg.head_dim))
     rec["k6_first_layer"] = cap.held("llama2-7b")
     rec["engine_tpot_p50_ms"] = engine_tpot_ms
@@ -3502,7 +3537,8 @@ def _md_lockstep(device, out, card):
             first, one = recs[0], TP1_LOCKSTEP[(tag, layers)]
             want_k6 = {"recurrentgemma-2b": cfg.block_kinds().count("attn"),
                        "llama2-7b": cfg.n_layers}.get(tag, 0) // pp
-            body = fa_ops.flash_body(torch.bfloat16, cfg.head_dim or 128)
+            body = fa_ops.flash_body("flash_fwd", torch.bfloat16,
+                                     cfg.head_dim or 128)
             for r, rec in zip(ranks, recs):
                 where = f"{label} {tag} rank {r['rank']}"
                 check(rec["tokens"] == first["tokens"],

@@ -51,10 +51,10 @@ unchanged on the rank's heads: a rank only ever holds its shard, so
 nothing needs the reference's ``shard_map``.  Grouped LoRA splits the
 pool's rank lanes (``grouped_lora.ops.make_sharded_grouped_lora``): the
 q/k/v deltas are summed in one ``all_reduce``; the o projection's input
-is sharded by head, so the rank first gathers it (an ``all_reduce`` of a
-zero-filled buffer), and its partial delta joins o_proj's partial in
-that projection's one ``all_reduce``.  An MoE layer runs expert-parallel
-(``models.blocks.moe_forward``).
+is sharded by head, so the rank first gathers it (an all-gather,
+``act_sharding.tp_all_gather``), and its partial delta joins o_proj's
+partial in that projection's one ``all_reduce``.  An MoE layer runs
+expert-parallel (``models.blocks.moe_forward``).
 
 Pipeline parallelism (a ``"pipe"`` axis of ``pp > 1`` stages):
 ``models.act_sharding.staged_scan``, the reference's, runs the stage's

@@ -1,8 +1,9 @@
 // Flash attention for Hopper (sm_90a): forward and backward.
 //
 // Replaces the TPU Pallas kernel of the JAX package:
-//   flash_fwd_mma_kernel, <- kernels/flash_attention/flash_attention.py::_attn_kernel
-//   flash_fwd_kernel         (flash_attention_fwd, :29-89)
+//   flash_fwd_mma_kernel,      <- kernels/flash_attention/flash_attention.py::_attn_kernel
+//   flash_fwd_mma_wide_kernel,    (flash_attention_fwd, :29-89)
+//   flash_fwd_kernel
 // and gives it the backward the TPU side never had (the reference
 // recomputes its gradient through the oracle's VJP, which on this card
 // would materialise (b, H, s, L) f32 scores per buffer per layer), in
@@ -25,13 +26,14 @@
 // per live (query, key) pair, ~6.9e10, against ~84 MB of q, k, v, o and
 // lse: ~800 flop/byte, far above the ~295 at which the H100's tensor cores
 // stop waiting on memory.  Two bodies (ops.py's flash_body picks one):
-// * mma (bf16, d a multiple of 16 up to 128; the *_mma_kernel functions,
-//   their section below): FlashAttention-2 on the tensor cores with
-//   mma.sync, cp.async double-buffered tiles and ldmatrix fragments;
-//   P.V as P_hi.V + P_lo.V so that the output stays inside
+// * mma (bf16, d a multiple of 16: up to 256 forward, up to 128 backward;
+//   the *_mma_kernel functions, their sections below, the forward above
+//   d = 128 in flash_fwd_mma_wide_kernel): FlashAttention-2 on the tensor
+//   cores with mma.sync, cp.async double-buffered tiles and ldmatrix
+//   fragments; P.V as P_hi.V + P_lo.V so that the output stays inside
 //   kernel_tolerance, one bf16 rounding of P and dS in the backward.
 // * fma (f32, and bf16 at a head dim the mma body does not take, up to
-//   256): f32 FMAs on the CUDA cores (67 TFLOP/s peak), exact enough for
+//   256; the backward above d = 128): f32 FMAs on the CUDA cores (67 TFLOP/s peak), exact enough for
 //   f32's 1e-5 gradient checks.  Each block keeps its query (or key)
 //   tile in shared memory for the whole KV (or query) loop; each of the
 //   128 threads owns a register micro-tile of scores and of the f32
@@ -523,7 +525,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 // ---------------------------------------------------------------------------
 // The tensor-core bodies: flash_fwd_mma_kernel, flash_bwd_dkdv_mma_kernel,
-// flash_bwd_dq_mma_kernel (bf16, d a multiple of 16 up to 128)
+// flash_bwd_dq_mma_kernel (bf16, d a multiple of 16 up to 128; the forward
+// above 128 is flash_fwd_mma_wide_kernel's, in the next section)
 // ---------------------------------------------------------------------------
 //
 // FlashAttention-2 on mma.sync.m16n8k16 (bf16 operands, f32 accumulate).
@@ -643,13 +646,13 @@ __device__ __forceinline__ void acc_as_a(uint32_t (&a)[4], float (&c)[N][4], int
 }
 
 // rows [r0, r0 + n_rows) of a (rows, d) bf16 slab with row stride `stride`
-// into a tile of row stride DP + 8 by cp.async; rows at or past `limit`
-// and columns at or past d are zero
-template <int DP>
+// into a tile of row stride DP + 8 by cp.async, shared by the block's
+// NTH threads; rows at or past `limit` and columns at or past d are zero
+template <int DP, int NTH = kThreads>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
                                            int r0, int n_rows, int limit, size_t stride, int d) {
   constexpr int LD = DP + 8, CH = DP / 8;
-  for (int c = threadIdx.x; c < n_rows * CH; c += kThreads) {
+  for (int c = threadIdx.x; c < n_rows * CH; c += NTH) {
     const int r = c / CH, part = c - r * CH;
     const int R = r0 + r;
     const bool ok = R < limit && part * 8 < d;
@@ -715,6 +718,131 @@ __device__ __forceinline__ void probs_t(float (&st)[NQ][4], float (&dpt)[NQ][4],
     }
 }
 
+// A warp's 16 query rows in the forward: this thread's two (lo and hi =
+// lo + 8), their positions, and their running max and sum (the sum over
+// this thread's columns until fwd_store adds the quad's)
+struct FwdRows {
+  int r_lo, r_hi, qp_lo, qp_hi;
+  bool in_lo, in_hi;
+  float m_lo, m_hi, l_lo, l_hi;
+};
+
+__device__ __forceinline__ FwdRows fwd_rows(const Shape& sh, int w0, int lane) {
+  FwdRows r;
+  r.r_lo = w0 + lane / 4;
+  r.r_hi = r.r_lo + 8;
+  r.qp_lo = sh.q_offset + r.r_lo;
+  r.qp_hi = r.qp_lo + 8;
+  r.in_lo = r.r_lo < sh.s;
+  r.in_hi = r.r_hi < sh.s;
+  r.m_lo = r.m_hi = kNegInf;
+  r.l_lo = r.l_hi = 0.f;
+  return r;
+}
+
+// One live key tile [t0, t0 + 8 NT) of the warp's rows [w0, w0 + 16), the
+// scores sc = Q.K^T as mma left them: masked and scaled (base 2), the
+// online softmax in f32, then acc += P_hi.V + P_lo.V over the staged V tile
+// (row stride LD), one k16 step per 16 keys
+template <int LD, int NT, int DN>
+__device__ __forceinline__ void fwd_tile(float (&sc)[NT][4], float (&acc)[DN][4], FwdRows& r,
+                                         const __nv_bfloat16* Vs, const Shape& sh, float scale2,
+                                         int t0, int w0, int lane) {
+  const int kb = t0 + 2 * (lane % 4);
+  if (tile_full(sh, t0, t0 + 8 * NT - 1, w0, w0 + 15))
+    mask_rows<false>(sc, sh, scale2, kb, r.in_lo, r.qp_lo, r.in_hi, r.qp_hi);
+  else
+    mask_rows<true>(sc, sh, scale2, kb, r.in_lo, r.qp_lo, r.in_hi, r.qp_hi);
+  float mx_lo = kNegInf, mx_hi = kNegInf;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    mx_lo = fmaxf(mx_lo, fmaxf(sc[nt][0], sc[nt][1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(sc[nt][2], sc[nt][3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+  }
+  const float mn_lo = fmaxf(r.m_lo, mx_lo), mn_hi = fmaxf(r.m_hi, mx_hi);
+  const float al_lo = ex2(r.m_lo - mn_lo), al_hi = ex2(r.m_hi - mn_hi);
+  r.m_lo = mn_lo;
+  r.m_hi = mn_hi;
+  float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = sc[nt][i];
+      const float pr = x > kNegInf ? ex2(x - (i < 2 ? mn_lo : mn_hi)) : 0.f;
+      sc[nt][i] = pr;
+      if (i < 2) ps_lo += pr; else ps_hi += pr;
+    }
+  }
+  r.l_lo = r.l_lo * al_lo + ps_lo;
+  r.l_hi = r.l_hi * al_hi + ps_hi;
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) {
+    acc[dn][0] *= al_lo;
+    acc[dn][1] *= al_lo;
+    acc[dn][2] *= al_hi;
+    acc[dn][3] *= al_hi;
+  }
+#pragma unroll
+  for (int kt = 0; kt < NT / 2; ++kt) {
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float* pv = sc[2 * kt + i / 2] + 2 * (i % 2);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(pv[0], pv[1]);
+      ah[i] = *reinterpret_cast<const uint32_t*>(&hi);
+      al[i] = pack_bf16(pv[0] - __low2float(hi), pv[1] - __high2float(hi));
+    }
+#pragma unroll
+    for (int dn = 0; dn < DN; dn += 2) {
+      uint32_t b[4];
+      frag_b_cols<LD>(b, Vs, kt * 16, dn * 8, lane);
+      mma_bf16(acc[dn], ah, b[0], b[1]);
+      mma_bf16(acc[dn], al, b[0], b[1]);
+      mma_bf16(acc[dn + 1], ah, b[2], b[3]);
+      mma_bf16(acc[dn + 1], al, b[2], b[3]);
+    }
+  }
+}
+
+// The warp's rows written: o = acc / max(l, 1e-30) in bf16 (columns below
+// d) and the rows' log-sum-exp (natural log)
+template <int DN>
+__device__ __forceinline__ void fwd_store(float (&acc)[DN][4], FwdRows& r,
+                                          __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                                          const Shape& sh, size_t q_base, size_t q_stride, int bi,
+                                          int h, int lane) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    r.l_lo += __shfl_xor_sync(0xffffffffu, r.l_lo, off);
+    r.l_hi += __shfl_xor_sync(0xffffffffu, r.l_hi, off);
+  }
+  const float den_lo = fmaxf(r.l_lo, 1e-30f), den_hi = fmaxf(r.l_hi, 1e-30f);
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) {
+    const int col = dn * 8 + 2 * (lane % 4);
+    if (col >= sh.d) continue;
+    if (r.in_lo)
+      *reinterpret_cast<__nv_bfloat162*>(o + q_base + static_cast<size_t>(r.r_lo) * q_stride +
+                                         col) =
+          __floats2bfloat162_rn(acc[dn][0] / den_lo, acc[dn][1] / den_lo);
+    if (r.in_hi)
+      *reinterpret_cast<__nv_bfloat162*>(o + q_base + static_cast<size_t>(r.r_hi) * q_stride +
+                                         col) =
+          __floats2bfloat162_rn(acc[dn][2] / den_hi, acc[dn][3] / den_hi);
+  }
+  if (lane % 4 == 0) {
+    float* lrow = lse + (static_cast<size_t>(bi) * sh.H + h) * sh.s;
+    if (r.in_lo) lrow[r.r_lo] = (r.m_lo + log2f(den_lo)) * kLn2;
+    if (r.in_hi) lrow[r.r_hi] = (r.m_hi + log2f(den_hi)) * kLn2;
+  }
+}
+
 size_t fwd_mma_smem(int dp) {
   return static_cast<size_t>(2 * 2 * kMmaKeys) * (dp + 8) * sizeof(__nv_bfloat16);
 }
@@ -752,9 +880,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   // this thread's two rows and their q fragments
   const int w0 = i0 + 16 * warp;
-  const int r_lo = w0 + lane / 4, r_hi = r_lo + 8;
-  const int qp_lo = sh.q_offset + r_lo, qp_hi = qp_lo + 8;
-  const bool in_lo = r_lo < sh.s, in_hi = r_hi < sh.s;
+  FwdRows rows = fwd_rows(sh, w0, lane);
   auto ld2 = [&](bool in, int r, int col) -> uint32_t {
     return in && col < d
                ? *reinterpret_cast<const uint32_t*>(q + q_base + static_cast<size_t>(r) * q_stride + col)
@@ -764,13 +890,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
   for (int kk = 0; kk < DK; ++kk) {
     const int col = kk * 16 + 2 * (lane % 4);
-    qa[kk][0] = ld2(in_lo, r_lo, col);
-    qa[kk][1] = ld2(in_hi, r_hi, col);
-    qa[kk][2] = ld2(in_lo, r_lo, col + 8);
-    qa[kk][3] = ld2(in_hi, r_hi, col + 8);
+    qa[kk][0] = ld2(rows.in_lo, rows.r_lo, col);
+    qa[kk][1] = ld2(rows.in_hi, rows.r_hi, col);
+    qa[kk][2] = ld2(rows.in_lo, rows.r_lo, col + 8);
+    qa[kk][3] = ld2(rows.in_hi, rows.r_hi, col + 8);
   }
 
-  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
   float acc[DN][4];
 #pragma unroll
   for (int dn = 0; dn < DN; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
@@ -813,94 +938,124 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
           mma_bf16(sc[nt], qa[kk], b[0], b[1]);
           mma_bf16(sc[nt + 1], qa[kk], b[2], b[3]);
         }
-      // mask, scale (base 2), online softmax
-      const int kb = t0 + 2 * (lane % 4);
-      if (tile_full(sh, t0, t0 + BK - 1, w0, w0 + 15))
-        mask_rows<false>(sc, sh, scale2, kb, in_lo, qp_lo, in_hi, qp_hi);
-      else
-        mask_rows<true>(sc, sh, scale2, kb, in_lo, qp_lo, in_hi, qp_hi);
-      float mx_lo = kNegInf, mx_hi = kNegInf;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        mx_lo = fmaxf(mx_lo, fmaxf(sc[nt][0], sc[nt][1]));
-        mx_hi = fmaxf(mx_hi, fmaxf(sc[nt][2], sc[nt][3]));
-      }
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-      }
-      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-      const float al_lo = ex2(m_lo - mn_lo), al_hi = ex2(m_hi - mn_hi);
-      m_lo = mn_lo;
-      m_hi = mn_hi;
-      float ps_lo = 0.f, ps_hi = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float x = sc[nt][i];
-          const float pr = x > kNegInf ? ex2(x - (i < 2 ? mn_lo : mn_hi)) : 0.f;
-          sc[nt][i] = pr;
-          if (i < 2) ps_lo += pr; else ps_hi += pr;
-        }
-      }
-      l_lo = l_lo * al_lo + ps_lo;     // this thread's columns; the quad adds at the end
-      l_hi = l_hi * al_hi + ps_hi;
-#pragma unroll
-      for (int dn = 0; dn < DN; ++dn) {
-        acc[dn][0] *= al_lo;
-        acc[dn][1] *= al_lo;
-        acc[dn][2] *= al_hi;
-        acc[dn][3] *= al_hi;
-      }
-      // acc += P_hi.V + P_lo.V, one k16 step per 16 keys
-#pragma unroll
-      for (int kt = 0; kt < BK / 16; ++kt) {
-        uint32_t ah[4], al[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float* pv = sc[2 * kt + i / 2] + 2 * (i % 2);
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(pv[0], pv[1]);
-          ah[i] = *reinterpret_cast<const uint32_t*>(&hi);
-          al[i] = pack_bf16(pv[0] - __low2float(hi), pv[1] - __high2float(hi));
-        }
-#pragma unroll
-        for (int dn = 0; dn < DN; dn += 2) {
-          uint32_t b[4];
-          frag_b_cols<LD>(b, Vs, kt * 16, dn * 8, lane);
-          mma_bf16(acc[dn], ah, b[0], b[1]);
-          mma_bf16(acc[dn], al, b[0], b[1]);
-          mma_bf16(acc[dn + 1], ah, b[2], b[3]);
-          mma_bf16(acc[dn + 1], al, b[2], b[3]);
-        }
-      }
+      fwd_tile<LD>(sc, acc, rows, Vs, sh, scale2, t0, w0, lane);
     }
     __syncthreads();                   // the stage is free for tile j + 2
   }
 
+  fwd_store(acc, rows, o, lse, sh, q_base, q_stride, bi, h, lane);
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core forward at 128 < d <= 256: flash_fwd_mma_wide_kernel
+// ---------------------------------------------------------------------------
+//
+// flash_fwd_mma_kernel's plan does not fit at DP = 256: a thread's q
+// fragments (DP / 16 x 4 = 64 registers) and f32 output accumulator
+// (DP / 8 x 4 = 128), with the 64-key score tile and the hi/lo split, pass
+// the 255 registers a thread may hold.  This body stages the block's query
+// tile in shared memory once and reads a warp's q fragment there by
+// ldmatrix at each k16 step (one x4 load beside the four of K), so a thread
+// holds only the accumulator (its warp's 16 rows x 256 columns) and the
+// 64-key score tile.  Eight warps (128 query rows) share each staged K/V
+// tile, which halves the K/V read from L2 per query row against four.  Q
+// (128 x 264 bf16) and K and V double-buffered at 64 keys take 198 KB of
+// shared memory: one block per SM.  The grid runs the query tiles slowest
+// and the longest first over every (head, batch), so under a causal mask
+// the long tiles start in the first wave and the short ones fill the
+// last.  After Q.K^T both forward bodies run fwd_tile and fwd_store: exact
+// bf16 products summed in f32, the online softmax in f32 in base 2, P.V as
+// P_hi.V + P_lo.V; a warp skips its dead tiles.  (ops.py's mma_tiles gives
+// the tiles; tools/sweep_flash_wide.py times other warp and key counts.)
+
+constexpr int kWideDP = 256;
+constexpr int kWideWarps = 8;                  // 16 query rows each
+constexpr int kWideRows = 16 * kWideWarps;     // query rows per block
+constexpr int kWideKeys = 64;                  // keys per staged tile
+
+size_t fwd_mma_wide_smem() {
+  return static_cast<size_t>(kWideRows + 2 * 2 * kWideKeys) * (kWideDP + 8) *
+         sizeof(__nv_bfloat16);
+}
+
+// grid (H, b, ceil(s / BQ)), 32 WARPS threads: query rows [i0, i0 + BQ) of
+// head h, i0 from the last tile down; warp w owns rows [i0 + 16w, +16)
+template <int DP, int WARPS, int BK>
+__global__ void __launch_bounds__(32 * WARPS, 1)
+flash_fwd_mma_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, Shape sh) {
+  constexpr int NTH = 32 * WARPS, BQ = 16 * WARPS, LD = DP + 8;
+  constexpr int DK = DP / 16, DN = DP / 8, NT = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [BQ][LD]
+  __nv_bfloat16* stages = Qs + BQ * LD;                             // [2][K, V][BK][LD]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int h = blockIdx.x, bi = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int d = sh.d;
+  const size_t q_stride = static_cast<size_t>(sh.H) * d;
+  const size_t kv_stride = static_cast<size_t>(sh.Hk) * d;
+  const size_t q_base = (static_cast<size_t>(bi) * sh.s * sh.H + h) * d;
+  const size_t kv_base = (static_cast<size_t>(bi) * sh.L * sh.Hk + h / sh.G) * d;
+
+  const int w0 = i0 + 16 * warp;
+  FwdRows rows = fwd_rows(sh, w0, lane);
+  float acc[DN][4];
 #pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  for (int dn = 0; dn < DN; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  const float scale2 = sh.scale * kLog2e;
+
+  int k_lo, k_hi;
+  key_range(sh, i0, min(BQ, sh.s - i0), &k_lo, &k_hi);
+  const int t_first = (k_lo / BK) * BK;
+  const int n_tiles = k_hi > t_first ? (k_hi - t_first + BK - 1) / BK : 0;
+  auto load = [&](int j) {
+    __nv_bfloat16* ks = stages + (j & 1) * 2 * BK * LD;
+    stage_rows<DP, NTH>(ks, k + kv_base, t_first + j * BK, BK, sh.L, kv_stride, d);
+    stage_rows<DP, NTH>(ks + BK * LD, v + kv_base, t_first + j * BK, BK, sh.L, kv_stride, d);
+    cp_async_commit();
+  };
+
+  if (n_tiles > 0) {
+    stage_rows<DP, NTH>(Qs, q + q_base, i0, BQ, sh.s, q_stride, d);
+    load(0);                           // one group with Q
   }
-  const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      load(j + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int t0 = t_first + j * BK;
+    if (!tile_dead(sh, t0, t0 + BK - 1, w0, w0 + 15)) {
+      const __nv_bfloat16* Ks = stages + (j & 1) * 2 * BK * LD;
+      const __nv_bfloat16* Vs = Ks + BK * LD;
+      // S = Q.K^T, q's fragment read from shared memory per k16 step
+      float sc[NT][4];
 #pragma unroll
-  for (int dn = 0; dn < DN; ++dn) {
-    const int col = dn * 8 + 2 * (lane % 4);
-    if (col >= d) continue;
-    if (in_lo)
-      *reinterpret_cast<__nv_bfloat162*>(o + q_base + static_cast<size_t>(r_lo) * q_stride + col) =
-          __floats2bfloat162_rn(acc[dn][0] / den_lo, acc[dn][1] / den_lo);
-    if (in_hi)
-      *reinterpret_cast<__nv_bfloat162*>(o + q_base + static_cast<size_t>(r_hi) * q_stride + col) =
-          __floats2bfloat162_rn(acc[dn][2] / den_hi, acc[dn][3] / den_hi);
+      for (int nt = 0; nt < NT; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t qa[4];
+        frag_a<LD>(qa, Qs, 16 * warp, kk * 16, lane);
+#pragma unroll
+        for (int nt = 0; nt < NT; nt += 2) {
+          uint32_t b[4];
+          frag_b_rows<LD>(b, Ks, nt * 8, kk * 16, lane);
+          mma_bf16(sc[nt], qa, b[0], b[1]);
+          mma_bf16(sc[nt + 1], qa, b[2], b[3]);
+        }
+      }
+      fwd_tile<LD>(sc, acc, rows, Vs, sh, scale2, t0, w0, lane);
+    }
+    __syncthreads();                   // the stage is free for tile j + 2
   }
-  if (lane % 4 == 0) {
-    float* lrow = lse + (static_cast<size_t>(bi) * sh.H + h) * sh.s;
-    if (in_lo) lrow[r_lo] = (m_lo + log2f(den_lo)) * kLn2;
-    if (in_hi) lrow[r_hi] = (m_hi + log2f(den_hi)) * kLn2;
-  }
+
+  fwd_store(acc, rows, o, lse, sh, q_base, q_stride, bi, h, lane);
 }
 
 // grid (ceil(L / 64), Hk, b), 128 threads: keys [t0, t0 + 64) of KV head
@@ -1266,6 +1421,19 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, void* o, float* 
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_fwd_mma_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                        Shape sh, cudaStream_t stream) {
+  const size_t smem = fwd_mma_wide_smem();
+  auto kernel = flash_fwd_mma_wide_kernel<kWideDP, kWideWarps, kWideKeys>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(sh.H, sh.b, (sh.s + kWideRows - 1) / kWideRows);
+  kernel<<<grid, 32 * kWideWarps, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int DP>
 int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, Shape sh,
@@ -1317,7 +1485,10 @@ bool bad(int b, int s, int L, int H, int Hk, int d, int dtype) {
          (dtype != kF32 && dtype != kBF16);
 }
 
-bool bad_mma(int d) { return d < 16 || d > 128 || d % 16 != 0; }
+// the tensor-core bodies take d a multiple of 16 up to `most`: 256 forward
+// (flash_fwd_mma_kernel to 128, flash_fwd_mma_wide_kernel above), 128
+// backward
+bool bad_mma(int d, int most) { return d < 16 || d > most || d % 16 != 0; }
 
 }  // namespace
 
@@ -1357,15 +1528,16 @@ int flash_bwd_launch(const void* q, const void* k, const void* v, const void* o,
               static_cast<float*>(delta), dq, dk, dv, sh, static_cast<cudaStream_t>(stream))
 }
 
-// The tensor-core bodies: bf16 only, d a multiple of 16 up to 128; the
-// same arguments as above without the dtype code.
+// The tensor-core bodies: bf16 only, d a multiple of 16, up to 256 forward
+// and 128 backward; the same arguments as above without the dtype code.
 int flash_fwd_mma_launch(const void* q, const void* k, const void* v, void* o, void* lse, int b,
                          int s, int L, int H, int Hk, int d, int causal, int window,
                          int q_offset, float scale, void* stream) {
-  if (bad(b, s, L, H, Hk, d, kBF16) || bad_mma(d)) return kBadArgs;
+  if (bad(b, s, L, H, Hk, d, kBF16) || bad_mma(d, kWideDP)) return kBadArgs;
   const Shape sh = make_shape(b, s, L, H, Hk, d, causal, window, q_offset, scale);
   const auto st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
+  if (d > 128) return launch_fwd_mma_wide(q, k, v, o, lse_f, sh, st);
   return d <= 64 ? launch_fwd_mma<64>(q, k, v, o, lse_f, sh, st)
                  : launch_fwd_mma<128>(q, k, v, o, lse_f, sh, st);
 }
@@ -1374,7 +1546,7 @@ int flash_bwd_mma_launch(const void* q, const void* k, const void* v, const void
                          const void* dout, const void* lse, void* delta, void* dq, void* dk,
                          void* dv, int b, int s, int L, int H, int Hk, int d, int causal,
                          int window, int q_offset, float scale, void* stream) {
-  if (bad(b, s, L, H, Hk, d, kBF16) || bad_mma(d)) return kBadArgs;
+  if (bad(b, s, L, H, Hk, d, kBF16) || bad_mma(d, 128)) return kBadArgs;
   const Shape sh = make_shape(b, s, L, H, Hk, d, causal, window, q_offset, scale);
   const auto st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
@@ -1385,9 +1557,15 @@ int flash_bwd_mma_launch(const void* q, const void* k, const void* v, const void
 
 // The tensor-core bodies' tiles for head dim d (ops.py's MmaTiles, in its
 // field order): dp, forward rows and keys, dK/dV keys and rows, dQ rows
-// and keys.  Returns -1 for a d the bodies do not take.
+// and keys (0 where d has no tensor-core backward).  Returns -1 for a d
+// the bodies do not take.
 int flash_mma_tiles(int d, int* out) {
-  if (bad_mma(d)) return kBadArgs;
+  if (bad_mma(d, kWideDP)) return kBadArgs;
+  if (d > 128) {
+    const int tiles[7] = {kWideDP, kWideRows, kWideKeys, 0, 0, 0, 0};
+    for (int i = 0; i < 7; ++i) out[i] = tiles[i];
+    return 0;
+  }
   const int dp = d <= 64 ? 64 : 128;
   const int inner = dp == 64 ? BwdInner<64>::N : BwdInner<128>::N;
   const int tiles[7] = {dp, kMmaRows, kMmaKeys, kMmaKeys, inner, kMmaRows, inner};

@@ -12,12 +12,13 @@ does on the CPU: the forward is the oracle's output with every row that
 sees no key set to 0 (what the kernels write), and the backward is the
 oracle's VJP (the reference's ``_fa_bwd``).
 
-Each direction has two bodies (:func:`flash_body`): bf16 q, k, v with a
-head dim that is a multiple of 16 up to 128 run on the tensor cores
-(``mma``: ``flash_fwd_mma_kernel``, ``flash_bwd_dkdv_mma_kernel``,
-``flash_bwd_dq_mma_kernel``); f32, or a head dim the tensor-core body
-does not take, keep the f32 CUDA-core body (``fma``: ``flash_fwd_kernel``
-and its three backward kernels).  :func:`mma_tiles`,
+Each direction has two bodies, chosen by :func:`flash_body` per
+direction: bf16 q, k, v with a head dim that is a multiple of 16 run on
+the tensor cores (``mma``) up to 256 forward (``flash_fwd_mma_kernel`` to
+128, ``flash_fwd_mma_wide_kernel`` above) and up to 128 backward
+(``flash_bwd_dkdv_mma_kernel``, ``flash_bwd_dq_mma_kernel``); f32, or a
+head dim the tensor-core body does not take, keep the f32 CUDA-core body
+(``fma``: ``flash_fwd_kernel`` and its three backward kernels).  :func:`mma_tiles`,
 :func:`key_tile_range` and :func:`query_tile_range` are the ``mma``
 body's tiles and loop bounds, as the CUDA source computes them.
 
@@ -65,18 +66,29 @@ def reset_launch_counts() -> None:
             counts[k] = 0
 
 
-def flash_body(dtype: torch.dtype, d: int) -> str:
-    """The body a call runs on, forward and backward alike.
+#: the largest head dim of the ``mma`` body, by wrapper
+_MMA_MOST = {"flash_fwd": 256, "flash_bwd": 128}
 
-    ``"mma"`` (tensor cores: bf16 products, f32 sums and softmax, P.V as
-    P_hi.V + P_lo.V) for bf16 with ``d % 16 == 0`` and ``16 <= d <= 128``
-    (one k16 step per 16 columns; 128 keeps the dK/dV accumulators in
-    registers).  ``"fma"`` (f32 on the CUDA cores) for everything else:
-    f32 inputs, whose gradients must stay within 1e-5 of the f32 plain
-    version, which bf16 tensor-core operands would not; a bf16 head dim
-    that is not a multiple of 16; and d > 128 (up to 256).
+
+def flash_body(wrapper: str, dtype: torch.dtype, d: int) -> str:
+    """The body ``wrapper`` (``"flash_fwd"`` or ``"flash_bwd"``) runs a
+    call on.
+
+    ``"mma"`` (tensor cores: bf16 products, f32 sums and softmax; the
+    forward's P.V as P_hi.V + P_lo.V) for bf16 with ``d % 16 == 0`` (one
+    k16 step per 16 columns), ``16 <= d``, and d up to 256 forward (above
+    128 the wide forward, whose q tile waits in shared memory) or 128
+    backward (where the dK/dV accumulators stay in registers).  ``"fma"``
+    (f32 on the CUDA cores) for everything else: f32 inputs, whose
+    gradients must stay within 1e-5 of the f32 plain version, which bf16
+    tensor-core operands would not; a bf16 head dim that is not a
+    multiple of 16; and the backward at d > 128 (up to 256).
     """
-    if dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= 128:
+    if wrapper not in _MMA_MOST:
+        raise ValueError(f"wrapper must be one of {tuple(_MMA_MOST)}, got "
+                         f"{wrapper!r}")
+    if (dtype == torch.bfloat16 and d % 16 == 0
+            and 16 <= d <= _MMA_MOST[wrapper]):
         return "mma"
     return "fma"
 
@@ -84,9 +96,10 @@ def flash_body(dtype: torch.dtype, d: int) -> str:
 @dataclasses.dataclass(frozen=True)
 class MmaTiles:
     """The ``mma`` body's tiles for one head dim (``flash_attention.cu``):
-    ``dp`` the head dim padded to 64 or 128 (zero columns); the forward's
-    query rows and keys per step; dK/dV's keys per block and query rows
-    per step; dQ's query rows per block and keys per step."""
+    ``dp`` the head dim padded to 64, 128 or 256 (zero columns); the
+    forward's query rows per block and keys per step; dK/dV's keys per
+    block and query rows per step; dQ's query rows per block and keys per
+    step (the four 0 at dp = 256, which has no ``mma`` backward)."""
     dp: int
     fwd_rows: int
     fwd_keys: int
@@ -99,9 +112,13 @@ class MmaTiles:
 def mma_tiles(d: int) -> MmaTiles:
     """Four warps of 16 rows (or keys) per block; at dp = 128 the
     backward's inner tile halves so that its f32 accumulators, the score
-    tile and dP stay in registers."""
-    if flash_body(torch.bfloat16, d) != "mma":
-        raise ValueError(f"the mma body takes d % 16 == 0 <= 128, got {d}")
+    tile and dP stay in registers; at dp = 256 (the forward alone) eight
+    warps of 16 query rows share each 64-key tile."""
+    if flash_body("flash_fwd", torch.bfloat16, d) != "mma":
+        raise ValueError(f"the mma body takes d % 16 == 0 <= 256, got {d}")
+    if d > 128:
+        return MmaTiles(dp=256, fwd_rows=128, fwd_keys=64, dkdv_keys=0,
+                        dkdv_rows=0, dq_rows=0, dq_keys=0)
     dp = 64 if d <= 64 else 128
     inner = 64 if dp == 64 else 32
     return MmaTiles(dp=dp, fwd_rows=64, fwd_keys=64, dkdv_keys=64,
@@ -224,20 +241,21 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"{lib.flash_error_string(err).decode()}")
 
 
-def _pick_body(q: torch.Tensor, d: int, body: Optional[str],
+def _pick_body(wrapper: str, q: torch.Tensor, d: int, body: Optional[str],
                tensors) -> str:
-    """:func:`flash_body`'s choice, or ``body`` where the caller forces
-    one (the tests hold both bodies on the same inputs); the ``mma``
-    body's 16-byte copies need 16-byte aligned tensors."""
-    rule = flash_body(q.dtype, d)
+    """:func:`flash_body`'s choice for ``wrapper``, or ``body`` where the
+    caller forces one (the tests hold both bodies on the same inputs);
+    the ``mma`` body's 16-byte copies need 16-byte aligned tensors."""
+    rule = flash_body(wrapper, q.dtype, d)
     if body is None:
         body = rule
     if body not in BODIES:
         raise ValueError(f"body must be one of {BODIES}, got {body!r}")
     if body == "mma":
         if rule != "mma":
-            raise ValueError(f"the mma body takes bf16 with d % 16 == 0 "
-                             f"<= 128, got {q.dtype}, d={d}")
+            raise ValueError(f"{wrapper}'s mma body takes bf16 with d % 16 "
+                             f"== 0 <= {_MMA_MOST[wrapper]}, got "
+                             f"{q.dtype}, d={d}")
         for t in tensors:
             if t.data_ptr() % 16:
                 raise ValueError("the mma body needs 16-byte aligned "
@@ -249,14 +267,14 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0, body: Optional[str] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel of :func:`flash_body`'s body (or of
-    ``body``): (o (b, s, H, d) in q's dtype, the rows' log-sum-exp
+    """Launch the forward kernel of :func:`flash_body`'s forward body (or
+    of ``body``): (o (b, s, H, d) in q's dtype, the rows' log-sum-exp
     (b, H, s) f32).  CUDA tensors only."""
     if not q.is_cuda:
         raise ValueError("flash_fwd launches the CUDA kernel; CPU tensors "
                          "go through flash_attention's plain version")
     b, s, L, H, Hk, d = _check(q, k, v, window, q_offset)
-    body = _pick_body(q, d, body, (q, k, v))
+    body = _pick_body("flash_fwd", q, d, body, (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, H, s), dtype=torch.float32, device=q.device)
     lib = load_library()
@@ -282,8 +300,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0, body: Optional[str] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels of :func:`flash_body`'s body (or of
-    ``body``): D = rowsum(dO*O), then dK/dV per KV head and key tile,
+    """Launch the backward kernels of :func:`flash_body`'s backward body
+    (or of ``body``): D = rowsum(dO*O), then dK/dV per KV head and key tile,
     then dQ per query head and tile; (dq, dk, dv) in the inputs' dtype,
     accumulated in f32.  CUDA tensors only."""
     if not q.is_cuda:
@@ -299,7 +317,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"lse must be a contiguous f32 {(b, H, s)} tensor "
                          f"on {q.device}")
-    body = _pick_body(q, d, body, (q, k, v, do))
+    body = _pick_body("flash_bwd", q, d, body, (q, k, v, do))
     delta = torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))

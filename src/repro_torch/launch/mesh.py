@@ -22,13 +22,15 @@ the one it takes on stderr:
 * ranks that share a card: ``gloo`` on CUDA tensors, which reduces and
   broadcasts them through the host.  Only when the caller asks for it
   (``share_device=True``); without it too few cards raise the
-  reference's "needs N devices" error.  The port's ranks use only
-  ``all_reduce``, ``broadcast`` and ``barrier``, the collectives gloo
-  runs on CUDA tensors.
+  reference's "needs N devices" error.  gloo runs ``all_reduce``,
+  ``broadcast`` and ``barrier`` on CUDA tensors but gathers and
+  scatters none, so there the gathers travel as all-reduces (see
+  :mod:`repro_torch.core.collectives`).
 
-Every collective of the port goes through ``all_reduce`` and
-``broadcast`` of :mod:`repro_torch.core.collectives`, which report it to an active work count (``repro_torch.core.counts``)
-and then issue it.
+Every collective of the port goes through
+:mod:`repro_torch.core.collectives` (``all_reduce``, ``broadcast``,
+``all_gather``, ``reduce_scatter``), which reports it to an active work
+count (``repro_torch.core.counts``) and then issues it.
 
 :func:`make_production_mesh` gives rank 0's view of the reference's
 production meshes (16×16 ``("data", "model")`` and 2×16×16 ``("pod",

@@ -16,32 +16,32 @@ PyTorch a rank only ever holds its own shard, so there is nothing to
 constrain.  It is kept so that code reads as the reference's.
 
 The collectives the sharded model needs live here, each written with
-``all_reduce`` and ``broadcast`` alone (gloo gathers and scatters no
-CUDA tensors; ``launch.mesh``'s helpers, which report each to an active
-work count), and each a ``torch.autograd.Function`` where a gradient
-flows through it (Megatron-LM's *f* and *g*):
+``core.collectives``' helpers (which report each to an active work
+count under the op the reference's compiled step emits, and say how
+each moves its data on each backend), and each a
+``torch.autograd.Function`` where a gradient flows through it
+(Megatron-LM's *f* and *g*):
 
 * :func:`tp_all_reduce` (*g*): the sum after a row-parallel product;
   the identity in the backward.  Under ``no_grad`` (serving) it sums in
   place;
 * :func:`tp_copy` (*f*): the identity at the input of a column-parallel
   product, whose backward sums the ranks' partial input gradients;
-* :func:`tp_all_gather`: an all-gather as an ``all_reduce`` of a
-  zero-filled buffer (a sum with zeros, so exact); its backward is the
-  rank's slice of the gradient;
+* :func:`tp_all_gather`: an all-gather; its backward is the rank's
+  slice of the gradient;
 * over a vocabulary cut over tp (``embed``'s rows, ``lm_head``'s
   columns, the logits): :func:`vocab_embed`, Megatron-LM's
   vocab-parallel lookup (*g* after a masked lookup),
-  :func:`tp_argmax`, the greedy token from every rank's (max, index)
-  pair, and :func:`tp_whole_logits`, the gathered logits for what needs
-  the whole distribution; each is the plain operation where the rank
-  holds the whole vocabulary;
+  :func:`tp_argmax`, the greedy token from every rank's max and index
+  (two all-gathers, as the reference's compiled step makes them), and
+  :func:`tp_whole_logits`, the gathered logits for what needs the whole
+  distribution; each is the plain operation where the rank holds the
+  whole vocabulary;
 * :func:`dp_all_reduce`: the sum over the data-parallel group, the
   identity in the backward (the MoE router's per-expert means over the
   global batch; the gradient sums);
-* :func:`fsdp_gather`: a leaf cut over the data axis gathered whole; its
-  backward is the reduce-scatter of the gradient, an ``all_reduce``
-  then the rank's slice;
+* :func:`fsdp_gather`: a leaf cut over the data axis gathered whole (an
+  all-gather); its backward is the reduce-scatter of the gradient;
 
 and the pipeline's two: :func:`staged_scan` (a stage's layers between
 the activation's hops) and :func:`from_last_stage` (the last stage's
@@ -53,7 +53,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.collectives import all_reduce
+from repro_torch.core.collectives import (all_gather, all_reduce,
+                                          reduce_scatter)
 
 _HINT = {"mesh": None, "dp": (), "tp": None, "pp": None, "fsdp": None}
 
@@ -137,19 +138,6 @@ def _summed(x: torch.Tensor, group) -> torch.Tensor:
     return all_reduce(x.clone(memory_format=torch.contiguous_format), group)
 
 
-def _gathered(x: torch.Tensor, dim: int, group, ways: int, index: int
-              ) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in rank order: each
-    rank writes its piece into a zero buffer of the whole width and one
-    ``all_reduce`` sums them (counted as the all-reduce it is)."""
-    w = x.shape[dim]
-    shape = list(x.shape)
-    shape[dim] = ways * w
-    full = x.new_zeros(shape)
-    full.narrow(dim, index * w, w).copy_(x)
-    return all_reduce(full, group)
-
-
 class _Sum(torch.autograd.Function):
     """Sum over a group in the forward, the identity in the backward."""
 
@@ -176,22 +164,23 @@ class _Copy(torch.autograd.Function):
 
 
 class _Gather(torch.autograd.Function):
-    """All-gather along ``dim``; the backward keeps the rank's slice of
-    the gradient (``reduce=False``) or sums the gradient over the group
-    first (``reduce=True``: a reduce-scatter)."""
+    """All-gather along ``dim``; the backward keeps the rank's slice
+    (``index``) of the gradient (``reduce=False``) or reduce-scatters it
+    over the group (``reduce=True``)."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, ways, index, reduce):
+    def forward(ctx, x, dim, group, index, reduce):
         ctx.dim, ctx.group, ctx.index, ctx.reduce = dim, group, index, reduce
         ctx.width = x.shape[dim]
-        return _gathered(x, dim, group, ways, index)
+        return all_gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, dy):
         if ctx.reduce:
-            dy = _summed(dy, ctx.group)
-        return (dy.narrow(ctx.dim, ctx.index * ctx.width, ctx.width),
-                None, None, None, None, None)
+            dy = reduce_scatter(dy, ctx.dim, ctx.group)
+        else:
+            dy = dy.narrow(ctx.dim, ctx.index * ctx.width, ctx.width)
+        return dy, None, None, None, None
 
 
 def tp_all_reduce(x: torch.Tensor) -> torch.Tensor:
@@ -217,16 +206,16 @@ def tp_copy(x: torch.Tensor) -> torch.Tensor:
 
 
 def tp_all_gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Concatenate every tp rank's ``x`` along ``dim`` in rank order (a
-    zero buffer summed by one ``all_reduce``); the backward is the rank's
-    slice of the gradient.  The identity at tp = 1."""
+    """Concatenate every tp rank's ``x`` along ``dim`` in rank order
+    (one all-gather); the backward is the rank's slice of the gradient.
+    The identity at tp = 1."""
     group = tp_group()
     if group is None:
         return x
     dim = dim % x.dim()
     if _wants_grad(x):
-        return _Gather.apply(x, dim, group, tp_size(), tp_rank(), False)
-    return _gathered(x, dim, group, tp_size(), tp_rank())
+        return _Gather.apply(x, dim, group, tp_rank(), False)
+    return all_gather(x, dim, group)
 
 
 def vocab_embed(table: torch.Tensor, ids: torch.Tensor, vocab: int
@@ -248,20 +237,20 @@ def vocab_embed(table: torch.Tensor, ids: torch.Tensor, vocab: int
 def tp_argmax(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     """``torch.argmax(whole logits, -1)`` of logits whose last dim is
     this rank's block of ``vocab``: each rank's max and first argmax
-    over its block (made global), one :func:`tp_all_gather` of every
-    rank's (value, index) pair, then the largest value; a tie goes to
-    the lower rank, hence the lower index, as ``torch.argmax`` and
-    ``jnp.argmax`` give it.  The pair travels as f32: exact for any
-    logit dtype up to f32 and any index below 2**24."""
+    over its block (made global), every rank's max gathered (f32) and
+    every rank's index gathered (int32), as the reference's compiled
+    step gathers them (two ``all-gather``s), then the largest value; a
+    tie goes to the lower rank, hence the lower index, as
+    ``torch.argmax`` and ``jnp.argmax`` give it.  Exact for any logit
+    dtype up to f32."""
     held = logits.shape[-1]
     if held == vocab:
         return torch.argmax(logits, dim=-1)
     idx = torch.argmax(logits, dim=-1, keepdim=True)
-    pair = torch.cat([logits.gather(-1, idx).float(),
-                      (idx + tp_rank() * held).float()], dim=-1)
-    pairs = tp_all_gather(pair, -1).unflatten(-1, (tp_size(), 2))
-    best = torch.argmax(pairs[..., 0], dim=-1, keepdim=True)
-    return pairs[..., 1].gather(-1, best)[..., 0].long()
+    values = tp_all_gather(logits.gather(-1, idx).float())
+    ids = tp_all_gather((idx + tp_rank() * held).int())
+    best = torch.argmax(values, dim=-1, keepdim=True)
+    return ids.gather(-1, best)[..., 0].long()
 
 
 def tp_whole_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -291,8 +280,8 @@ def fsdp_gather(x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
     if group is None or dim is None:
         return x
     if _wants_grad(x):
-        return _Gather.apply(x, dim, group, dp_size(), dp_rank(), True)
-    return _gathered(x, dim, group, dp_size(), dp_rank())
+        return _Gather.apply(x, dim, group, dp_rank(), True)
+    return all_gather(x, dim, group)
 
 
 def fsdp_gather_tree(tree: Dict, dims: Optional[Dict]) -> Dict:

@@ -28,7 +28,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch import configs as tconfigs
 from repro_torch.analysis import (PricingTarget, Severity, audit_donation,
                                   lower_target, reconcile)
-from repro_torch.core import counts
+from repro_torch.core import collectives, counts
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -179,6 +179,20 @@ def test_tp2_findings_equal_reference(cli_reports):
     detail = [f for f in port if f["code"] == "pricing.matmul_ok"][0][
         "details"]
     assert abs(detail["ratio"] - 1.0) <= 0.15
+
+
+def test_tp2_collective_counts_equal_reference(cli_reports):
+    """At tp = 2 the port's step makes the collectives the reference's
+    compiled step does, op by op: the row-parallel sums and the
+    vocab-cut lookup's as all-reduces, and greedy sampling's two
+    all-gathers (each rank's max in f32 and its index in int32, where
+    GSPMD gathers ``argmax``'s f32 values and s32 indices)."""
+    wire = lambda r, key: [f for f in _by_target(cli_reports[r][1])[
+        "decode/gather/tp2pp1"] if f["code"] == "pricing.wire_ok"][0][
+        "details"][key]
+    port, ref = wire("port", "counted_counts"), wire("ref", "hlo_counts")
+    assert port == ref
+    assert port["all-gather"] == 2 and port["reduce-scatter"] == 0
 
 
 def test_pinned_pp2_stage_wire_difference(cli_reports):
@@ -378,23 +392,49 @@ def test_kernel_costs_equal_flop_counter_of_plain_versions(small):
         assert cost.bytes > 0, name
 
 
-def test_counted_collectives_follow_the_ring_convention():
-    """The collective helpers report to an active count (a CountedGroup
-    moves nothing); with no count active, nothing is recorded."""
-    from repro_torch.core.collectives import (CountedGroup, all_reduce,
-                                              broadcast)
+#: one call of each collective helper on bf16[4, 8] over a counted group,
+#: and the HLO line the reference's compiled step carries for it
+_HELPER_CASES = {
+    "all_reduce": (lambda x, G: collectives.all_reduce(x, G(4)),
+                   "bf16[4,8]{1,0} all-reduce(%a), replica_groups=[1,4]<=[4],"
+                   " to_apply=%add"),
+    "broadcast": (lambda x, G: collectives.broadcast(x, 0, G(2)),
+                  "bf16[4,8]{1,0} collective-permute(%a), "
+                  "source_target_pairs={{0,1}}"),
+    "all_gather": (lambda x, G: collectives.all_gather(x, 1, G(4)),
+                   "bf16[4,32]{1,0} all-gather(%a), replica_groups=[1,4]<=[4],"
+                   " dimensions={1}"),
+    "reduce_scatter": (lambda x, G: collectives.reduce_scatter(x, 1, G(4)),
+                       "bf16[4,2]{1,0} reduce-scatter(%a), "
+                       "replica_groups=[1,4]<=[4], dimensions={1}, "
+                       "to_apply=%add"),
+}
+
+
+@pytest.mark.parametrize("helper", list(_HELPER_CASES))
+def test_counted_collectives_follow_the_ring_convention(helper):
+    """Each collective helper reports to an active count (a CountedGroup
+    moves nothing) the op, count, wire bytes and wire elements that the
+    reference's ``hlo.analyze`` gives its HLO line (the ring convention;
+    a group of one rank adds nothing); with no count active, nothing is
+    recorded."""
+    from repro.core import hlo
+    from repro_torch.core.collectives import CountedGroup
+    call, line = _HELPER_CASES[helper]
     x = torch.zeros(4, 8, dtype=torch.bfloat16)
     with counts.count_work() as mc:
-        all_reduce(x, CountedGroup(4))
-        broadcast(x, 0, CountedGroup(2))
-        all_reduce(x, CountedGroup(1))         # one rank: no wire
-    assert mc.collective_counts["all-reduce"] == 1
-    # 32 bf16 elements: 2(g-1)/g of 64 bytes at g = 4, one result's bytes
-    # for the point-to-point broadcast
-    assert mc.collective_wire["all-reduce"] == 64 * 2 * 3 / 4
-    assert mc.collective_wire["collective-permute"] == 64
-    assert mc.collective_wire_elements == {"all-reduce": 48.0,
-                                           "collective-permute": 32.0}
+        out = call(x, CountedGroup)
+        call(x, lambda g: CountedGroup(1))        # one rank: no wire
+    ref = hlo.analyze("HloModule m\n\nENTRY %main (a: bf16[4,8]) -> "
+                      "bf16[4,8] {\n  %a = bf16[4,8]{1,0} parameter(0)\n"
+                      f"  ROOT %c = {line}\n}}\n", 4)
+    assert tuple(out.shape) == tuple(int(n) for n in
+                                     line.split("[")[1].split("]")[0]
+                                     .split(","))
+    assert mc.collective_counts == ref.collective_counts
+    assert mc.collective_wire == ref.collective_wire
+    assert mc.collective_wire_elements == ref.collective_wire_elements
+    assert sum(mc.collective_counts.values()) == 1
     assert counts.ACTIVE is None
     counts.report_collective("all-reduce", x, 4)   # no count: nothing
     assert counts.ACTIVE is None

@@ -50,14 +50,20 @@ BWD_ROUNDING = dict(p="bf16", ds="bf16")
 #: (b, s, L, H, Hk, d, causal, window, q_offset): the train shape's GQA
 #: 32/8 and head dim 64 cut to 8/2 heads and 512 positions; a window; a
 #: query block at an offset; llama2-7b's head dim 128 (MQA); a ragged,
-#: bidirectional one at d = 48 (zero-padded to 64 in the kernel)
+#: bidirectional one at d = 48 (zero-padded to 64 in the kernel);
+#: recurrentgemma-2b's local layers (d = 256, MQA, a window) cut to 4
+#: heads and 256 positions (the wide forward; its backward is ``fma``)
 CASES = {
     "causal": (1, 512, 512, 8, 2, 64, True, None, 0),
     "window": (1, 512, 512, 8, 2, 64, True, 128, 0),
     "q_offset": (1, 128, 512, 8, 2, 64, True, None, 384),
     "d128": (1, 256, 256, 4, 1, 128, True, None, 0),
     "ragged": (1, 100, 100, 4, 2, 48, False, None, 0),
+    "d256": (1, 256, 256, 4, 1, 256, True, 128, 0),
 }
+#: the cases whose backward runs on the ``mma`` body
+BWD_CASES = [n for n, c in CASES.items()
+             if fa_ops.flash_body("flash_bwd", torch.bfloat16, c[5]) == "mma"]
 
 
 def _inputs(case, seed=0):
@@ -240,7 +246,8 @@ def test_fwd_hi_lo_within_tolerance_of_plain_version(name):
     assert _ratio(got, want) <= 1.0
 
 
-@pytest.mark.parametrize("name", ["causal", "window", "q_offset", "ragged"])
+@pytest.mark.parametrize("name", ["causal", "window", "q_offset", "ragged",
+                                  "d256"])
 def test_fwd_hi_lo_within_tolerance_of_jax_kernel(name):
     case = CASES[name]
     q, k, v, do = _inputs(case, seed=len(name))
@@ -287,7 +294,7 @@ def _bwd(case, seed, **rounding):
                                   **rounding)
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", BWD_CASES)
 def test_bwd_single_rounding_within_limit_of_plain_version(name):
     case = CASES[name]
     (q, k, v, do), grads = _bwd(case, len(name), **BWD_ROUNDING)
@@ -346,27 +353,41 @@ def test_tile_ranges_skip_only_dead_tiles():
                     assert (i0 in back) == any_live, (s, L, kw, i0, t0)
 
 
-@pytest.mark.parametrize("dtype,d,want", [
-    (torch.bfloat16, 64, "mma"), (torch.bfloat16, 128, "mma"),
-    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 48, "mma"),
-    (torch.bfloat16, 112, "mma"), (torch.bfloat16, 256, "fma"),
-    (torch.bfloat16, 144, "fma"), (torch.bfloat16, 40, "fma"),
-    (torch.bfloat16, 8, "fma"), (torch.float32, 64, "fma"),
-    (torch.float32, 128, "fma"), (torch.float16, 64, "fma"),
+@pytest.mark.parametrize("dtype,d,fwd,bwd", [
+    (torch.bfloat16, 64, "mma", "mma"), (torch.bfloat16, 128, "mma", "mma"),
+    (torch.bfloat16, 16, "mma", "mma"), (torch.bfloat16, 48, "mma", "mma"),
+    (torch.bfloat16, 112, "mma", "mma"), (torch.bfloat16, 256, "mma", "fma"),
+    (torch.bfloat16, 144, "mma", "fma"), (torch.bfloat16, 40, "fma", "fma"),
+    (torch.bfloat16, 8, "fma", "fma"), (torch.float32, 64, "fma", "fma"),
+    (torch.float32, 128, "fma", "fma"), (torch.float16, 64, "fma", "fma"),
+    (torch.float32, 256, "fma", "fma"),
 ])
-def test_flash_body_rule(dtype, d, want):
-    assert fa_ops.flash_body(dtype, d) == want
+def test_flash_body_rule(dtype, d, fwd, bwd):
+    """Each direction's rule: bf16 at d % 16 == 0 on the tensor cores up
+    to 256 forward and 128 backward; f32 always on ``fma``."""
+    assert fa_ops.flash_body("flash_fwd", dtype, d) == fwd
+    assert fa_ops.flash_body("flash_bwd", dtype, d) == bwd
+    with pytest.raises(ValueError, match="wrapper"):
+        fa_ops.flash_body("flash", dtype, d)
 
 
 @pytest.mark.parametrize("d,dp,inner", [(16, 64, 64), (64, 64, 64),
-                                        (80, 128, 32), (128, 128, 32)])
+                                        (80, 128, 32), (128, 128, 32),
+                                        (144, 256, 0), (256, 256, 0)])
 def test_mma_tiles(d, dp, inner):
+    """Four warps of 64 query rows (or keys) per block up to dp = 128;
+    eight warps of 128 query rows for the wide forward, which has no
+    backward tiles."""
     tiles = fa_ops.mma_tiles(d)
-    assert tiles == fa_ops.MmaTiles(dp=dp, fwd_rows=64, fwd_keys=64,
-                                    dkdv_keys=64, dkdv_rows=inner,
-                                    dq_rows=64, dq_keys=inner)
-    with pytest.raises(ValueError, match="mma body"):
-        fa_ops.mma_tiles(256)
+    wide = dp == 256
+    assert tiles == fa_ops.MmaTiles(dp=dp, fwd_rows=128 if wide else 64,
+                                    fwd_keys=64,
+                                    dkdv_keys=0 if wide else 64,
+                                    dkdv_rows=inner,
+                                    dq_rows=0 if wide else 64, dq_keys=inner)
+    for bad in (40, 264):
+        with pytest.raises(ValueError, match="mma body"):
+            fa_ops.mma_tiles(bad)
 
 
 if __name__ == "__main__":
@@ -382,7 +403,7 @@ if __name__ == "__main__":
         _, plain = _plain_grads(q, k, v, do, _kw(case))
         rel = {how: [_rel(a, r) for a, r in zip(
             _bwd(case, len(name), p=how, ds=how)[1], plain)]
-            for how in ("bf16", "hi_lo")}
+            for how in ("bf16", "hi_lo") if name in BWD_CASES}
         print(f"{name}: forward err/limit hi/lo {fwd[0]:.4f}, one bf16 P "
               f"{fwd[1]:.4f}; dq/dk/dv rel "
               + "; ".join(f"{how} " + "/".join(f"{x:.3e}" for x in r)

@@ -678,21 +678,24 @@ FA_CASES = [(1, 128, 128, 4, 4, 64, True, None, 0),
             (2, 192, 192, 4, 4, 64, True, 64, 0),
             (1, 64, 64, 4, 4, 128, False, None, 0),
             (1, 128, 128, 2, 2, 256, True, None, 0)]
-#: those the rule sends to the tensor-core body in bf16
+#: those the rule sends to the tensor-core body in bf16 (the forward's
+#: rule: at d = 256 the wide forward, the backward on fma)
 FA_MMA_CASES = [c for c in FA_CASES
-                if fa_ops.flash_body(torch.bfloat16, c[5]) == "mma"]
+                if fa_ops.flash_body("flash_fwd", torch.bfloat16, c[5])
+                == "mma"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FA_CASES, ids=[str(c) for c in FA_CASES])
 def test_flash_attention_kernels_match_plain_version(cuda_device, case,
                                                      dtype):
-    """The rule's body through the differentiable wrapper: forward
-    within ``kernel_tolerance``; dq, dk, dv within a relative norm of
-    1e-5 in f32 (the ``fma`` body: the same f32 arithmetic in another
-    order) and 2e-2 in bf16 (D = rowsum(dO*O) reads the bf16-rounded
-    output, the gradients round once to bf16, and the ``mma`` body rounds
-    P and dS once to bf16)."""
+    """Each direction's rule body through the differentiable wrapper
+    (bf16 at d = 256: the wide ``mma`` forward, the ``fma`` backward):
+    forward within ``kernel_tolerance``; dq, dk, dv within a relative
+    norm of 1e-5 in f32 (the ``fma`` body: the same f32 arithmetic in
+    another order) and 2e-2 in bf16 (D = rowsum(dO*O) reads the
+    bf16-rounded output, the gradients round once to bf16, and the
+    ``mma`` body rounds P and dS once to bf16)."""
     b, s, L, H, Hk, d, causal, window, q_offset = case
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(3)
@@ -702,11 +705,15 @@ def test_flash_attention_kernels_match_plain_version(cuda_device, case,
     g = mk(b, s, H, d)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     before = dict(fa_ops.LAUNCHES)
+    bodies = {n: dict(c) for n, c in fa_ops.BODY_LAUNCHES.items()}
     qk = [t.clone().requires_grad_() for t in (q, k, v)]
     out = fa_ops.flash_attention(*qk, **kw)
     grads = torch.autograd.grad(out, qk, g)
     assert fa_ops.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
     assert fa_ops.LAUNCHES["flash_bwd"] == before["flash_bwd"] + 1
+    for name in bodies:
+        body = fa_ops.flash_body(name, dtype, d)
+        assert fa_ops.BODY_LAUNCHES[name][body] == bodies[name][body] + 1
     qr = [t.clone().requires_grad_() for t in (q, k, v)]
     ref = fa_ops.attention_ref(*qr, **kw)
     ref_grads = torch.autograd.grad(ref, qr, g)
@@ -760,7 +767,8 @@ def test_flash_training_step_equals_eager(cuda_device):
 
 #: the lockstep step's blockwise branches: (b, s, L, Hk, G, d, window,
 #: q_offset) — a dense chunk over a longer cache (llama2-7b's heads, the
-#: mma body), a local chunk of its window (recurrentgemma-2b's, fma)
+#: mma body), a local chunk of its window (recurrentgemma-2b's, d = 256:
+#: the wide mma forward)
 LOCKSTEP_CASES = {"dense": (1, 4096, 5120, 32, 1, 128, None, 1024),
                   "local": (2, 2048, 2048, 1, 10, 256, 2048, 0)}
 
@@ -779,7 +787,8 @@ def test_lockstep_blockwise_runs_the_flash_kernel(cuda_device, case):
                                     device=cuda_device).to(torch.bfloat16)
     q, k, v = mk(b, s, Hk, G, d), mk(b, L, Hk, d), mk(b, L, Hk, d)
     kw = dict(window=window, q_offset=q_offset)
-    body = fa_ops.flash_body(torch.bfloat16, d)
+    body = fa_ops.flash_body("flash_fwd", torch.bfloat16, d)
+    assert body == "mma"
     before = fa_ops.BODY_LAUNCHES["flash_fwd"][body]
     out = attention.lockstep_blockwise(q, k, v, **kw)
     assert fa_ops.BODY_LAUNCHES["flash_fwd"][body] == before + 1
@@ -803,18 +812,23 @@ def _flash_inputs(case, device, seed=3, dtype=torch.bfloat16):
 @pytest.mark.parametrize("case", FA_MMA_CASES,
                          ids=[str(c) for c in FA_MMA_CASES])
 def test_flash_bodies_match_plain_version(cuda_device, case, body):
-    """Both bodies on every bf16 case the rule sends to ``mma`` (the
-    ``fma`` body forced): the forward within ``kernel_tolerance``, dq,
-    dk, dv within a relative norm of 2e-2 of autograd through the plain
-    version (one bf16 rounding of P and dS in the ``mma`` backward, of
-    every gradient in both)."""
+    """Both bodies on every bf16 case the forward's rule sends to
+    ``mma`` (the ``fma`` body forced; a backward the rule keeps on
+    ``fma``, d = 256's, stays there): the forward within
+    ``kernel_tolerance``, dq, dk, dv within a relative norm of 2e-2 of
+    autograd through the plain version (one bf16 rounding of P and dS in
+    the ``mma`` backward, of every gradient in both)."""
     kw = dict(causal=case[6], window=case[7], q_offset=case[8])
     q, k, v, do = _flash_inputs(case, cuda_device)
+    ran = {"flash_fwd": body,
+           "flash_bwd": body if body == "fma" else fa_ops.flash_body(
+               "flash_bwd", torch.bfloat16, case[5])}
     before = {n: dict(c) for n, c in fa_ops.BODY_LAUNCHES.items()}
-    o, lse = fa_ops.flash_fwd(q, k, v, body=body, **kw)
-    grads = fa_ops.flash_bwd(q, k, v, o, lse, do, body=body, **kw)
-    for name in ("flash_fwd", "flash_bwd"):
-        assert fa_ops.BODY_LAUNCHES[name][body] == before[name][body] + 1
+    o, lse = fa_ops.flash_fwd(q, k, v, body=ran["flash_fwd"], **kw)
+    grads = fa_ops.flash_bwd(q, k, v, o, lse, do, body=ran["flash_bwd"],
+                             **kw)
+    for name, b in ran.items():
+        assert fa_ops.BODY_LAUNCHES[name][b] == before[name][b] + 1
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ref = fa_ops.attention_ref(*leaves, **kw)
     ref_grads = torch.autograd.grad(ref, leaves, do)
@@ -854,27 +868,35 @@ def test_bf16_train_shape_runs_on_the_mma_body(cuda_device):
            for n, c in before.items()}
     assert got == {"flash_fwd": {"mma": 1, "fma": 0},
                    "flash_bwd": {"mma": 1, "fma": 0}}
-    assert fa_ops.flash_body(torch.float32, 64) == "fma"
+    assert fa_ops.flash_body("flash_fwd", torch.float32, 64) == "fma"
 
 
 def test_flash_mma_tiles_match_the_library(cuda_device):
     """The tile plan the tests emulate is the one the CUDA source uses."""
     import ctypes
     lib = fa_ops.load_library()
-    for d in range(16, 129, 16):
+    for d in range(16, 257, 16):
         out = (ctypes.c_int * 7)()
         assert lib.flash_mma_tiles(d, out) == 0
         assert tuple(out) == tuple(vars(fa_ops.mma_tiles(d)).values())
-    assert lib.flash_mma_tiles(136, (ctypes.c_int * 7)()) == -1
+    for d in (136, 264):
+        assert lib.flash_mma_tiles(d, (ctypes.c_int * 7)()) == -1
 
 
 def test_flash_wrapper_refuses_to_force_mma_where_it_does_not_apply(
         cuda_device):
+    """f32 takes no ``mma`` body; bf16 at d = 256 takes the wide ``mma``
+    forward but no ``mma`` backward: forcing one raises, nothing falls
+    back."""
     for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
-        q, k, v, _ = _flash_inputs((1, 16, 16, 2, 2, d, True, None, 0),
-                                   cuda_device, dtype=dtype)
+        q, k, v, do = _flash_inputs((1, 16, 16, 2, 2, d, True, None, 0),
+                                    cuda_device, dtype=dtype)
+        if dtype == torch.float32:
+            with pytest.raises(ValueError, match="mma body takes"):
+                fa_ops.flash_fwd(q, k, v, body="mma")
+        o, lse = fa_ops.flash_fwd(q, k, v)
         with pytest.raises(ValueError, match="mma body takes"):
-            fa_ops.flash_fwd(q, k, v, body="mma")
+            fa_ops.flash_bwd(q, k, v, o, lse, do, body="mma")
     with pytest.raises(ValueError, match="body must be one of"):
         fa_ops.flash_fwd(q, k, v, body="wgmma")
 
