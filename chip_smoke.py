@@ -31,8 +31,11 @@ caught and ignored):
               q_offset, a window, non-causal, head_dim 256) in bf16 and
               f32 and at the training shape, bf16 on both bodies (mma
               on the tensor cores, fma on the CUDA cores) where the rule
-              picks mma (the forward up to d = 256, the backward up to
-              128); the int4 dequant-matmul at
+              picks mma (both directions up to d = 256), and the
+              backward at recurrentgemma-2b's training shape (1 x 4096,
+              10 heads over one KV head, d = 256, window 2048) on both
+              bodies beside SDPA with a boolean mask; the int4
+              dequant-matmul at
               every llama2-7b linear shape at m = 4, 64 and 256, one int8
               case and a ragged one (m=5, n=200, g=64) in f32 and bf16.
               Then each kernel's time (CUDA events, and device time by
@@ -57,9 +60,13 @@ caught and ignored):
 4. train    — the trainer: granite-3-2b at full width and depth (40
               layers, random bf16 weights from seed 0), flash attention,
               per-layer remat, AdamW, 4 x 2048 synthetic tokens, 4 steps;
-              per step its loss, grad norm, time, tokens/s, train_mfu,
-              peak memory and K6 launches (every one on the mma body,
-              or the run fails).  Then at 4 layers, full width,
+              then recurrentgemma-2b at full width and depth (26 layers,
+              8 of them local attention at d = 256 on K6's wide bodies,
+              window 2048), 1 x 4096 tokens, 3 steps; per step its loss,
+              grad norm, time, tokens/s, train_mfu, peak memory (under
+              80 GB) and K6 launches (twice per attention layer forward,
+              once backward, every one on the mma body, or the run
+              fails).  Then at 4 layers of granite-3-2b, full width,
               a run checkpointed after step 1 and resumed equals an
               uninterrupted one bit for bit.
 5. parity   — llama2-7b at full width with 4 layers and f32 weights:
@@ -99,10 +106,8 @@ caught and ignored):
               pass (K2, K1) and its speculative pass with four LoRA
               tenants (K2, K3, K4), each zeroing the launch counts before
               it and reading them after; TTFT, TPOT, TPS and peak memory;
-              a profile of an admission and a decode block, device time
-              by class (expert products, shared experts, router and
-              dispatch, attention kernels, the rest); then measure
-              against forecast as in phase 7.  The weights are freed.
+              then measure against forecast as in phase 7.  The weights
+              are freed.
 9. vlm      — internvl2-26b at full width and depth (48 layers, d=6144,
               39.8 GB) served as text (K2, K1); one forward over 256
               vision patches + 256 tokens through K6, each layer's K6
@@ -128,23 +133,24 @@ caught and ignored):
 11. multidevice — tensor- and pipeline-parallel serving with every rank on
               this one card (gloo on CUDA tensors, the explicit
               share_device opt-in; NCCL puts no two ranks on one card),
-              each world spawned, its ranks' launches summed and freed
-              before the next: llama2-7b at full width and depth at
-              tp=2 (the engine phase's plain pass, then its speculative
-              pass with four LoRA tenants: K1 on split and bf16 K2/K3 on
-              mma over 16 heads a rank, K4 on 8 rank lanes; the
-              vocabulary cut over the ranks) and pp=2, and at 8 layers
-              (MD_WORLDS) tp=2 x pp=2 and qwen2-moe-a2.7b at tp=2 (32 of
+              one spawn per mesh shape running its worlds in turn, each
+              freeing its weights before the next, the ranks' launches
+              summed, each at full width and 4 layers
+              (MD_LAYERS): llama2-7b at pp=2 and at tp=2 (the engine
+              phase's plain pass, then its speculative pass with four
+              LoRA tenants: K1 on split and bf16 K2/K3 on mma over 16
+              heads a rank, K4 on 8 rank lanes; the vocabulary cut over
+              the ranks), tp=2 x pp=2 and qwen2-moe-a2.7b at tp=2 (32 of
               64 padded experts a rank);
               TTFT, TPOT, TPS, each rank's shard and peak memory, ms per
               gloo collective, the share of bf16 tokens equal to tp=1's;
               at 4 layers in f32 weights every plan's tokens equal
               tp=1's with f32 KV (with bf16 and int8 KV too at pp; at tp
-              their share is reported); then api.measure at tp=2 against
-              api.forecast for 2 x nvidia-h100.  Then the
-              lockstep Server on a mesh (the lockstep phase's runs; at
-              tp=2 8 layers of each (MDL_WORLDS), its tp=1 records served
-              at that depth first): at tp=2 falcon-mamba-7b,
+              their share is reported); then api.measure at tp=2 (4
+              layers) against api.forecast for 2 x nvidia-h100.  Then
+              the lockstep Server on a mesh (the lockstep phase's runs at
+              4 layers (MDL_WORLDS), their tp=1 records served at that
+              depth first): at tp=2 falcon-mamba-7b,
               recurrentgemma-2b (K6 on mma at 5 query heads over the one
               KV head), llama2-7b-mla (bf16, int8 KV), whisper-base and
               llama2-7b 1 x 4096 (K6 on mma at 16 heads), each rank's K6
@@ -155,8 +161,8 @@ caught and ignored):
               f32 weights tp=1's tokens exactly for falcon-mamba-7b in
               every plan, for every family at pp=2 and with f32 KV at
               tp (bf16 and int8 KV at tp: the share); then api.measure
-              of falcon-mamba-7b at tp=2 against api.forecast for 2 x
-              nvidia-h100.  The kernels phase holds K1-K4 and K6 to their
+              of falcon-mamba-7b at tp=2 (4 layers) against api.forecast
+              for 2 x nvidia-h100.  The kernels phase holds K1-K4 and K6 to their
               plain versions at a tp=2 rank's shapes too.
 
 12. trainmesh — the trainer on a mesh with every rank on this one card
@@ -164,11 +170,11 @@ caught and ignored):
               width through Trainer.run, bf16, 4 x 2048 Zipf tokens (the
               train phase's data, optimizer and seed), flash attention
               (K6 on mma at a rank's heads and rows) and remat, 3 steps,
-              at tp=2 (40 layers), and at dp=2 and dp=2 x tp=2 with
-              FSDP (8 layers; TM_WORLDS): step time, tokens/s, peak memory and shard per rank, gloo bytes,
-              calls and seconds per step, the losses beside the train
-              phase's, each rank's K6 launches (zeroed before its run,
-              read after) summed; at 4 layers in f32, three steps at
+              8 layers (TM_WORLDS), at tp=2, and at dp=2 and dp=2 x tp=2
+              with FSDP: step time, tokens/s, peak memory and shard per
+              rank, gloo bytes, calls and seconds per step, each rank's
+              K6 launches (zeroed before its run, read after) summed; at
+              2 layers (TM_PARITY_LAYERS) in f32, three steps at
               dp=2, dp=2 FSDP, tp=2, dp=2 x tp=2 FSDP and dp=2 with two
               microbatches against this process's one-rank step (loss
               1e-5 relative, params 1e-4 relative norm); a Trainer saved
@@ -188,14 +194,19 @@ caught and ignored):
 14. examples — examples/serve_batched_torch.py (qwen2-7b at full width,
               paged: K2 and K1, bf16 and int8 KV; its launches read in
               its process) and examples/train_100m_torch.py at its
-              defaults, each run from the repo root in its own process:
+              defaults but 50 steps (EXAMPLE_TRAIN_STEPS), each run
+              from the repo root in its own process:
               the five scenarios' measured tok/s and twin ratio on
               nvidia-h100, the shared prompt's measured prefix hit rate
               equal to the forecast's, the 100M run's parameter count,
               time per step and falling loss.
 
-``--phases profile`` (run only when named) profiles engine steps and one
-training step of the train phase's configuration.
+``--phases profile`` (run only when named) profiles engine steps,
+qwen2-moe-a2.7b's engine steps by class (expert products, shared
+experts, router and dispatch, attention kernels, the rest) and one
+training step of each of the train phase's configurations (K6 forward
+and backward, cuBLAS, elementwise, the optimizer's range and the
+recurrences' forward range).
 
 The last lines are the quant/measure, moe/vlm/lockstep, multidevice,
 train/trainmesh, audit/examples and engine JSON summaries, the kernels'
@@ -829,6 +840,9 @@ FA_MAIN = (4, 2048, 2048, 32, 8, 64, True, None, 0)
 #: of 4 rows, every head)
 FA_TRAIN_RANKS = {"tp=2 rank": (4, 2048, 2048, 16, 4, 64, True, None, 0),
                   "dp=2 rank": (2, 2048, 2048, 32, 8, 64, True, None, 0)}
+#: the train phase's recurrentgemma-2b attention: 1 x 4096, 10 query heads
+#: over one KV head, d = 256, window 2048 (K6's wide bodies)
+FA_TRAIN_WIDE = (1, 4096, 4096, 10, 1, 256, True, 2048, 0)
 
 
 def attention_pairs(s, L, causal, window, q_offset) -> int:
@@ -868,11 +882,12 @@ def check_flash(device, gen, worst, results):
     uses the f32 one, every gradient rounds once to bf16, and the ``mma``
     body rounds P and dS once to bf16).  Every bf16 case runs on the
     bodies ``flash_body`` picks for each direction (at d = 256 the wide
-    ``mma`` forward and the ``fma`` backward) and, where the forward's is
-    ``mma``, on the ``fma`` body forced too.  Then both bodies timed at
-    the train phase's shape (CUDA events and torch.profiler's device
-    time), beside the plain version and SDPA (``is_causal``,
-    ``enable_gqa``; the port never calls it)."""
+    ``mma`` forward and backward) and, where they are ``mma``, on the
+    ``fma`` body forced too.  Then both bodies timed at the train phase's
+    shape (CUDA events and torch.profiler's device time), beside the
+    plain version and SDPA (``is_causal``, ``enable_gqa``; the port never
+    calls it); the same for the backward at recurrentgemma-2b's training
+    shape (``FA_TRAIN_WIDE``, SDPA with a boolean window mask)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -986,6 +1001,61 @@ def check_flash(device, gen, worst, results):
     torch.cuda.empty_cache()
     for what, case in FA_TRAIN_RANKS.items():
         _time_k6_train_rank(what, case, one, results)
+    _time_k6_train_wide(one, results)
+
+
+def _time_k6_train_wide(one, results):
+    """K6's backward at ``FA_TRAIN_WIDE`` (the wide ``mma`` body, and the
+    ``fma`` body forced): held to the plain version by ``check_flash``'s
+    ``one``, then timed on both (CUDA events and device time) beside the
+    plain version's autograd backward and SDPA's backward with a boolean
+    window mask (events and device time), with the bound, into
+    ``flash_bwd``'s ``more_shapes``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    case = FA_TRAIN_WIDE
+    b, s, L, H, Hk, d, causal, window, q_offset = case
+    what = "recurrentgemma-2b training shape"
+    _, _, grad_err_fma = one(case, torch.bfloat16, what, body="fma")
+    (q, k, v, do, o, lse), _, grad_err = one(case, torch.bfloat16, what)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    shape = (f"{what}: b={b} s={s} L={L} H={H} Hk={Hk} d={d} causal "
+             f"window={window} bf16 (backward alone; plain and library: "
+             f"autograd backward of a kept graph)")
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref = ops.attention_ref(*leaves, **kw)
+    plain_bwd = lambda: torch.autograd.grad(ref, leaves, do,
+                                            retain_graph=True)
+    qp = q_offset + torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(L, device=q.device)[None, :]
+    mask = (kp <= qp) & (kp > qp - window)
+    ql, kl, vl, dol = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    lib_leaves = [t.clone().requires_grad_() for t in (ql, kl, vl)]
+    lib_out = F.scaled_dot_product_attention(
+        *lib_leaves, attn_mask=mask[None, None], enable_gqa=True)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, lib_leaves, dol,
+                                          retain_graph=True)
+    common = dict(plain_ms=time_ms(plain_bwd, iters=5, warmup=1),
+                  library_ms=time_ms(lib_bwd),
+                  **device_rec("library_device_ms", lib_bwd))
+    common["bound_ms"], common["bound_by"] = flash_bound(case, 2, True)
+    del ref, leaves
+    for body, e in (("mma", grad_err), ("fma", grad_err_fma)):
+        fn = lambda: ops.flash_bwd(q, k, v, o, lse, do, body=body, **kw)
+        iters = 20 if body == "mma" else 5
+        rec = dict(ms=time_ms(fn, iters=iters),
+                   **device_rec("device_ms", fn, iters=iters), body=body,
+                   **common, max_abs_err=e, shape=shape)
+        results["flash_bwd"].setdefault("more_shapes", []).append(rec)
+        log(f"[kernels] flash_bwd ({body}) at {shape}: {rec['ms']:.4f} ms, "
+            f"device {fmt_ms(rec['device_ms'])}, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+            f"{rec['plain_ms']:.4f} ms, SDPA with a boolean mask "
+            f"{rec['library_ms']:.4f} ms, device "
+            f"{fmt_ms(rec['library_device_ms'])}")
+    del lib_out, lib_leaves
+    torch.cuda.empty_cache()
 
 
 def _time_k6_train_rank(what, case, one, results):
@@ -1634,41 +1704,65 @@ def phase_engine(device, summary):
 
 TRAIN_ARCH = "granite-3-2b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
+#: the hybrid cell: recurrentgemma-2b (26 layers, 8 of them local
+#: attention at d = 256, window 2048) at the reference's train_4k length,
+#: where the window cuts into the keys; K6 on the wide bodies
+TRAIN_WIDE_ARCH = "recurrentgemma-2b"
+TRAIN_WIDE_BATCH, TRAIN_WIDE_SEQ, TRAIN_WIDE_STEPS = 1, 4096, 3
+#: its peak learning rate: AdamW's first update moves every weight by
+#: about the learning rate, and at granite-3-2b's 3e-4 the last of its
+#: three steps' losses rose above the first's (12.96, 12.53, 14.47 on an
+#: H100 80GB HBM3 at 700 W)
+TRAIN_WIDE_LR = 1e-4
+#: the card's memory, which a training step's peak must stay under
+CARD_BYTES = 80e9
 
 
 def train_flops(cfg, batch, seq) -> float:
     """Model FLOPs of one training step: 6*N per token, plus attention's
-    forward and backward (3 x 4*b*H*hd per live causal pair and layer).
-    Remat's recompute is not counted: it is not the model's work."""
+    forward and backward (3 x 4*b*H*hd per live causal pair) in each
+    attention layer (8 of recurrentgemma-2b's 26, every layer of a dense
+    model).  Remat's recompute is not counted: it is not the model's
+    work."""
     pairs = attention_pairs(seq, seq, True, cfg.local_window or None, 0)
+    n_attn = cfg.block_kinds().count("attn")
     return (6 * cfg.param_count() * batch * seq
-            + 12 * batch * cfg.n_heads * cfg.head_dim * pairs * cfg.n_layers)
+            + 12 * batch * cfg.n_heads * cfg.head_dim * pairs * n_attn)
 
 
-def _trainer(cfg, ckpt_dir, total, ckpt_every, device, seed=0, **kw):
+def _trainer(cfg, ckpt_dir, total, ckpt_every, device, seed=0,
+             batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=3e-4,
+             **kw):
     from repro_torch.data import DataConfig, SyntheticTokens
     from repro_torch.optim import AdamW
     from repro_torch.runtime import Trainer, TrainerConfig
-    data = SyntheticTokens(cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed),
-                           device=device)
-    opt = AdamW(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    data = SyntheticTokens(cfg, DataConfig(batch, seq, seed), device=device)
+    opt = AdamW(lr=lr, warmup_steps=1, total_steps=steps)
     tc = TrainerConfig(total_steps=total, ckpt_every=ckpt_every,
                        ckpt_dir=ckpt_dir, log_every=1)
     return Trainer(cfg, opt, data, tc, use_flash=True, device=device, **kw)
 
 
-def phase_train(device, summary):
-    """granite-3-2b at full width and depth through ``Trainer.run`` with
-    flash attention; then the resume check at 4 layers, full width."""
+def _train_run(arch, batch, seq, steps, device, lr=3e-4) -> dict:
+    """``arch`` at full width and depth through ``Trainer.run`` (random
+    bf16 weights from seed 0, flash attention, remat, AdamW at peak
+    learning rate ``lr``, no checkpoint: granite-3-2b's is 25 GB of
+    disk), ``steps`` steps of batch x seq tokens; per step its loss, grad
+    norm, time, tokens/s, train_mfu, peak memory and K6 launches.  Fails unless the losses are
+    finite and fall, the peak stays under the card's memory, and K6
+    launches twice per attention layer and step forward (remat) and once
+    backward, every launch on the body ``flash_body`` picks, ``mma``."""
     import math
     import tempfile
     import torch
     from repro_torch import configs
     from repro_torch.optim.adamw import tree_leaves
 
-    cfg = configs.get(TRAIN_ARCH)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    cfg = configs.get(arch)
+    fa_ops = _kernel_ops()[2]
+    tokens = batch * seq
+    flops = train_flops(cfg, batch, seq)
+    n_attn = cfg.block_kinds().count("attn")
     marks = []
 
     def mark(step):
@@ -1678,68 +1772,91 @@ def phase_train(device, summary):
         torch.cuda.reset_peak_memory_stats(device)
 
     with tempfile.TemporaryDirectory() as ckpt:
-        # no checkpoint in this run: one is 25 GB of disk (params, mu, nu);
-        # the resume check below writes them at 4 layers
-        trainer = _trainer(cfg, ckpt, TRAIN_STEPS, TRAIN_STEPS + 1, device,
-                           failure_injector=mark)
+        trainer = _trainer(cfg, ckpt, steps, steps + 1, device, batch=batch,
+                           seq=seq, steps=steps, lr=lr, failure_injector=mark)
         torch.cuda.reset_peak_memory_stats(device)
         _reset_launches()                     # the main path starts here
         t0 = time.perf_counter()
-        params, opt_state, steps = trainer.run(seed=0)
+        params, opt_state, log_ = trainer.run(seed=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _launches()                # ... and ends here
-        bodies = {n: dict(c)
-                  for n, c in _kernel_ops()[2].BODY_LAUNCHES.items()}
+        bodies = {n: dict(c) for n, c in fa_ops.BODY_LAUNCHES.items()}
     marks.append((torch.cuda.max_memory_allocated(device), launches))
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"[train] {TRAIN_ARCH} params {n_params / 1e9:.4f} B, {cfg.n_layers} "
-        f"layers, d={cfg.d_model}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens per "
-        f"step, flash attention, remat, AdamW; {flops / 1e12:.2f} TFLOP "
-        f"per step (model); init + {TRAIN_STEPS} steps in {wall:.1f} s")
-    check(len(steps) == TRAIN_STEPS, f"train: {len(steps)} steps logged")
-    for e, (peak, after), (_, before) in zip(steps, marks[1:], marks[:-1]):
+    tag = f"[train] {arch}"
+    log(f"{tag} params {n_params / 1e9:.4f} B, {cfg.n_layers} layers "
+        f"({n_attn} attention, head dim {cfg.head_dim}, window "
+        f"{cfg.local_window or 'none'}), d={cfg.d_model}, {batch} x {seq} "
+        f"tokens per step, flash attention, remat, AdamW (peak lr {lr:g}); "
+        f"{flops / 1e12:.2f} TFLOP per step (model); init + {steps} steps "
+        f"in {wall:.1f} s")
+    check(len(log_) == steps, f"train {arch}: {len(log_)} steps logged")
+    for e, (peak, after), (_, before) in zip(log_, marks[1:], marks[:-1]):
         e["tokens_per_s"] = tokens / e["step_s"]
         e["train_mfu"] = flops / (e["step_s"] * BF16_FLOPS_PER_S)
         e["peak_mem_gb"] = peak / 1e9
         e["launches"] = {k: after[k] - before[k]
                          for k in ("flash_fwd", "flash_bwd")}
-        log(f"[train] step {e['step']}: loss {e['loss']:.5f} grad_norm "
+        log(f"{tag} step {e['step']}: loss {e['loss']:.5f} grad_norm "
             f"{e['grad_norm']:.5f} step {e['step_s'] * 1e3:.1f} ms, "
             f"{e['tokens_per_s']:.1f} tokens/s, train_mfu "
             f"{e['train_mfu']:.4f}, peak memory {e['peak_mem_gb']:.2f} GB, "
             f"K6 launches {e['launches']}")
     check(all(math.isfinite(e["loss"]) and math.isfinite(e["grad_norm"])
-              for e in steps), "train: a loss or grad norm is not finite")
-    check(steps[-1]["loss"] < steps[0]["loss"],
-          f"train: loss did not fall ({steps[0]['loss']} -> "
-          f"{steps[-1]['loss']})")
-    want = {"flash_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
-            "flash_bwd": cfg.n_layers * TRAIN_STEPS}
+              for e in log_), f"train {arch}: a loss or grad norm is not "
+          f"finite")
+    check(log_[-1]["loss"] < log_[0]["loss"],
+          f"train {arch}: loss did not fall ({log_[0]['loss']} -> "
+          f"{log_[-1]['loss']})")
+    peak = max(e["peak_mem_gb"] for e in log_)
+    check(peak * 1e9 < CARD_BYTES, f"train {arch}: peak memory {peak:.2f} "
+          f"GB, not under {CARD_BYTES / 1e9:.0f} GB")
+    want = {"flash_fwd": 2 * n_attn * steps, "flash_bwd": n_attn * steps}
     got = {k: launches[k] for k in want}
-    check(got == want, f"train: K6 launches {got}, expected {want} (the "
-          f"forward twice per layer and step under remat)")
-    # every call is bf16 at d = 64: all of them on the tensor cores
-    check(all(bodies[k] == {"mma": want[k], "fma": 0} for k in want),
-          f"train: K6 launches by body {bodies}; every bf16 call must run "
-          f"on the mma body")
-    steady = steps[1:]
-    summary["train"] = dict(
-        arch=TRAIN_ARCH, params=n_params, steps=TRAIN_STEPS,
-        batch=TRAIN_BATCH, seq=TRAIN_SEQ, step_flops=flops,
-        loss=[e["loss"] for e in steps],
-        grad_norm=[e["grad_norm"] for e in steps],
-        step_ms=[e["step_s"] * 1e3 for e in steps],
+    check(got == want, f"train {arch}: K6 launches {got}, expected {want} "
+          f"(the forward twice per attention layer and step under remat)")
+    # every call is bf16 at the config's head dim: the rule's body, mma
+    rule = {k: fa_ops.flash_body(k, torch.bfloat16, cfg.head_dim)
+            for k in want}
+    check(all(rule[k] == "mma" and bodies[k] == {"mma": want[k], "fma": 0}
+              for k in want),
+          f"train {arch}: K6 launches by body {bodies} (rule {rule}); "
+          f"every bf16 call must run on the mma body")
+    steady = log_[1:]
+    rec = dict(
+        arch=arch, params=n_params, layers=cfg.n_layers,
+        attention_layers=n_attn, head_dim=cfg.head_dim, steps=steps,
+        batch=batch, seq=seq, lr=lr, step_flops=flops,
+        loss=[e["loss"] for e in log_],
+        grad_norm=[e["grad_norm"] for e in log_],
+        step_ms=[e["step_s"] * 1e3 for e in log_],
         tokens_per_s=sum(e["tokens_per_s"] for e in steady) / len(steady),
         train_mfu=sum(e["train_mfu"] for e in steady) / len(steady),
-        peak_mem_gb=max(e["peak_mem_gb"] for e in steps),
-        launches=got, bodies=bodies, wall_s=wall)
-    log(f"[train] steps 1-{TRAIN_STEPS - 1}: {summary['train']['tokens_per_s']:.1f} "
-        f"tokens/s, train_mfu {summary['train']['train_mfu']:.4f}; peak "
-        f"memory {summary['train']['peak_mem_gb']:.2f} GB; launches {got}, "
-        f"by body {bodies}")
+        peak_mem_gb=peak, launches=got, bodies=bodies, wall_s=wall)
+    log(f"{tag} steps 1-{steps - 1}: {rec['tokens_per_s']:.1f} tokens/s, "
+        f"train_mfu {rec['train_mfu']:.4f}; peak memory "
+        f"{rec['peak_mem_gb']:.2f} GB; launches {got}, by body {bodies}")
     del trainer, params, opt_state
     torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train(device, summary):
+    """granite-3-2b and recurrentgemma-2b at full width and depth through
+    ``Trainer.run`` with flash attention; then the resume check at 4
+    layers of granite-3-2b, full width."""
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.optim.adamw import tree_leaves
+
+    summary["train"] = _train_run(TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ,
+                                  TRAIN_STEPS, device)
+    summary["train_wide"] = _train_run(TRAIN_WIDE_ARCH, TRAIN_WIDE_BATCH,
+                                       TRAIN_WIDE_SEQ, TRAIN_WIDE_STEPS,
+                                       device, lr=TRAIN_WIDE_LR)
+    cfg = configs.get(TRAIN_ARCH)
 
     # resume: checkpoint after step 1, a new Trainer resumes from it, and
     # its params after step 3 equal an uninterrupted run's bit for bit
@@ -2082,7 +2199,10 @@ def phase_profile(device):
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
+    _profile_moe(device)
     _profile_train(device)
+    _profile_train(device, TRAIN_WIDE_ARCH, TRAIN_WIDE_BATCH, TRAIN_WIDE_SEQ,
+                   TRAIN_WIDE_STEPS, TRAIN_WIDE_LR)
 
 
 def _device_kinds(prof):
@@ -2106,41 +2226,50 @@ def _device_kinds(prof):
     return kinds, optimizer
 
 
-def _profile_train(device):
-    """One profiled training step of the train phase's configuration
-    (granite-3-2b, full depth, 4 x 2048, flash attention, remat), after an
-    unprofiled one: device busy and idle share, K6, cuBLAS, elementwise
-    and the optimizer (the kernels inside ``make_train_step``'s
-    ``optimizer`` range, a part of the elementwise time)."""
+def _profile_train(device, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+                   seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=3e-4):
+    """One profiled training step of a train phase configuration (flash
+    attention, remat; granite-3-2b at 4 x 2048 by default), after an
+    unprofiled one: device busy and idle share, K6 forward and backward,
+    cuBLAS, elementwise, the optimizer (the kernels inside
+    ``make_train_step``'s ``optimizer`` range, a part of the elementwise
+    time) and the recurrences' forward work (the ``ssm recurrence``
+    range, forward and remat's recompute, also a part of it)."""
     import tempfile
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
 
-    cfg = configs.get(TRAIN_ARCH)
+    cfg = configs.get(arch)
     with tempfile.TemporaryDirectory() as ckpt:
-        trainer = _trainer(cfg, ckpt, TRAIN_STEPS, TRAIN_STEPS + 1, device)
+        trainer = _trainer(cfg, ckpt, steps, steps + 1, device, batch=batch,
+                           seq=seq, steps=steps, lr=lr)
         params, state = trainer.init_state(0)
         params, state, _ = trainer.step_fn(params, state,
                                            trainer.data.batch(0))
-        batch = trainer.data.batch(1)
+        batch_1 = trainer.data.batch(1)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _SsmRanges(), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            params, state, m = trainer.step_fn(params, state, batch)
+            params, state, m = trainer.step_fn(params, state, batch_1)
             float(m["loss"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     kinds, optimizer = _device_kinds(prof)
+    recurrence = sum(float(e.device_time_total) for e in prof.key_averages()
+                     if e.key == _SsmRanges.NAME
+                     and e.device_type != DeviceType.CUDA)
     busy = sum(kinds.values()) / 1e6
     parts = ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in
                       sorted(kinds.items(), key=lambda kv: -kv[1]))
-    log(f"[profile] train step ({TRAIN_ARCH}, {cfg.n_layers} layers, "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ}, flash, remat): wall {wall * 1e3:.2f} "
+    log(f"[profile] train step ({arch}, {cfg.n_layers} layers, "
+        f"{batch} x {seq}, flash, remat): wall {wall * 1e3:.2f} "
         f"ms, device busy {busy * 1e3:.2f} ms (idle share "
         f"{max(0.0, 1 - busy / wall):.3f}); {parts}; optimizer range "
-        f"{optimizer / 1e3:.2f} ms of device time")
+        f"{optimizer / 1e3:.2f} ms of device time; recurrence range "
+        f"(forward and recompute) {recurrence / 1e3:.2f} ms")
     del trainer, params, state
     torch.cuda.empty_cache()
 
@@ -2297,9 +2426,9 @@ def phase_measure(device, summary):
     summary["measure"] = _measure_vs_forecast("llama2-7b", device)
 
 
-def _measure_vs_forecast(model, device, tp: int = 1):
+def _measure_vs_forecast(model, device, tp: int = 1, layers=None):
     """``repro_torch.api.measure`` on ``model`` at full width and depth
-    (bf16-bf16, paged attention, 4 slots, 8 requests of 512 + 64 tokens,
+    (``layers`` deep if given; bf16-bf16, paged attention, 4 slots, 8 requests of 512 + 64 tokens,
     chunk 256, decode block 8, a shared 256-token prefix); K1 and K2 must
     launch.  Then ``api.forecast`` of the same scenario for
     ``nvidia-h100``, declared and replaying the measured trace, and each
@@ -2312,8 +2441,9 @@ def _measure_vs_forecast(model, device, tp: int = 1):
     import torch
     from repro_torch import api
 
-    scn = api.Scenario(model=model, variant="bf16-bf16", batch=4,
-                       n_requests=8, prompt_len=512, gen_len=64, chunk=256,
+    scn = api.Scenario(model=model if layers is None else
+                       _depth_cfg(model, layers), variant="bf16-bf16",
+                       batch=4, n_requests=8, prompt_len=512, gen_len=64, chunk=256,
                        decode_block=8, attn_impl="paged",
                        shared_prefix_len=256, seed=0, tp=tp)
     _reset_launches()                         # the main path starts here
@@ -2353,7 +2483,8 @@ def _measure_vs_forecast(model, device, tp: int = 1):
                                     ("tps", d.tps))}
         head = (f"{model} {tag} forecast on nvidia-h100 vs measured on "
                 f"{measured.hardware}" if tp == 1 else
-                f"{model} tp={tp} {tag} forecast on {tp} x nvidia-h100 vs "
+                f"{model} x{layers or 'all'} layers tp={tp} {tag} forecast "
+                f"on {tp} x nvidia-h100 vs "
                 f"measured by {tp} ranks sharing one {measured.hardware} "
                 f"over gloo (not a {tp}-card measurement)")
         log(f"[measure] {head}: "
@@ -2425,14 +2556,31 @@ def _moe_classes(prof):
             "other": busy - ranges["moe layer"] - attn}, busy
 
 
-def _profile_moe(cfg, params, ec, device):
-    """torch.profiler over each step of 4 requests of 512 + 17 tokens (an
-    admission step, then two decode blocks of 8 steps), MoE ranges on:
-    each step's device time by class (:func:`_moe_classes`)."""
+def _moe_engine_config():
+    """The moe phase's engine: 4 slots of 512 + 64 (+ 16), chunks of 256,
+    decode blocks of 8, bf16 KV in paged blocks of 16."""
+    from repro_torch.engine import EngineConfig
+    return EngineConfig(max_slots=4, max_len=512 + 64 + 16, chunk_size=256,
+                        decode_block=8, block_size=16, n_blocks=512,
+                        kv_dtype="bf16", attn_impl="paged")
+
+
+def _profile_moe(device):
+    """qwen2-moe-a2.7b at full width and depth (the moe phase's weights
+    and engine), torch.profiler over each step of 4 requests of 512 + 17
+    tokens (an admission step, then decode blocks of 8 steps), MoE ranges
+    on: each step's device time by class (:func:`_moe_classes`), and per
+    decode step of each block on its own.  Run by the profile phase: the
+    profiler's processing took most of the moe phase's 90.8-103.6 s."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
     from repro_torch.engine import Engine
+    from repro_torch.models import init_params
 
+    cfg = configs.get(MOE_ARCH)
+    params = init_params(cfg, 0, device=device, dtype=torch.bfloat16)
+    ec = _moe_engine_config()
     reqs = _requests(cfg.vocab_size, 4, 512, 17, 256, seed=4)
     eng = Engine(cfg, params, ec, device=device)
     eng.warmup()
@@ -2465,8 +2613,18 @@ def _profile_moe(cfg, params, ec, device):
             log(f"[moe] profile step {len(out) - 1} ({kind}): wall "
                 f"{wall * 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
                 f"(idle share {out[-1]['idle_share']:.3f}); {parts}")
-    del eng
+    del eng, params
     torch.cuda.empty_cache()
+    blocks_ = [p for p in out if p["kind"] == "decode_blockx1"]
+    check(bool(blocks_), "moe profile: no decode block on its own")
+    for p in blocks_:
+        per_step = {k: v / p["decode_steps"]
+                    for k, v in p["classes_ms"].items()}
+        log(f"[moe] decode block of {p['decode_steps']} steps: device "
+            f"{p['busy_ms'] / p['decode_steps']:.3f} ms per step ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
+            + f"); wall {p['wall_ms'] / p['decode_steps']:.3f} ms per step, "
+            f"idle share {p['idle_share']:.3f}")
     return out
 
 
@@ -2475,13 +2633,12 @@ def phase_moe(device, summary):
     experts of 1408, top-4, 4 shared; random bf16 weights from seed 0)
     served by the engine with paged attention: the llama2-7b engine
     phase's plain pass (K2 admits, K1 decodes) and its speculative pass
-    with four LoRA tenants (K2, K3, K4); a profile of its decode blocks
-    by class; ``api.measure`` against ``api.forecast`` for
-    ``nvidia-h100``.  The weights are freed at the end."""
+    with four LoRA tenants (K2, K3, K4); ``api.measure`` against
+    ``api.forecast`` for ``nvidia-h100``.  The weights are freed at the
+    end.  (Its profile by class is the profile phase's.)"""
     import numpy as np
     import torch
     from repro_torch import configs
-    from repro_torch.engine import EngineConfig
     from repro_torch.models import init_params
 
     cfg = configs.get(MOE_ARCH)
@@ -2496,9 +2653,7 @@ def phase_moe(device, summary):
         f"{time.perf_counter() - t0:.1f} s")
     prompt_len, max_new = 512, 64
     reqs = _requests(cfg.vocab_size, 8, prompt_len, max_new, 256, seed=1)
-    ec = EngineConfig(max_slots=4, max_len=prompt_len + max_new + 16,
-                      chunk_size=256, decode_block=8, block_size=16,
-                      n_blocks=512, kv_dtype="bf16", attn_impl="paged")
+    ec = _moe_engine_config()
     out = {"params": n_params}
     tenants = 4
     for tag, ec_t, reqs_t, path in (
@@ -2554,17 +2709,6 @@ def phase_moe(device, summary):
     out["bodies_total"] = {
         w: {b: out["plain"]["bodies"][w][b] + out["spec_lora"]["bodies"][w][b]
             for b in c} for w, c in out["plain"]["bodies"].items()}
-    out["profile"] = _profile_moe(cfg, params, ec, device)
-    blocks_ = [p for p in out["profile"] if p["kind"] == "decode_blockx1"]
-    check(bool(blocks_), "moe profile: no decode block on its own")
-    for p in blocks_:
-        per_step = {k: v / p["decode_steps"]
-                    for k, v in p["classes_ms"].items()}
-        log(f"[moe] decode block of {p['decode_steps']} steps: device "
-            f"{p['busy_ms'] / p['decode_steps']:.3f} ms per step ("
-            + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
-            + f"); wall {p['wall_ms'] / p['decode_steps']:.3f} ms per step, "
-            f"idle share {p['idle_share']:.3f}")
     del params
     torch.cuda.empty_cache()
     out["measure"] = _measure_vs_forecast(MOE_ARCH, device)
@@ -2751,25 +2895,31 @@ class _Capture:
 
 class _SsmRanges:
     """While active, a torch.profiler range (``ssm recurrence``) around
-    each position of the selective scan (``blocks._ssm_update``: the
-    recurrence's elementwise work)."""
+    each position of the selective scan (``blocks._ssm_update``) and each
+    chunk's RG-LRU scan (``blocks._rglru_scan``): the recurrences'
+    elementwise work, forward (the backward's runs outside any range)."""
 
     NAME = "ssm recurrence"
+    FUNCTIONS = ("_ssm_update", "_rglru_scan")
 
     def __enter__(self):
         import torch
         from repro_torch.models import blocks
-        self.real = blocks._ssm_update
+        self.saved = {f: getattr(blocks, f) for f in self.FUNCTIONS}
 
-        def ranged(*a, _real=self.real):
-            with torch.profiler.record_function(self.NAME):
-                return _real(*a)
-        blocks._ssm_update = ranged
+        def ranged(real):
+            def fn(*a):
+                with torch.profiler.record_function(self.NAME):
+                    return real(*a)
+            return fn
+        for f, real in self.saved.items():
+            setattr(blocks, f, ranged(real))
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import blocks
-        blocks._ssm_update = self.real
+        for f, real in self.saved.items():
+            setattr(blocks, f, real)
 
 
 def _serve_lockstep(tag, cfg, params, device, *, batch, prompt_len, n_new,
@@ -2884,17 +3034,19 @@ def _profile_lockstep_step(tag, server, state, tok):
     return out
 
 
-def _lockstep_measure(device, tp: int = 1):
-    """``api.measure`` on falcon-mamba-7b (the lockstep branch: 4 x (512 +
-    64), chunk 256; at ``tp > 1`` its ranks share this card over gloo)
+def _lockstep_measure(device, tp: int = 1, layers=None):
+    """``api.measure`` on falcon-mamba-7b (``layers`` deep if given; the
+    lockstep branch: 4 x (512 + 64), chunk 256; at ``tp > 1`` its ranks
+    share this card over gloo)
     beside ``api.forecast(..., "nvidia-h100")`` of the same scenario (of
     ``tp`` cards), each metric's relative error (a finding, not a
     gate)."""
     import math
     from repro_torch import api
 
-    scn = api.Scenario(model="falcon-mamba-7b", variant="bf16-bf16", batch=4,
-                       prompt_len=512, gen_len=64, chunk=256, seed=0, tp=tp)
+    scn = api.Scenario(model="falcon-mamba-7b" if layers is None else
+                       _depth_cfg("falcon-mamba-7b", layers),
+                       variant="bf16-bf16", batch=4, prompt_len=512, gen_len=64, chunk=256, seed=0, tp=tp)
     measured = api.measure(scn, device=device, share_device=tp > 1)
     ex = measured.extras
     check(ex["mode"] == "legacy-lockstep" and ex["tokens"] == 4 * 64
@@ -2910,7 +3062,8 @@ def _lockstep_measure(device, tp: int = 1):
              else f"{tp} x nvidia-h100 vs measured by {tp} ranks sharing "
              f"one {measured.hardware} over gloo (not a {tp}-card "
              f"measurement)")
-    log(f"[measure] falcon-mamba-7b tp={tp} declared forecast on {where} "
+    log(f"[measure] falcon-mamba-7b x{layers or 'all'} layers tp={tp} "
+        f"declared forecast on {where} "
         f"(lockstep): "
         + "; ".join(f"{n} {v['forecast']:.6g} vs {v['measured']:.6g} "
                     f"(rel err {v['rel_err']:+.4f})" for n, v in out.items()))
@@ -3237,16 +3390,17 @@ TP1_TOKENS: dict = {}
 #: the multidevice worlds, in order: (arch, tp, pp, layers of the serving
 #: passes (None: the full depth), serving passes at full width in bf16,
 #: parity jobs at 4 layers in f32 weights: a KV dtype, or ``spec_lora``
-#: with f32 KV).  llama2-7b's tp=2 and pp=2 serve the full depth;
-#: tp=2 x pp=2 and qwen2-moe-a2.7b's tp=2 serve 8 layers, for the 1200 s
-#: limit (61.2 and 63.1 s a world at full depth on a slow host, where the
-#: script took 1240 s with the examples phase)
+#: with f32 KV).  Every world serves ``MD_LAYERS``, and api.measure at
+#: tp=2 too, for the 1200 s limit: with tp=2 at 8 layers and pp=2 at the
+#: full depth the script took 1040.8 s of phases on one host and passed
+#: 1200 s on a slower one, where ranks sharing a card over gloo pay most
+MD_LAYERS = 4
 MD_WORLDS = (
-    ("llama2-7b", 2, 1, None, ("plain", "spec_lora"),
+    ("llama2-7b", 2, 1, MD_LAYERS, ("plain", "spec_lora"),
      ("fp32", "bf16", "int8", "spec_lora")),
-    ("llama2-7b", 1, 2, None, ("plain",), ("fp32", "bf16", "int8")),
-    ("llama2-7b", 2, 2, 8, ("plain",), ("fp32", "bf16", "int8")),
-    (MOE_ARCH, 2, 1, 8, ("plain",), ("fp32", "bf16", "int8")),
+    ("llama2-7b", 1, 2, MD_LAYERS, ("plain",), ("fp32", "bf16", "int8")),
+    ("llama2-7b", 2, 2, MD_LAYERS, ("plain",), ("fp32", "bf16", "int8")),
+    (MOE_ARCH, 2, 1, MD_LAYERS, ("plain",), ("fp32", "bf16", "int8")),
 )
 MD_PARITY_LAYERS = 4
 
@@ -3401,13 +3555,14 @@ def _md_collectives(mesh, width: int) -> dict:
 #: the lockstep worlds: (tp, pp, layers of the served runs (None: the
 #: full depth; whisper-base's 6 stay whole), ``LOCKSTEP_RUNS`` served at
 #: full width in bf16, families whose 4-layer f32 tokens are held to
-#: tp = 1's with each of ``MDL_KVS``).  tp=2 serves 8 layers, for the
-#: 1200 s limit: its world took 100.3-139.5 s at full depth
+#: tp = 1's with each of ``MDL_KVS``).  Both serve ``MD_LAYERS``, for
+#: the 1200 s limit: tp=2 took 100.3-139.5 s at full depth, 52.8 s at 8
+#: layers; recurrentgemma-2b keeps one local attention layer of 4
 MDL_FAMILIES = ("falcon-mamba-7b", "recurrentgemma-2b", "llama2-7b-mla",
                 "whisper-base")
 MDL_WORLDS = (
-    (2, 1, 8, tuple(LOCKSTEP_RUNS), MDL_FAMILIES),
-    (1, 2, None, ("falcon-mamba-7b",), MDL_FAMILIES),
+    (2, 1, MD_LAYERS, tuple(LOCKSTEP_RUNS), MDL_FAMILIES),
+    (1, 2, MD_LAYERS, ("falcon-mamba-7b",), MDL_FAMILIES),
 )
 MDL_KVS = ("fp32", "bf16", "int8")
 
@@ -3489,16 +3644,57 @@ def _mdl_rank(mesh, layers, runs, parity):
     return out
 
 
-def _md_lockstep(device, out, card):
-    """The lockstep worlds of ``MDL_WORLDS``, each freed before the next,
-    against one rank in this process: the lockstep phase's records where
-    it ran and the world serves the full depth (else each run here first,
-    at the world's depth) and the 4-layer f32 parity tokens;
-    then ``api.measure`` of falcon-mamba-7b at tp = 2.  Returns the K6
-    launches and bodies summed over every rank."""
+def _md_jobs_rank(mesh, jobs):
+    """This rank's part of one spawn's worlds: each job of ``jobs``
+    (``("md", args)`` for :func:`_md_rank`, ``("mdl", args)`` for
+    :func:`_mdl_rank`) in turn, each freeing its weights before the
+    next, with its wall seconds (``job_s``)."""
+    out = []
+    for kind, args in jobs:
+        t0 = time.perf_counter()
+        rec = {"md": _md_rank, "mdl": _mdl_rank}[kind](mesh, *args)
+        rec["job_s"] = time.perf_counter() - t0
+        out.append(rec)
+    return out
+
+
+def _md_spawns(device) -> dict:
+    """The worlds of ``MD_WORLDS`` and ``MDL_WORLDS``, one spawn per mesh
+    shape (tp=2, pp=2, tp=2 x pp=2), so a shape's ranks start their
+    processes once (~10 s a spawn on the card): each world's ranks under
+    ``("md", i)`` or ``("mdl", j)``, with its wall seconds (the slowest
+    rank's job) and its spawn's."""
+    from repro_torch.launch.mesh import spawn
+    groups: dict = {}
+    for i, (arch, tp, pp, layers, passes, parity) in enumerate(MD_WORLDS):
+        groups.setdefault((tp, pp), []).append(
+            (("md", i), ("md", (arch, layers, passes, parity))))
+    for j, (tp, pp, layers, runs, parity) in enumerate(MDL_WORLDS):
+        groups.setdefault((tp, pp), []).append(
+            (("mdl", j), ("mdl", (layers, runs, parity))))
+    got = {}
+    for (tp, pp), members in groups.items():
+        t0 = time.perf_counter()
+        ranks = spawn(_md_jobs_rank, ([job for _, job in members],),
+                      model=tp, pipe=pp, device=device, share_device=True)
+        spawn_s = time.perf_counter() - t0
+        for k, (key, _) in enumerate(members):
+            recs = [r[k] for r in ranks]
+            got[key] = dict(ranks=recs, spawn_s=spawn_s,
+                            wall_s=max(r["job_s"] for r in recs))
+    return got
+
+
+def _md_lockstep(device, out, card, spawned):
+    """The lockstep worlds of ``MDL_WORLDS`` (their ranks' records in
+    ``spawned``, :func:`_md_spawns`) against one rank in this process:
+    the lockstep phase's records where it ran and the world serves the
+    full depth (else each run here, at the world's depth) and the
+    4-layer f32 parity tokens; then ``api.measure`` of falcon-mamba-7b at
+    tp = 2.  Returns the K6 launches and bodies summed over every
+    rank."""
     import torch
     from repro_torch import configs
-    from repro_torch.launch.mesh import spawn
     from repro_torch.models import init_params
 
     fa_ops = _kernel_ops()[2]
@@ -3521,13 +3717,13 @@ def _md_lockstep(device, out, card):
             del params
             torch.cuda.empty_cache()
     worlds = {}
-    for tp, pp, layers, runs, parity in MDL_WORLDS:
+    for j, (tp, pp, layers, runs, parity) in enumerate(MDL_WORLDS):
         label = f"lockstep tp={tp} x pp={pp}" + (
             f" x{layers} layers" if layers else "")
-        t0 = time.perf_counter()
-        ranks = spawn(_mdl_rank, (layers, runs, parity), model=tp, pipe=pp,
-                      device=device, share_device=True)
-        world = dict(wall_s=time.perf_counter() - t0, runs={}, parity={})
+        ranks = spawned[("mdl", j)]["ranks"]
+        world = dict(wall_s=spawned[("mdl", j)]["wall_s"],
+                     spawn_s=spawned[("mdl", j)]["spawn_s"], runs={},
+                     parity={})
         check(all(r["backend"] == "gloo" for r in ranks),
               f"{label}: ranks sharing a card must run gloo")
         for tag in runs:
@@ -3603,18 +3799,22 @@ def _md_lockstep(device, out, card):
                        f"equal to tp=1's: {share:.4f} (a finding, not a "
                        f"gate)"))
         log(f"[multidevice] {label}: world of {tp * pp} ranks in "
-            f"{world['wall_s']:.1f} s")
+            f"{world['wall_s']:.1f} s (its spawn with its mesh shape's "
+            f"other worlds {world['spawn_s']:.1f} s)")
         worlds[label] = world
     out["lockstep_worlds"] = worlds
-    out["measure_lockstep_tp2"] = _lockstep_measure(device, tp=2)
+    out["measure_lockstep_tp2"] = _lockstep_measure(device, tp=2,
+                                                    layers=MD_LAYERS)
     return k6
 
 
 def phase_multidevice(device, summary):
     """Tensor- and pipeline-parallel serving with every rank on this one
     card (``share_device``: gloo on CUDA tensors; one card cannot run
-    NCCL's two ranks): the worlds of ``MD_WORLDS``, each freed before the
-    next, their launches summed over ranks; then ``api.measure`` at
+    NCCL's two ranks): the worlds of ``MD_WORLDS`` (spawned with the
+    lockstep worlds of their mesh shape, :func:`_md_spawns`), each freed
+    before the next, their launches summed over ranks; then
+    ``api.measure`` at
     tp = 2 against ``api.forecast`` on nvidia-h100.  The f32 4-layer
     parity jobs must give this process's one-rank tokens as
     ``_md_exact`` says; the bf16 full-depth share equal to tp = 1's is a
@@ -3622,7 +3822,6 @@ def phase_multidevice(device, summary):
     import numpy as np
     import torch
     from repro_torch import configs
-    from repro_torch.launch.mesh import spawn
     from repro_torch.models import init_params
 
     t_phase = time.perf_counter()
@@ -3664,14 +3863,14 @@ def phase_multidevice(device, summary):
             del eng, params
             torch.cuda.empty_cache()
 
-    for arch, tp, pp, layers, passes, parity in MD_WORLDS:
+    spawned = _md_spawns(device)
+    for i, (arch, tp, pp, layers, passes, parity) in enumerate(MD_WORLDS):
         cfg = _depth_cfg(arch, layers)
         label = f"{arch} tp={tp} x pp={pp}" + (
             f" x{layers} layers" if layers else "")
-        t0 = time.perf_counter()
-        ranks = spawn(_md_rank, (arch, layers, passes, parity), model=tp,
-                      pipe=pp, device=device, share_device=True)
-        world = dict(wall_s=time.perf_counter() - t0, backend=ranks[0][
+        ranks = spawned[("md", i)]["ranks"]
+        world = dict(wall_s=spawned[("md", i)]["wall_s"],
+                     spawn_s=spawned[("md", i)]["spawn_s"], backend=ranks[0][
             "backend"], ranks=[{k: r[k] for k in (
                 "coords", "init_s", "params_gb", "init_peak_gb", "peak_gb",
                 "collectives")} for r in ranks], passes={})
@@ -3764,11 +3963,13 @@ def phase_multidevice(device, summary):
                 f"ms per call: " + ", ".join(
                     f"{k[:-3]} {v:.3f}" for k, v in r["collectives"].items()))
         log(f"[multidevice] {label}: world of {tp * pp} ranks in "
-            f"{world['wall_s']:.1f} s")
+            f"{world['wall_s']:.1f} s (its spawn with its mesh shape's "
+            f"other worlds {world['spawn_s']:.1f} s)")
         out["worlds"][label] = world
     out["bodies_total"] = bodies_total
-    out["measure_tp2"] = _measure_vs_forecast("llama2-7b", device, tp=2)
-    k6 = _md_lockstep(device, out, card)
+    out["measure_tp2"] = _measure_vs_forecast("llama2-7b", device, tp=2,
+                                              layers=MD_LAYERS)
+    k6 = _md_lockstep(device, out, card, spawned)
     out["k6_launches"], out["k6_bodies"] = k6["launches"], k6["bodies"]
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[multidevice] launches over every world and rank "
@@ -3785,19 +3986,18 @@ def phase_multidevice(device, summary):
 TM_STEPS = 3
 #: the worlds at full width: (label, data, model, FSDP, layers; None is
 #: the full depth), the 2-rank worlds in one spawn and the 4-rank world
-#: in another.  tp=2 trains all 40 layers, so its losses stand beside
-#: the train phase's; the FSDP worlds train 8, for the 1200 s limit:
-#: dp=2 x tp=2 took 15.0 s a step at 40 (gloo 14.2 s), 9.5 s at 20;
-#: dp=2 16.3-18.1 s a step at 40 on a slow host, where the script took
-#: 1240 s with the examples phase
-TM_WORLDS = (("dp=2 FSDP", 2, 1, True, 8), ("tp=2", 1, 2, False, None),
+#: in another.  Each trains 8 layers, for the 1200 s limit: dp=2 x tp=2
+#: took 15.0 s a step at 40 (gloo 14.2 s), 9.5 s at 20; tp=2 took 27.6 s
+#: for its world at 40
+TM_WORLDS = (("dp=2 FSDP", 2, 1, True, 8), ("tp=2", 1, 2, False, 8),
              ("dp=2 x tp=2 FSDP", 2, 2, True, 8))
-#: the f32 parity meshes at 4 layers: (label, data, model, FSDP,
-#: microbatches)
+#: the f32 parity meshes at ``TM_PARITY_LAYERS`` (2, for the 1200 s
+#: limit: the five meshes, the save and the resume at 4 took most of
+#: the phase's 274.5 s): (label, data, model, FSDP, microbatches)
 TM_PARITY = (("dp=2", 2, 1, False, 1), ("dp=2 FSDP", 2, 1, True, 1),
              ("tp=2", 1, 2, False, 1), ("dp=2 x tp=2 FSDP", 2, 2, True, 1),
              ("dp=2 mb=2", 2, 1, False, 2))
-TM_PARITY_LAYERS = 4
+TM_PARITY_LAYERS = 2
 #: f32 against the one-rank step: the loss per step relative and the
 #: params' relative norm (``_train_parity``'s limits: f32 summed in
 #: other orders, AdamW normalising each element's update)
@@ -3906,7 +4106,8 @@ def _tm_main(mesh, policy, layers):
 
 
 def _tm_parity(mesh, policy, microbatches, refs):
-    """Three f32 steps of ``make_train_step`` at 4 layers, full width, on
+    """Three f32 steps of ``make_train_step`` at ``TM_PARITY_LAYERS``,
+    full width, on
     this rank's shard of the seed-0 draw; rank 0 holds the whole params
     against the one-rank run's (``refs``: a file of its leaves)."""
     import torch
@@ -3996,7 +4197,8 @@ def _tm_rank(mesh, jobs):
 
 
 def _tm_one_rank(device, tmp):
-    """This process's one-rank f32 runs at 4 layers, full width: three
+    """This process's one-rank f32 runs at ``TM_PARITY_LAYERS``, full
+    width: three
     steps of ``make_train_step`` at one and two microbatches, and an
     uninterrupted 4-step ``Trainer``; each run's losses, and its params
     saved to a file for the ranks to read."""
@@ -4043,12 +4245,13 @@ def _flat_paths(tree, path=()):
             yield path + (k,), tree[k]
 
 
-def phase_trainmesh(device, summary, trained):
+def phase_trainmesh(device, summary):
     """The trainer on a mesh, every rank on this one card (gloo on CUDA
     tensors, ``share_device``): granite-3-2b at full width through
     ``Trainer.run`` at tp = 2, and at dp = 2 and dp = 2 x tp = 2 with
     FSDP (``TM_WORLDS``' depths); then the f32
-    parity meshes at 4 layers against this process's one-rank step, and
+    parity meshes at ``TM_PARITY_LAYERS`` against this process's
+    one-rank step, and
     the elastic resume: saved at dp = 2 x tp = 2 FSDP, restored and
     continued at tp = 1 and tp = 2, against an uninterrupted run."""
     import shutil
@@ -4093,8 +4296,8 @@ def phase_trainmesh(device, summary, trained):
         out["spawn2_s"] = time.perf_counter() - t0
         check(all(r["backend"] == "gloo" for r in ranks2 + ranks4),
               "trainmesh: ranks sharing a card must run gloo")
-        _tm_report(out, four, ranks4, trained, refs)
-        _tm_report(out, two, ranks2, trained, refs)
+        _tm_report(out, four, ranks4, refs)
+        _tm_report(out, two, ranks2, refs)
         _tm_elastic(out, device, tmp, refs, ranks2[0]["jobs"][-1],
                     ranks4[0]["jobs"][-1])
     finally:
@@ -4106,15 +4309,14 @@ def phase_trainmesh(device, summary, trained):
     summary["trainmesh"] = out
 
 
-def _tm_report(out, jobs, ranks, trained, refs):
+def _tm_report(out, jobs, ranks, refs):
     """Check and log one spawn's jobs (every rank's records side by
     side)."""
-    single = (trained.get("train") or {}).get("loss")
     for i, job in enumerate(jobs):
         recs = [r["jobs"][i] for r in ranks]
         label = job["label"]
         if job["kind"] == "main":
-            _tm_world(out, label, job, recs, single)
+            _tm_world(out, label, job, recs)
         elif job["kind"] == "parity":
             want = refs[f"mb{job['microbatches']}"]["losses"]
             got = recs[0]["losses"]
@@ -4136,7 +4338,7 @@ def _tm_report(out, jobs, ranks, trained, refs):
                   f"{param_rel:.3e}")
 
 
-def _tm_world(out, label, job, recs, single):
+def _tm_world(out, label, job, recs):
     """Log one full-width world's run, add its launches to the phase's,
     then check it: every rank's losses equal, finite, and each rank's K6
     launches two forwards (remat) and one backward per layer and step,
@@ -4161,11 +4363,8 @@ def _tm_world(out, label, job, recs, single):
         gloo_calls_per_step=steps[1]["gloo"]["calls"],
         launches={k: sum(r["launches"][k] for r in recs)
                   for k in ("flash_fwd", "flash_bwd")},
-        wall_s=[r["wall_s"] for r in recs],
-        single_card_loss=(single[:TM_STEPS] if single
-                          and job["layers"] is None else None))
+        wall_s=[r["wall_s"] for r in recs])
     out["worlds"][label] = world
-    one = world["single_card_loss"]
     log(f"[trainmesh] {TRAIN_ARCH} {label}: {n} ranks on one card "
         f"({out['card']}), gloo; {cfg.n_layers} layers, full width, "
         f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, flash + remat, {TM_STEPS} "
@@ -4173,8 +4372,6 @@ def _tm_world(out, label, job, recs, single):
         + f" ms, {world['tokens_per_s']:.1f} tokens/s (steps 1-"
         f"{TM_STEPS - 1}); loss " + ", ".join(f"{x:.5f}" for x in
                                                 world["loss"])
-        + (" (one card, train phase: " + ", ".join(f"{x:.5f}" for x in one)
-           + ")" if one else "")
         + "; peak memory per rank " + ", ".join(
             f"{x:.2f}" for x in world["peak_gb"])
         + f" GB (shard {world['shard_gb'][0]:.2f} GB); gloo per step and "
@@ -4399,11 +4596,17 @@ def _run_example(args, timeout: int):
     return out.stdout.strip().splitlines(), seconds
 
 
+#: the train example's steps: 50 of its default 300, for the 1200 s
+#: limit (300 took 51.0 s on the card, 100 took 25.6 s on a slower host)
+EXAMPLE_TRAIN_STEPS = 50
+
+
 def phase_examples(device, summary):
     """``examples/serve_batched_torch.py`` (qwen2-7b at full width on the
     card, paged attention: K2 and K1 in bf16 and int8 KV) and
-    ``examples/train_100m_torch.py`` at its defaults (300 steps of 8 x
-    256, a fresh checkpoint directory), each in its own process: the
+    ``examples/train_100m_torch.py`` at ``EXAMPLE_TRAIN_STEPS`` steps of
+    its default 8 x 256 (a fresh checkpoint directory), each in its own
+    process: the
     serve example's five lines (tokens, measured tok/s, the twin's ratio
     on nvidia-h100, the shared prompt's measured prefix hit rate equal
     to the forecast's) and its K1/K2 launches; the train run's parameter
@@ -4444,8 +4647,9 @@ def phase_examples(device, summary):
         f"{hits[2]}%, launches {launches}, bodies {counted['bodies']}")
     with tempfile.TemporaryDirectory() as tmp:
         lines, train_s = _run_example(
-            ["examples/train_100m_torch.py", "--ckpt-dir",
-             str(Path(tmp) / "ck")], 600)
+            ["examples/train_100m_torch.py", "--steps",
+             str(EXAMPLE_TRAIN_STEPS), "--ckpt-dir", str(Path(tmp) / "ck")],
+            600)
     text = "\n".join(lines[:-1])
     check(lines[0].startswith("[LIFE→nvidia-h100]") and "OK: loss improved"
           in text, f"examples: train printed {lines}")
@@ -4545,7 +4749,7 @@ def main() -> int:
         "lockstep": (lambda: phase_lockstep(device, families, summary.get(
             "engine_bf16", {}).get("tpot_p50_ms")),),
         "multidevice": (phase_multidevice, device, families),
-        "trainmesh": (phase_trainmesh, device, families, trained),
+        "trainmesh": (phase_trainmesh, device, families),
         "audit": (phase_audit, device, families),
         "examples": (phase_examples, device, families),
         "profile": (phase_profile, device),
@@ -4565,10 +4769,11 @@ def main() -> int:
     md = families.get("multidevice", {}).get("launches_total", {})
     launches = {**{k: engine.get(k, 0) + moe.get(k, 0) + md.get(k, 0)
                    for k in {*engine, *moe, *md}},
-                **trained.get("train", {}).get("launches", {}),
                 **quant_measure.get("quant", {}).get("launches", {})}
-    for k, n in families.get("trainmesh", {}).get("launches", {}).items():
-        launches[k] = launches.get(k, 0) + n
+    for rec in (trained.get("train"), trained.get("train_wide"),
+                families.get("trainmesh")):
+        for k, n in (rec or {}).get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + n
     for k, n in families.get("audit", {}).get("launches_total", {}).items():
         launches[k] = launches.get(k, 0) + n
     for k, n in families.get("examples", {}).get("serve_launches",
@@ -4587,11 +4792,12 @@ def main() -> int:
                 b: engine_bodies.get(w, {}).get(b, 0) + n
                 for b, n in c.items()}}
     bodies = {**engine_bodies,
-              "quant_matmul": quant_measure.get("quant", {}).get("bodies"),
-              **trained.get("train", {}).get("bodies", {})}
-    for k, c in families.get("trainmesh", {}).get("bodies", {}).items():
-        bodies[k] = {b: (bodies.get(k) or {}).get(b, 0) + n
-                     for b, n in c.items()}
+              "quant_matmul": quant_measure.get("quant", {}).get("bodies")}
+    for rec in (trained.get("train"), trained.get("train_wide"),
+                families.get("trainmesh")):
+        for k, c in (rec or {}).get("bodies", {}).items():
+            bodies[k] = {b: (bodies.get(k) or {}).get(b, 0) + n
+                         for b, n in c.items()}
     for rec in (lockstep, md_k6):
         if rec and "k6_bodies" in rec:
             fwd = bodies.get("flash_fwd") or {}
@@ -4631,6 +4837,7 @@ def main() -> int:
                       "lockstep": families.get("lockstep")}))
     print(json.dumps({"multidevice": families.get("multidevice")}))
     print(json.dumps({"train": trained.get("train"),
+                      "train_wide": trained.get("train_wide"),
                       "trainmesh": families.get("trainmesh")}))
     print(json.dumps({"audit": families.get("audit"),
                       "examples": families.get("examples")}))

@@ -10,6 +10,7 @@
 // FlashAttention-2's split:
 //   flash_bwd_preprocess_kernel                       D = rowsum(dO * O)
 //   flash_bwd_dkdv_mma_kernel, flash_bwd_dkdv_kernel  dK, dV of one (batch, KV head, key tile)
+//   flash_bwd_dkdv_mma_wide_kernel                    (dK or dV of one, per block, at d > 128)
 //   flash_bwd_dq_mma_kernel, flash_bwd_dq_kernel      dQ of one (batch, query head, query tile)
 //
 // Semantics are the TPU kernel's: q (b, s, H, d), k and v (b, L, Hk, d);
@@ -26,22 +27,23 @@
 // per live (query, key) pair, ~6.9e10, against ~84 MB of q, k, v, o and
 // lse: ~800 flop/byte, far above the ~295 at which the H100's tensor cores
 // stop waiting on memory.  Two bodies (ops.py's flash_body picks one):
-// * mma (bf16, d a multiple of 16: up to 256 forward, up to 128 backward;
-//   the *_mma_kernel functions, their sections below, the forward above
-//   d = 128 in flash_fwd_mma_wide_kernel): FlashAttention-2 on the tensor
+// * mma (bf16, d a multiple of 16 up to 256; the *_mma_kernel functions,
+//   their sections below, above d = 128 flash_fwd_mma_wide_kernel,
+//   flash_bwd_dkdv_mma_wide_kernel and flash_bwd_dq_mma_kernel at eight
+//   warps): FlashAttention-2 on the tensor
 //   cores with mma.sync, cp.async double-buffered tiles and ldmatrix
 //   fragments; P.V as P_hi.V + P_lo.V so that the output stays inside
 //   kernel_tolerance, one bf16 rounding of P and dS in the backward.
 // * fma (f32, and bf16 at a head dim the mma body does not take, up to
-//   256; the backward above d = 128): f32 FMAs on the CUDA cores (67 TFLOP/s peak), exact enough for
+//   256): f32 FMAs on the CUDA cores (67 TFLOP/s peak), exact enough for
 //   f32's 1e-5 gradient checks.  Each block keeps its query (or key)
 //   tile in shared memory for the whole KV (or query) loop; each of the
 //   128 threads owns a register micro-tile of scores and of the f32
 //   accumulator (rows ty + 8i, columns tx + 16j); row strides are padded
 //   to d + 1 so the column reads of a warp hit distinct banks.
 // Both skip the tiles that causality or the window mask entirely, and
-// the loop over them.  Both backward dK/dV blocks loop over the G query
-// heads of their KV head, so GQA's sum over the group stays inside one
+// the loop over them.  Every backward dK/dV block loops over the G query
+// heads of its KV head, so GQA's sum over the group stays inside one
 // block: no atomics, one summation order (a resumed training run equals
 // an uninterrupted one bit for bit).  Not yet: wgmma, TMA, warp
 // specialisation.
@@ -525,8 +527,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 // ---------------------------------------------------------------------------
 // The tensor-core bodies: flash_fwd_mma_kernel, flash_bwd_dkdv_mma_kernel,
-// flash_bwd_dq_mma_kernel (bf16, d a multiple of 16 up to 128; the forward
-// above 128 is flash_fwd_mma_wide_kernel's, in the next section)
+// flash_bwd_dq_mma_kernel (bf16, d a multiple of 16 up to 128; above 128
+// the wide bodies of the next two sections)
 // ---------------------------------------------------------------------------
 //
 // FlashAttention-2 on mma.sync.m16n8k16 (bf16 operands, f32 accumulate).
@@ -553,7 +555,8 @@ constexpr int kMmaRows = 64;    // forward and dQ query rows per block
 constexpr int kMmaKeys = 64;    // forward key tile, dK/dV keys per block
 
 // the backward's inner tile: dK/dV's query rows per step, dQ's keys per
-// step (halved at DP = 128 so that the f32 accumulators stay in registers)
+// step (halved at DP = 128 and 256 so that the f32 accumulators stay in
+// registers)
 template <int DP>
 struct BwdInner {
   static constexpr int N = DP == 64 ? 64 : 32;
@@ -851,9 +854,9 @@ size_t dkdv_mma_smem(int dp) {
   return static_cast<size_t>(2 * kMmaKeys + 2 * 2 * bq) * (dp + 8) * sizeof(__nv_bfloat16) +
          2 * 2 * static_cast<size_t>(bq) * sizeof(float);
 }
-size_t dq_mma_smem(int dp) {
+size_t dq_mma_smem(int dp, int warps) {
   const int bk = dp == 64 ? 64 : 32;
-  return static_cast<size_t>(2 * kMmaRows + 2 * 2 * bk) * (dp + 8) * sizeof(__nv_bfloat16);
+  return static_cast<size_t>(2 * 16 * warps + 2 * 2 * bk) * (dp + 8) * sizeof(__nv_bfloat16);
 }
 
 // grid (ceil(s / 64), H, b), 128 threads, the heaviest query tiles (the
@@ -1211,17 +1214,19 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   }
 }
 
-// grid (ceil(s / 64), H, b), 128 threads, the heaviest query tiles first:
-// dQ of query rows [i0, i0 + 64) of head h.  Q and dO stay in shared
-// memory; the block walks the live key tiles of BK keys (K and V
+// grid (ceil(s / BQ), H, b), 32 WARPS threads, the heaviest query tiles
+// first: dQ of query rows [i0, i0 + BQ) of head h, BQ = 16 WARPS (64 up
+// to DP = 128; 128 at DP = 256, where each warp's accumulator is 128
+// registers a thread).  Q and dO stay in shared memory, read by ldmatrix
+// at each k16 step; the block walks the live key tiles of BK keys (K and V
 // double-buffered): S = Q.K^T, dP = dO.V^T, dS = P (dP - D), dQ += dS.K.
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
+template <int DP, int WARPS = 4>
+__global__ void __launch_bounds__(32 * WARPS)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dq, Shape sh) {
-  constexpr int BQ = kMmaRows, BK = BwdInner<DP>::N, LD = DP + 8;
+  constexpr int NTH = 32 * WARPS, BQ = 16 * WARPS, BK = BwdInner<DP>::N, LD = DP + 8;
   constexpr int DK = DP / 16, DN = DP / 8, NT = BK / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BQ x LD
@@ -1257,14 +1262,14 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const int n_tiles = k_hi > t_first ? (k_hi - t_first + BK - 1) / BK : 0;
   auto load = [&](int j) {
     __nv_bfloat16* ks = stages + (j & 1) * 2 * BK * LD;
-    stage_rows<DP>(ks, k + kv_base, t_first + j * BK, BK, sh.L, kv_stride, d);
-    stage_rows<DP>(ks + BK * LD, v + kv_base, t_first + j * BK, BK, sh.L, kv_stride, d);
+    stage_rows<DP, NTH>(ks, k + kv_base, t_first + j * BK, BK, sh.L, kv_stride, d);
+    stage_rows<DP, NTH>(ks + BK * LD, v + kv_base, t_first + j * BK, BK, sh.L, kv_stride, d);
     cp_async_commit();
   };
 
   if (n_tiles > 0) {
-    stage_rows<DP>(Qs, q + q_base, i0, BQ, sh.s, q_stride, d);
-    stage_rows<DP>(dOs, dout + q_base, i0, BQ, sh.s, q_stride, d);
+    stage_rows<DP, NTH>(Qs, q + q_base, i0, BQ, sh.s, q_stride, d);
+    stage_rows<DP, NTH>(dOs, dout + q_base, i0, BQ, sh.s, q_stride, d);
     load(0);                           // one group with Q and dO
   }
   for (int j = 0; j < n_tiles; ++j) {
@@ -1343,6 +1348,226 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
       *reinterpret_cast<__nv_bfloat162*>(dq + q_base + static_cast<size_t>(r_hi) * q_stride + col) =
           __floats2bfloat162_rn(acc[dn][2] * sh.scale, acc[dn][3] * sh.scale);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core backward at 128 < d <= 256: flash_bwd_dkdv_mma_wide_kernel
+// and flash_bwd_dq_mma_kernel<256, 8>
+// ---------------------------------------------------------------------------
+//
+// flash_bwd_dkdv_mma_kernel's plan does not fit at DP = 256: a warp's dK
+// and dV accumulators for 16 keys are 2 x 128 f32 registers a thread, past
+// the 255 it may hold beside the score tiles.  So dK and dV are summed by
+// different blocks of one grid, side by side: a dV block recomputes S^T =
+// K.Q^T and P^T and sums dV += P^T.dO; a dK block recomputes S^T and dP^T
+// = V.dO^T and sums dK += dS^T.Q.  A thread then holds one 128-register
+// accumulator.  S^T is computed twice (eight products per pair where
+// FlashAttention-2's backward has seven), and the grid has twice the
+// blocks, which a model with one KV head needs: recurrentgemma-2b at b = 1,
+// L = 4096 has 64 key tiles, so 128 blocks for 132 SMs.  Two warps share
+// each 16 keys and split each step's query rows; after the loop the second
+// adds its sum to the first's through shared memory, in that order.  Each
+// output element is written by one block, each block sums in one fixed
+// order over the group's G query heads and their query tiles: no atomics,
+// and a resumed training run equals an uninterrupted one bit for bit.  The
+// arithmetic is the d <= 128 backward's (exact bf16 products summed in
+// f32, one bf16 rounding of P into dV and of dS into dK and dQ).  dQ runs
+// flash_bwd_dq_mma_kernel with eight warps (128 query rows) and 32-key
+// tiles: its q and dO tiles wait in shared memory and are read by ldmatrix
+// at each k16 step, as in the wide forward, beside the 128-register
+// accumulator.  (ops.py's mma_tiles gives the tiles.)
+
+constexpr int kWideBwdKeyWarps = 4;            // 16 keys each: 64 keys per dK/dV block
+constexpr int kWideBwdSplit = 2;               // warps sharing 16 keys, splitting the rows
+constexpr int kWideBwdRows = 64;               // dK/dV's query rows per step
+constexpr int kWideDqWarps = 8;                // dQ: 16 query rows each
+
+size_t dkdv_mma_wide_smem() {
+  return static_cast<size_t>(2 * 16 * kWideBwdKeyWarps + 2 * 2 * kWideBwdRows) * (kWideDP + 8) *
+             sizeof(__nv_bfloat16) +
+         2 * 2 * static_cast<size_t>(kWideBwdRows) * sizeof(float);
+}
+
+// One dK (kDK) or dV block of flash_bwd_dkdv_mma_wide_kernel: keys [t0,
+// t0 + BK) of KV head kvh, BK = 16 KW; warp w owns keys t0 + 16 (w % KW)
+// and query rows (w / KW) WQ of each staged tile of BQ rows
+template <bool kDK, int DP, int KW, int QS, int BQ>
+__device__ __forceinline__ void dkdv_wide_pass(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ out, const Shape& sh, unsigned char* smem_raw) {
+  constexpr int NTH = 32 * KW * QS, BK = 16 * KW, LD = DP + 8;
+  constexpr int DK = DP / 16, DN = DP / 8, WQ = BQ / QS, NQ = WQ / 8;
+  static_assert(WQ % 16 == 0, "each warp takes whole k16 steps of query rows");
+  static_assert((QS - 1) * KW * DN * 4 * 32 * sizeof(float) <=
+                    2 * 2 * BQ * LD * sizeof(__nv_bfloat16),
+                "the warps' partial sums fit in the staging buffers");
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BK x LD
+  __nv_bfloat16* Vs = Ks + BK * LD;                                 // BK x LD (dK blocks)
+  __nv_bfloat16* stages = Vs + BK * LD;                             // [2][Q, dO][BQ][LD]
+  float* rows_f = reinterpret_cast<float*>(stages + 2 * 2 * BQ * LD);   // [2][lse2, D][BQ]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kw = warp % KW, qs = warp / KW, wq = qs * WQ;
+  const int t0 = (blockIdx.x >> 1) * BK, kvh = blockIdx.y, bi = blockIdx.z;
+  const int d = sh.d;
+  const size_t q_stride = static_cast<size_t>(sh.H) * d;
+  const size_t kv_stride = static_cast<size_t>(sh.Hk) * d;
+  const size_t kv_base = (static_cast<size_t>(bi) * sh.L * sh.Hk + kvh) * d;
+  const int kw0 = t0 + 16 * kw;                    // this warp's first key
+  const int key_lo = kw0 + lane / 4, key_hi = key_lo + 8;
+  const float scale2 = sh.scale * kLog2e;
+
+  // the query rows that attend keys [t0, t_last] (ops.query_tile_range)
+  const int t_last = min(t0 + BK, sh.L) - 1;
+  const int i_lo = sh.causal ? max(0, t0 - sh.q_offset) : 0;
+  const int i_hi = sh.window > 0 ? min(sh.s, t_last + sh.window - sh.q_offset) : sh.s;
+  const int i_first = (i_lo / BQ) * BQ;
+  const int n_qt = i_hi > i_first ? (i_hi - i_first + BQ - 1) / BQ : 0;
+  const int n_it = sh.G * n_qt;
+
+  float acc[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+
+  auto load = [&](int it) {
+    const int g = it / n_qt, i0 = i_first + (it - g * n_qt) * BQ;
+    const int h = kvh * sh.G + g;
+    const size_t q_base = (static_cast<size_t>(bi) * sh.s * sh.H + h) * d;
+    __nv_bfloat16* qs_tile = stages + (it & 1) * 2 * BQ * LD;
+    stage_rows<DP, NTH>(qs_tile, q + q_base, i0, BQ, sh.s, q_stride, d);
+    stage_rows<DP, NTH>(qs_tile + BQ * LD, dout + q_base, i0, BQ, sh.s, q_stride, d);
+    cp_async_commit();
+    const size_t row_base = (static_cast<size_t>(bi) * sh.H + h) * sh.s;
+    float* rf = rows_f + (it & 1) * 2 * BQ;
+    for (int r = threadIdx.x; r < BQ; r += NTH) {
+      const bool in = i0 + r < sh.s;
+      rf[r] = in ? lse[row_base + i0 + r] * kLog2e : 0.f;
+      rf[BQ + r] = in ? delta[row_base + i0 + r] : 0.f;
+    }
+  };
+
+  if (n_it > 0) {
+    stage_rows<DP, NTH>(Ks, k + kv_base, t0, BK, sh.L, kv_stride, d);
+    if constexpr (kDK) stage_rows<DP, NTH>(Vs, v + kv_base, t0, BK, sh.L, kv_stride, d);
+    load(0);                           // one group with K (and V)
+  }
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) {
+      load(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int r0 = i_first + (it % n_qt) * BQ + wq;   // this warp's first query row
+    if (!tile_dead(sh, kw0, kw0 + 15, r0, r0 + WQ - 1)) {
+      const __nv_bfloat16* Qs = stages + (it & 1) * 2 * BQ * LD;
+      const __nv_bfloat16* dOs = Qs + BQ * LD;
+      const float* lse2 = rows_f + (it & 1) * 2 * BQ + wq;
+      const float* dl = lse2 + BQ;
+      // S^T = K.Q^T (and dP^T = V.dO^T): this warp's 16 keys x WQ queries
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int nq = 0; nq < NQ; ++nq)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) st[nq][i] = dpt[nq][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t ka[4], va[4];
+        frag_a<LD>(ka, Ks, 16 * kw, kk * 16, lane);
+        if constexpr (kDK) frag_a<LD>(va, Vs, 16 * kw, kk * 16, lane);
+#pragma unroll
+        for (int nq = 0; nq < NQ; nq += 2) {
+          uint32_t b[4];
+          frag_b_rows<LD>(b, Qs, wq + nq * 8, kk * 16, lane);
+          mma_bf16(st[nq], ka, b[0], b[1]);
+          mma_bf16(st[nq + 1], ka, b[2], b[3]);
+          if constexpr (kDK) {
+            frag_b_rows<LD>(b, dOs, wq + nq * 8, kk * 16, lane);
+            mma_bf16(dpt[nq], va, b[0], b[1]);
+            mma_bf16(dpt[nq + 1], va, b[2], b[3]);
+          }
+        }
+      }
+      // P^T = exp(S^T - lse) on live pairs; dS^T = P^T (dP^T - D)
+      if (tile_full(sh, kw0, kw0 + 15, r0, r0 + WQ - 1))
+        probs_t<false>(st, dpt, sh, scale2, lse2, dl, r0, key_lo, lane);
+      else
+        probs_t<true>(st, dpt, sh, scale2, lse2, dl, r0, key_lo, lane);
+      // dK += dS^T.Q or dV += P^T.dO, one k16 step per 16 queries
+#pragma unroll
+      for (int kq = 0; kq < WQ / 16; ++kq) {
+        uint32_t a[4];
+        if constexpr (kDK)
+          acc_as_a(a, dpt, kq);
+        else
+          acc_as_a(a, st, kq);
+#pragma unroll
+        for (int dn = 0; dn < DN; dn += 2) {
+          uint32_t b[4];
+          frag_b_cols<LD>(b, kDK ? Qs : dOs, wq + kq * 16, dn * 8, lane);
+          mma_bf16(acc[dn], a, b[0], b[1]);
+          mma_bf16(acc[dn + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();                   // the stage is free for iteration it + 2
+  }
+
+  // the row-splitting warps' sums into the first's, in warp order, through
+  // the staging buffers (free after the loop's last barrier)
+  if constexpr (QS > 1) {
+    float* red = reinterpret_cast<float*>(stages);
+    if (qs > 0) {
+      float* mine = red + static_cast<size_t>((qs - 1) * KW + kw) * DN * 4 * 32;
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mine[(dn * 4 + i) * 32 + lane] = acc[dn][i];
+    }
+    __syncthreads();
+    if (qs > 0) return;
+    for (int o = 1; o < QS; ++o) {
+      const float* theirs = red + static_cast<size_t>((o - 1) * KW + kw) * DN * 4 * 32;
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[dn][i] += theirs[(dn * 4 + i) * 32 + lane];
+    }
+  }
+
+  const float f = kDK ? sh.scale : 1.f;
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) {
+    const int col = dn * 8 + 2 * (lane % 4);
+    if (col >= d) continue;
+    if (key_lo < sh.L)
+      *reinterpret_cast<__nv_bfloat162*>(out + kv_base + static_cast<size_t>(key_lo) * kv_stride +
+                                         col) = __floats2bfloat162_rn(acc[dn][0] * f, acc[dn][1] * f);
+    if (key_hi < sh.L)
+      *reinterpret_cast<__nv_bfloat162*>(out + kv_base + static_cast<size_t>(key_hi) * kv_stride +
+                                         col) = __floats2bfloat162_rn(acc[dn][2] * f, acc[dn][3] * f);
+  }
+}
+
+// grid (2 ceil(L / BK), Hk, b), 32 KW QS threads: block x sums dK (x
+// even) or dV (x odd) of key tile x / 2, the heavier dK blocks first
+template <int DP, int KW, int QS, int BQ>
+__global__ void __launch_bounds__(32 * KW * QS, 1)
+flash_bwd_dkdv_mma_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                               Shape sh) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (blockIdx.x & 1)
+    dkdv_wide_pass<false, DP, KW, QS, BQ>(q, k, v, dout, lse, delta, dv, sh, smem_raw);
+  else
+    dkdv_wide_pass<true, DP, KW, QS, BQ>(q, k, v, dout, lse, delta, dk, sh, smem_raw);
 }
 
 template <typename Kernel>
@@ -1458,12 +1683,49 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o, c
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   {
-    const size_t smem = dq_mma_smem(DP);
+    const size_t smem = dq_mma_smem(DP, kThreads / 32);
     auto kernel = flash_bwd_dq_mma_kernel<DP>;
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((sh.s + kMmaRows - 1) / kMmaRows, sh.H, sh.b);
     kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), sh);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bwd_mma_wide(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                        void* dv, Shape sh, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const int rows = sh.b * sh.s * sh.H;
+  flash_bwd_preprocess_kernel<T><<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0,
+                                   stream>>>(static_cast<const T*>(o),
+                                             static_cast<const T*>(dout), delta, sh);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  {
+    constexpr int KW = kWideBwdKeyWarps, QS = kWideBwdSplit, BK = 16 * KW;
+    const size_t smem = dkdv_mma_wide_smem();
+    auto kernel = flash_bwd_dkdv_mma_wide_kernel<kWideDP, KW, QS, kWideBwdRows>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(2 * ((sh.L + BK - 1) / BK), sh.Hk, sh.b);
+    kernel<<<grid, 32 * KW * QS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  {
+    constexpr int BQ = 16 * kWideDqWarps;
+    const size_t smem = dq_mma_smem(kWideDP, kWideDqWarps);
+    auto kernel = flash_bwd_dq_mma_kernel<kWideDP, kWideDqWarps>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((sh.s + BQ - 1) / BQ, sh.H, sh.b);
+    kernel<<<grid, 32 * kWideDqWarps, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), sh);
   }
@@ -1485,10 +1747,10 @@ bool bad(int b, int s, int L, int H, int Hk, int d, int dtype) {
          (dtype != kF32 && dtype != kBF16);
 }
 
-// the tensor-core bodies take d a multiple of 16 up to `most`: 256 forward
-// (flash_fwd_mma_kernel to 128, flash_fwd_mma_wide_kernel above), 128
-// backward
-bool bad_mma(int d, int most) { return d < 16 || d > most || d % 16 != 0; }
+// the tensor-core bodies take d a multiple of 16 up to 256: to 128
+// flash_fwd_mma_kernel and flash_bwd_{dkdv,dq}_mma_kernel, above the wide
+// bodies
+bool bad_mma(int d) { return d < 16 || d > kWideDP || d % 16 != 0; }
 
 }  // namespace
 
@@ -1528,12 +1790,12 @@ int flash_bwd_launch(const void* q, const void* k, const void* v, const void* o,
               static_cast<float*>(delta), dq, dk, dv, sh, static_cast<cudaStream_t>(stream))
 }
 
-// The tensor-core bodies: bf16 only, d a multiple of 16, up to 256 forward
-// and 128 backward; the same arguments as above without the dtype code.
+// The tensor-core bodies: bf16 only, d a multiple of 16 up to 256; the
+// same arguments as above without the dtype code.
 int flash_fwd_mma_launch(const void* q, const void* k, const void* v, void* o, void* lse, int b,
                          int s, int L, int H, int Hk, int d, int causal, int window,
                          int q_offset, float scale, void* stream) {
-  if (bad(b, s, L, H, Hk, d, kBF16) || bad_mma(d, kWideDP)) return kBadArgs;
+  if (bad(b, s, L, H, Hk, d, kBF16) || bad_mma(d)) return kBadArgs;
   const Shape sh = make_shape(b, s, L, H, Hk, d, causal, window, q_offset, scale);
   const auto st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
@@ -1546,23 +1808,24 @@ int flash_bwd_mma_launch(const void* q, const void* k, const void* v, const void
                          const void* dout, const void* lse, void* delta, void* dq, void* dk,
                          void* dv, int b, int s, int L, int H, int Hk, int d, int causal,
                          int window, int q_offset, float scale, void* stream) {
-  if (bad(b, s, L, H, Hk, d, kBF16) || bad_mma(d, 128)) return kBadArgs;
+  if (bad(b, s, L, H, Hk, d, kBF16) || bad_mma(d)) return kBadArgs;
   const Shape sh = make_shape(b, s, L, H, Hk, d, causal, window, q_offset, scale);
   const auto st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   float* delta_f = static_cast<float*>(delta);
+  if (d > 128) return launch_bwd_mma_wide(q, k, v, o, dout, lse_f, delta_f, dq, dk, dv, sh, st);
   return d <= 64 ? launch_bwd_mma<64>(q, k, v, o, dout, lse_f, delta_f, dq, dk, dv, sh, st)
                  : launch_bwd_mma<128>(q, k, v, o, dout, lse_f, delta_f, dq, dk, dv, sh, st);
 }
 
 // The tensor-core bodies' tiles for head dim d (ops.py's MmaTiles, in its
 // field order): dp, forward rows and keys, dK/dV keys and rows, dQ rows
-// and keys (0 where d has no tensor-core backward).  Returns -1 for a d
-// the bodies do not take.
+// and keys.  Returns -1 for a d the bodies do not take.
 int flash_mma_tiles(int d, int* out) {
-  if (bad_mma(d, kWideDP)) return kBadArgs;
+  if (bad_mma(d)) return kBadArgs;
   if (d > 128) {
-    const int tiles[7] = {kWideDP, kWideRows, kWideKeys, 0, 0, 0, 0};
+    const int tiles[7] = {kWideDP, kWideRows, kWideKeys, 16 * kWideBwdKeyWarps, kWideBwdRows,
+                          16 * kWideDqWarps, BwdInner<kWideDP>::N};
     for (int i = 0; i < 7; ++i) out[i] = tiles[i];
     return 0;
   }

@@ -13,11 +13,13 @@ sees no key set to 0 (what the kernels write), and the backward is the
 oracle's VJP (the reference's ``_fa_bwd``).
 
 Each direction has two bodies, chosen by :func:`flash_body` per
-direction: bf16 q, k, v with a head dim that is a multiple of 16 run on
-the tensor cores (``mma``) up to 256 forward (``flash_fwd_mma_kernel`` to
-128, ``flash_fwd_mma_wide_kernel`` above) and up to 128 backward
-(``flash_bwd_dkdv_mma_kernel``, ``flash_bwd_dq_mma_kernel``); f32, or a
-head dim the tensor-core body does not take, keep the f32 CUDA-core body
+direction: bf16 q, k, v with a head dim that is a multiple of 16, up to
+256, run on the tensor cores (``mma``): forward ``flash_fwd_mma_kernel``
+to 128 and ``flash_fwd_mma_wide_kernel`` above; backward
+``flash_bwd_dkdv_mma_kernel`` and ``flash_bwd_dq_mma_kernel`` to 128,
+``flash_bwd_dkdv_mma_wide_kernel`` (dK and dV in separate blocks) and
+``flash_bwd_dq_mma_kernel`` at eight warps above.  f32, or a head dim
+the tensor-core body does not take, keep the f32 CUDA-core body
 (``fma``: ``flash_fwd_kernel`` and its three backward kernels).  :func:`mma_tiles`,
 :func:`key_tile_range` and :func:`query_tile_range` are the ``mma``
 body's tiles and loop bounds, as the CUDA source computes them.
@@ -66,8 +68,8 @@ def reset_launch_counts() -> None:
             counts[k] = 0
 
 
-#: the largest head dim of the ``mma`` body, by wrapper
-_MMA_MOST = {"flash_fwd": 256, "flash_bwd": 128}
+#: the largest head dim of the ``mma`` body, both directions
+_MMA_MOST = 256
 
 
 def flash_body(wrapper: str, dtype: torch.dtype, d: int) -> str:
@@ -75,20 +77,20 @@ def flash_body(wrapper: str, dtype: torch.dtype, d: int) -> str:
     call on.
 
     ``"mma"`` (tensor cores: bf16 products, f32 sums and softmax; the
-    forward's P.V as P_hi.V + P_lo.V) for bf16 with ``d % 16 == 0`` (one
-    k16 step per 16 columns), ``16 <= d``, and d up to 256 forward (above
-    128 the wide forward, whose q tile waits in shared memory) or 128
-    backward (where the dK/dV accumulators stay in registers).  ``"fma"``
-    (f32 on the CUDA cores) for everything else: f32 inputs, whose
-    gradients must stay within 1e-5 of the f32 plain version, which bf16
-    tensor-core operands would not; a bf16 head dim that is not a
-    multiple of 16; and the backward at d > 128 (up to 256).
+    forward's P.V as P_hi.V + P_lo.V, one bf16 rounding of P and dS in
+    the backward) for bf16 with ``d % 16 == 0`` (one k16 step per 16
+    columns) and ``16 <= d <= 256``; above 128 the wide bodies, whose q
+    (and dO) tiles wait in shared memory and whose dK and dV are summed
+    by separate blocks.  ``"fma"`` (f32 on the CUDA cores) for
+    everything else: f32 inputs, whose gradients must stay within 1e-5
+    of the f32 plain version, which bf16 tensor-core operands would not,
+    and a bf16 head dim that is not a multiple of 16.  The rule is one
+    for both directions; each wrapper applies it to its own calls.
     """
-    if wrapper not in _MMA_MOST:
-        raise ValueError(f"wrapper must be one of {tuple(_MMA_MOST)}, got "
+    if wrapper not in LAUNCHES:
+        raise ValueError(f"wrapper must be one of {tuple(LAUNCHES)}, got "
                          f"{wrapper!r}")
-    if (dtype == torch.bfloat16 and d % 16 == 0
-            and 16 <= d <= _MMA_MOST[wrapper]):
+    if dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= _MMA_MOST:
         return "mma"
     return "fma"
 
@@ -99,7 +101,7 @@ class MmaTiles:
     ``dp`` the head dim padded to 64, 128 or 256 (zero columns); the
     forward's query rows per block and keys per step; dK/dV's keys per
     block and query rows per step; dQ's query rows per block and keys per
-    step (the four 0 at dp = 256, which has no ``mma`` backward)."""
+    step."""
     dp: int
     fwd_rows: int
     fwd_keys: int
@@ -112,13 +114,15 @@ class MmaTiles:
 def mma_tiles(d: int) -> MmaTiles:
     """Four warps of 16 rows (or keys) per block; at dp = 128 the
     backward's inner tile halves so that its f32 accumulators, the score
-    tile and dP stay in registers; at dp = 256 (the forward alone) eight
-    warps of 16 query rows share each 64-key tile."""
+    tile and dP stay in registers.  At dp = 256 eight warps of 16 query
+    rows share each 64-key tile forward and each 32-key tile in dQ; a
+    dK/dV block holds 64 keys (four pairs of warps, each pair splitting
+    a 64-row query tile) and sums dK or dV alone."""
     if flash_body("flash_fwd", torch.bfloat16, d) != "mma":
         raise ValueError(f"the mma body takes d % 16 == 0 <= 256, got {d}")
     if d > 128:
-        return MmaTiles(dp=256, fwd_rows=128, fwd_keys=64, dkdv_keys=0,
-                        dkdv_rows=0, dq_rows=0, dq_keys=0)
+        return MmaTiles(dp=256, fwd_rows=128, fwd_keys=64, dkdv_keys=64,
+                        dkdv_rows=64, dq_rows=128, dq_keys=32)
     dp = 64 if d <= 64 else 128
     inner = 64 if dp == 64 else 32
     return MmaTiles(dp=dp, fwd_rows=64, fwd_keys=64, dkdv_keys=64,
@@ -254,8 +258,7 @@ def _pick_body(wrapper: str, q: torch.Tensor, d: int, body: Optional[str],
     if body == "mma":
         if rule != "mma":
             raise ValueError(f"{wrapper}'s mma body takes bf16 with d % 16 "
-                             f"== 0 <= {_MMA_MOST[wrapper]}, got "
-                             f"{q.dtype}, d={d}")
+                             f"== 0 <= {_MMA_MOST}, got {q.dtype}, d={d}")
         for t in tensors:
             if t.data_ptr() % 16:
                 raise ValueError("the mma body needs 16-byte aligned "

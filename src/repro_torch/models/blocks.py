@@ -323,10 +323,11 @@ def _mamba_seq(cfg: ArchConfig, p: Dict, x: torch.Tensor, conv_state,
     x_c = silu(x_c)
     dt, A, B, C = _ssm_params(cfg, p, x_c)
     xf = x_c.float()
+    # each position's views taken once, as in _rglru_scan
     ys = []
-    for t in range(x.shape[1]):
-        ssm_state, y_t = _ssm_update(ssm_state, dt[:, t], A, B[:, t],
-                                     C[:, t], xf[:, t])
+    for dt_t, B_t, C_t, x_t in zip(dt.unbind(1), B.unbind(1), C.unbind(1),
+                                   xf.unbind(1)):
+        ssm_state, y_t = _ssm_update(ssm_state, dt_t, A, B_t, C_t, x_t)
         ys.append(y_t)
     y = torch.stack(ys, dim=1) + xf * p["D"]
     out = y.to(x.dtype) * silu(z)
@@ -405,12 +406,20 @@ def _rglru_seq(cfg: ArchConfig, p: Dict, x: torch.Tensor, conv_state,
                                              conv_state)
     i, a, mult = _rglru_gates(p, x_c)
     gated = (i * x_c.float()) * mult
+    h, h_state = _rglru_scan(a, gated, h_state)
+    return _rglru_out(cfg, p, h.to(x.dtype) * yb), conv_state, h_state
+
+
+def _rglru_scan(a: torch.Tensor, gated: torch.Tensor, h_state):
+    """h_t = a_t h_{t-1} + gated_t over a chunk's positions (b, s, w), in
+    order, f32: (every h (b, s, w), the last).  Each position's views are
+    taken once (``unbind``): autograd's backward of ``a[:, t]`` would add
+    a whole chunk of zeros per position, quadratic in s."""
     hs = []
-    for t in range(x.shape[1]):
-        h_state = a[:, t] * h_state + gated[:, t]
+    for a_t, g_t in zip(a.unbind(1), gated.unbind(1)):
+        h_state = a_t * h_state + g_t
         hs.append(h_state)
-    h = torch.stack(hs, dim=1).to(x.dtype)
-    return _rglru_out(cfg, p, h * yb), conv_state, h_state
+    return torch.stack(hs, dim=1), h_state
 
 
 def _rglru_out(cfg: ArchConfig, p: Dict, out: torch.Tensor) -> torch.Tensor:

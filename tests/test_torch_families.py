@@ -1,6 +1,7 @@
 """The SSM, hybrid, MLA and encoder-decoder models of the port against the
 JAX package: parameter trees of every family, uncached forward logits,
-the SSM's chunk streaming, one training step's loss and gradients, and
+the SSM's chunk streaming, one recurrent layer's gradients (``jax.vjp``),
+one training step's loss and gradients, and
 the behaviours of the reference's cached step that both packages keep
 (the recurrent prefill, the conv state's dtype, a local chunk of a
 window, writes past ``max_len``).  Reduced configs, f32 weights drawn by the
@@ -157,26 +158,59 @@ def test_forward_logits_match_reference(arch):
     assert float(aux) == 0.0
 
 
-@pytest.mark.parametrize("kind", ["mamba", "rglru"])
-def test_recurrence_streams_long_sequences_like_the_reference(kind):
-    """At s = 2048 (two ``SSM_CHUNK`` pieces, states threaded between
-    them) the sequence forward of one layer equals the reference's."""
+def _recurrent_layer(kind):
+    """One recurrent layer of the reduced config: (config, reference
+    config, port leaves, reference leaves, port forward, reference
+    forward)."""
     arch = "falcon-mamba-7b" if kind == "mamba" else "recurrentgemma-2b"
     cfg, jp, tp = weights(arch)
     jcfg = jconfigs.reduced(jconfigs.get(arch))
-    assert 2048 % blocks.SSM_CHUNK == 0 and 2048 > blocks.SSM_CHUNK
     if kind == "mamba":
         p, jl = tp["layers"]["ssm"], jp["layers"]["ssm"]
         p, jl = ({k: v[0] for k, v in p.items()},
                  {k: v[0] for k, v in jl.items()})
-        fn, jfn = blocks.mamba_forward, jblocks.mamba_forward
-    else:
-        p, jl = tp["layers"]["l0"]["rglru"], jp["layers"]["l0"]["rglru"]
-        fn, jfn = blocks.rglru_forward, jblocks.rglru_forward
+        return cfg, jcfg, p, jl, blocks.mamba_forward, jblocks.mamba_forward
+    p, jl = tp["layers"]["l0"]["rglru"], jp["layers"]["l0"]["rglru"]
+    return cfg, jcfg, p, jl, blocks.rglru_forward, jblocks.rglru_forward
+
+
+@pytest.mark.parametrize("kind", ["mamba", "rglru"])
+def test_recurrence_streams_long_sequences_like_the_reference(kind):
+    """At s = 2048 (two ``SSM_CHUNK`` pieces, states threaded between
+    them) the sequence forward of one layer equals the reference's."""
+    cfg, jcfg, p, jl, fn, jfn = _recurrent_layer(kind)
+    assert 2048 % blocks.SSM_CHUNK == 0 and 2048 > blocks.SSM_CHUNK
     x = np.random.default_rng(3).standard_normal(
         (1, 2048, cfg.d_model)).astype(np.float32)
     got = fn(cfg, p, torch.from_numpy(x))
     assert rel(got, jfn(jcfg, jl, jnp.asarray(x))) <= REL
+
+
+@pytest.mark.parametrize("kind", ["mamba", "rglru"])
+def test_recurrence_grads_match_reference(kind):
+    """The sequence forms' backward (each position's views taken once):
+    one layer's output and its gradients with respect to the input and
+    every leaf, under one random upstream gradient, equal ``jax.vjp`` of
+    the reference's forward at s = 2048 (two ``SSM_CHUNK`` pieces)."""
+    cfg, jcfg, p, jl, fn, jfn = _recurrent_layer(kind)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, 2048, cfg.d_model)).astype(np.float32)
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    out = fn(cfg, leaves, xt)
+    up = rng.standard_normal(tuple(out.shape)).astype(np.float32)
+    grads = torch.autograd.grad(out, [xt, *leaves.values()],
+                                torch.from_numpy(up), allow_unused=True)
+    jout, vjp = jax.vjp(lambda x_, p_: jfn(jcfg, p_, x_), jnp.asarray(x), jl)
+    jgx, jgp = vjp(jnp.asarray(up))
+    assert rel(out, jout) <= REL
+    assert rel(grads[0], jgx) <= REL
+    for k, g in zip(leaves, grads[1:]):
+        want = np.asarray(jgp[k], np.float32)
+        if not want.any():
+            assert g is None or not g.any(), k
+        else:
+            assert rel(g, want) <= REL, k
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

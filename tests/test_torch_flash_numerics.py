@@ -52,7 +52,7 @@ BWD_ROUNDING = dict(p="bf16", ds="bf16")
 #: query block at an offset; llama2-7b's head dim 128 (MQA); a ragged,
 #: bidirectional one at d = 48 (zero-padded to 64 in the kernel);
 #: recurrentgemma-2b's local layers (d = 256, MQA, a window) cut to 4
-#: heads and 256 positions (the wide forward; its backward is ``fma``)
+#: heads and 256 positions (the wide bodies, forward and backward)
 CASES = {
     "causal": (1, 512, 512, 8, 2, 64, True, None, 0),
     "window": (1, 512, 512, 8, 2, 64, True, 128, 0),
@@ -303,7 +303,7 @@ def test_bwd_single_rounding_within_limit_of_plain_version(name):
     assert max(rel) <= GRAD_LIMIT, rel
 
 
-@pytest.mark.parametrize("name", ["causal", "window", "q_offset"])
+@pytest.mark.parametrize("name", ["causal", "window", "q_offset", "d256"])
 def test_bwd_single_rounding_within_limit_of_jax_function(name):
     case = CASES[name]
     (q, k, v, do), grads = _bwd(case, len(name), **BWD_ROUNDING)
@@ -356,15 +356,15 @@ def test_tile_ranges_skip_only_dead_tiles():
 @pytest.mark.parametrize("dtype,d,fwd,bwd", [
     (torch.bfloat16, 64, "mma", "mma"), (torch.bfloat16, 128, "mma", "mma"),
     (torch.bfloat16, 16, "mma", "mma"), (torch.bfloat16, 48, "mma", "mma"),
-    (torch.bfloat16, 112, "mma", "mma"), (torch.bfloat16, 256, "mma", "fma"),
-    (torch.bfloat16, 144, "mma", "fma"), (torch.bfloat16, 40, "fma", "fma"),
+    (torch.bfloat16, 112, "mma", "mma"), (torch.bfloat16, 256, "mma", "mma"),
+    (torch.bfloat16, 144, "mma", "mma"), (torch.bfloat16, 40, "fma", "fma"),
     (torch.bfloat16, 8, "fma", "fma"), (torch.float32, 64, "fma", "fma"),
     (torch.float32, 128, "fma", "fma"), (torch.float16, 64, "fma", "fma"),
     (torch.float32, 256, "fma", "fma"),
 ])
 def test_flash_body_rule(dtype, d, fwd, bwd):
     """Each direction's rule: bf16 at d % 16 == 0 on the tensor cores up
-    to 256 forward and 128 backward; f32 always on ``fma``."""
+    to 256, forward and backward; f32 always on ``fma``."""
     assert fa_ops.flash_body("flash_fwd", dtype, d) == fwd
     assert fa_ops.flash_body("flash_bwd", dtype, d) == bwd
     with pytest.raises(ValueError, match="wrapper"):
@@ -373,18 +373,18 @@ def test_flash_body_rule(dtype, d, fwd, bwd):
 
 @pytest.mark.parametrize("d,dp,inner", [(16, 64, 64), (64, 64, 64),
                                         (80, 128, 32), (128, 128, 32),
-                                        (144, 256, 0), (256, 256, 0)])
+                                        (144, 256, 64), (256, 256, 64)])
 def test_mma_tiles(d, dp, inner):
     """Four warps of 64 query rows (or keys) per block up to dp = 128;
-    eight warps of 128 query rows for the wide forward, which has no
-    backward tiles."""
+    at dp = 256 eight warps of 128 query rows forward and in dQ, and
+    dK/dV blocks of 64 keys over 64-row query tiles."""
     tiles = fa_ops.mma_tiles(d)
     wide = dp == 256
     assert tiles == fa_ops.MmaTiles(dp=dp, fwd_rows=128 if wide else 64,
-                                    fwd_keys=64,
-                                    dkdv_keys=0 if wide else 64,
+                                    fwd_keys=64, dkdv_keys=64,
                                     dkdv_rows=inner,
-                                    dq_rows=0 if wide else 64, dq_keys=inner)
+                                    dq_rows=128 if wide else 64,
+                                    dq_keys=32 if wide else inner)
     for bad in (40, 264):
         with pytest.raises(ValueError, match="mma body"):
             fa_ops.mma_tiles(bad)

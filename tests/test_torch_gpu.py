@@ -678,8 +678,8 @@ FA_CASES = [(1, 128, 128, 4, 4, 64, True, None, 0),
             (2, 192, 192, 4, 4, 64, True, 64, 0),
             (1, 64, 64, 4, 4, 128, False, None, 0),
             (1, 128, 128, 2, 2, 256, True, None, 0)]
-#: those the rule sends to the tensor-core body in bf16 (the forward's
-#: rule: at d = 256 the wide forward, the backward on fma)
+#: those the rule sends to the tensor-core body in bf16 (at d = 256 the
+#: wide bodies, forward and backward)
 FA_MMA_CASES = [c for c in FA_CASES
                 if fa_ops.flash_body("flash_fwd", torch.bfloat16, c[5])
                 == "mma"]
@@ -690,7 +690,7 @@ FA_MMA_CASES = [c for c in FA_CASES
 def test_flash_attention_kernels_match_plain_version(cuda_device, case,
                                                      dtype):
     """Each direction's rule body through the differentiable wrapper
-    (bf16 at d = 256: the wide ``mma`` forward, the ``fma`` backward):
+    (bf16 at d = 256: the wide ``mma`` forward and backward):
     forward within ``kernel_tolerance``; dq, dk, dv within a relative
     norm of 1e-5 in f32 (the ``fma`` body: the same f32 arithmetic in
     another order) and 2e-2 in bf16 (D = rowsum(dO*O) reads the
@@ -812,17 +812,15 @@ def _flash_inputs(case, device, seed=3, dtype=torch.bfloat16):
 @pytest.mark.parametrize("case", FA_MMA_CASES,
                          ids=[str(c) for c in FA_MMA_CASES])
 def test_flash_bodies_match_plain_version(cuda_device, case, body):
-    """Both bodies on every bf16 case the forward's rule sends to
-    ``mma`` (the ``fma`` body forced; a backward the rule keeps on
-    ``fma``, d = 256's, stays there): the forward within
-    ``kernel_tolerance``, dq, dk, dv within a relative norm of 2e-2 of
-    autograd through the plain version (one bf16 rounding of P and dS in
-    the ``mma`` backward, of every gradient in both)."""
+    """Both bodies on every bf16 case the rule sends to ``mma`` (the
+    ``fma`` body forced), d = 256's wide backward among them: the
+    forward within ``kernel_tolerance``, dq, dk, dv within a relative
+    norm of 2e-2 of autograd through the plain version (one bf16
+    rounding of P and dS in the ``mma`` backward, of every gradient in
+    both)."""
     kw = dict(causal=case[6], window=case[7], q_offset=case[8])
     q, k, v, do = _flash_inputs(case, cuda_device)
-    ran = {"flash_fwd": body,
-           "flash_bwd": body if body == "fma" else fa_ops.flash_body(
-               "flash_bwd", torch.bfloat16, case[5])}
+    ran = {"flash_fwd": body, "flash_bwd": body}
     before = {n: dict(c) for n, c in fa_ops.BODY_LAUNCHES.items()}
     o, lse = fa_ops.flash_fwd(q, k, v, body=ran["flash_fwd"], **kw)
     grads = fa_ops.flash_bwd(q, k, v, o, lse, do, body=ran["flash_bwd"],
@@ -839,16 +837,22 @@ def test_flash_bodies_match_plain_version(cuda_device, case, body):
         assert rel <= 2e-2, rel
 
 
-def test_flash_mma_backward_is_deterministic(cuda_device):
+@pytest.mark.parametrize("case", [(2, 384, 384, 8, 2, 64, True, None, 0),
+                                  (1, 640, 640, 10, 1, 256, True, 256, 0)],
+                         ids=["d64", "d256_window"])
+def test_flash_mma_backward_is_deterministic(cuda_device, case):
     """Two identical backward calls give bit-identical gradients (no
-    atomics; GQA's sum inside one dK/dV block), as the bit-exact resume
-    of a training run needs."""
-    case = (2, 384, 384, 8, 2, 64, True, None, 0)
+    atomics; GQA's sum inside one dK/dV block, the wide backward's
+    row-splitting warps summed in one order), as the bit-exact resume of
+    a training run needs; at d = 256 over one KV head with a window, as
+    recurrentgemma-2b's local layers."""
     q, k, v, do = _flash_inputs(case, cuda_device)
-    o, lse = fa_ops.flash_fwd(q, k, v)
-    first = fa_ops.flash_bwd(q, k, v, o, lse, do)
-    second = fa_ops.flash_bwd(q, k, v, o, lse, do)
-    o2, lse2 = fa_ops.flash_fwd(q, k, v)
+    assert fa_ops.flash_body("flash_bwd", q.dtype, case[5]) == "mma"
+    kw = dict(causal=case[6], window=case[7], q_offset=case[8])
+    o, lse = fa_ops.flash_fwd(q, k, v, **kw)
+    first = fa_ops.flash_bwd(q, k, v, o, lse, do, **kw)
+    second = fa_ops.flash_bwd(q, k, v, o, lse, do, **kw)
+    o2, lse2 = fa_ops.flash_fwd(q, k, v, **kw)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
@@ -872,28 +876,35 @@ def test_bf16_train_shape_runs_on_the_mma_body(cuda_device):
 
 
 def test_flash_mma_tiles_match_the_library(cuda_device):
-    """The tile plan the tests emulate is the one the CUDA source uses."""
+    """The tile plan the tests emulate is the one the CUDA source uses,
+    the backward's tiles at every d included (none 0 since the wide
+    backward); a d the bodies do not take is refused."""
     import ctypes
     lib = fa_ops.load_library()
     for d in range(16, 257, 16):
         out = (ctypes.c_int * 7)()
         assert lib.flash_mma_tiles(d, out) == 0
         assert tuple(out) == tuple(vars(fa_ops.mma_tiles(d)).values())
+        assert min(out) > 0
     for d in (136, 264):
         assert lib.flash_mma_tiles(d, (ctypes.c_int * 7)()) == -1
+        # both launchers refuse such a d before reading a pointer
+        shape = [1, 16, 16, 2, 2, d, 1, 0, 0]
+        assert lib.flash_fwd_mma_launch(*[None] * 5, *shape, 1.0, None) == -1
+        assert lib.flash_bwd_mma_launch(*[None] * 10, *shape, 1.0,
+                                        None) == -1
 
 
 def test_flash_wrapper_refuses_to_force_mma_where_it_does_not_apply(
         cuda_device):
-    """f32 takes no ``mma`` body; bf16 at d = 256 takes the wide ``mma``
-    forward but no ``mma`` backward: forcing one raises, nothing falls
-    back."""
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
+    """f32 takes no ``mma`` body; bf16 at d = 40 (not a multiple of 16)
+    takes none either, in either direction: forcing one raises, nothing
+    falls back."""
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 40)):
         q, k, v, do = _flash_inputs((1, 16, 16, 2, 2, d, True, None, 0),
                                     cuda_device, dtype=dtype)
-        if dtype == torch.float32:
-            with pytest.raises(ValueError, match="mma body takes"):
-                fa_ops.flash_fwd(q, k, v, body="mma")
+        with pytest.raises(ValueError, match="mma body takes"):
+            fa_ops.flash_fwd(q, k, v, body="mma")
         o, lse = fa_ops.flash_fwd(q, k, v)
         with pytest.raises(ValueError, match="mma body takes"):
             fa_ops.flash_bwd(q, k, v, o, lse, do, body="mma")

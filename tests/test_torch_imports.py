@@ -99,7 +99,9 @@ def test_port_modules_cover_the_slice():
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "examples/serve_batched_torch.py",
-       "examples/train_100m_torch.py", "tools/measure_shared_card.py"]))
+       "examples/train_100m_torch.py", "tools/measure_shared_card.py",
+       "tools/measure_rglru_backward.py", "tools/sweep_flash_wide.py",
+       "tools/sweep_flash_wide_bwd.py"]))
 def test_no_jax_or_reference_import_statement(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
 

@@ -2,7 +2,9 @@
 forward with flash attention and remat, loss and gradients, multi-step
 training with microbatches, checkpoints in both directions, the
 trainer's resume and retry, and the launcher.  Reduced granite-3-2b and
-llama2-7b, f32 weights carried across by the bridge."""
+llama2-7b (forward, loss and gradients also recurrentgemma-2b, at its
+reduced head dim and at its published 256 with a window shorter than
+the sequence), f32 weights carried across by the bridge."""
 import json
 import os
 import subprocess
@@ -42,6 +44,9 @@ from repro_torch.runtime import (Trainer, TrainerConfig, make_loss_fn,
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["granite-3-2b", "llama2-7b"]
+#: the forward, loss and gradient tests' archs: the hybrid too, whose
+#: local attention layers train through K6 on the card
+MODEL_ARCHS = ARCHS + ["recurrentgemma-2b"]
 #: f32 on both sides: the same arithmetic summed in other orders
 TOL = dict(rtol=1e-5, atol=1e-5)
 #: the optimizer's elementwise f32 arithmetic, op for op
@@ -52,13 +57,13 @@ def _np(tree):
     return jax.tree_util.tree_map(lambda x: np.asarray(x), tree)
 
 
-def _weights(arch, seed=0):
-    """The reference's init of the reduced config, in f32: (config, JAX
-    tree, port tree)."""
-    jcfg = jconfigs.reduced(jconfigs.get(arch))
+def _weights(arch, seed=0, **overrides):
+    """The reference's init of the reduced config (with ``overrides``), in
+    f32: (config, JAX tree, port tree)."""
+    jcfg = jconfigs.reduced(jconfigs.get(arch), **overrides)
     tree = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32),
                                   jax_init_params(jcfg, jax.random.PRNGKey(seed)))
-    return (configs.reduced(configs.get(arch)),
+    return (configs.reduced(configs.get(arch), **overrides),
             jax.tree_util.tree_map(jnp.asarray, tree),
             bridge.params_from_numpy(tree, device="cpu"))
 
@@ -204,7 +209,7 @@ def test_opt_state_bridge_round_trip():
 
 @pytest.mark.parametrize("remat", [False, True])
 @pytest.mark.parametrize("use_flash", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
 def test_forward_matches_reference(arch, use_flash, remat):
     cfg, jtree, ttree = _weights(arch)
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
@@ -255,11 +260,27 @@ def test_blockwise_attention_matches_reference(causal, window):
 
 
 @pytest.mark.parametrize("use_flash", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
 def test_loss_and_grads_match_reference(arch, use_flash):
-    cfg, jtree, ttree = _weights(arch)
-    tb, jb = _batches(arch, 1)
-    jloss_fn = jax_make_loss_fn(jconfigs.reduced(jconfigs.get(arch)),
+    _assert_loss_and_grads_match(arch, use_flash, seq=32)
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_wide_head_loss_and_grads_match_reference(use_flash):
+    """recurrentgemma-2b reduced with its published head_dim=256 (K6's
+    wide bodies on the card) and a window of 16, shorter than the 40
+    tokens of each row, so the local layers' mask cuts into the keys."""
+    _assert_loss_and_grads_match("recurrentgemma-2b", use_flash, seq=40,
+                                 head_dim=256, local_window=16)
+
+
+def _assert_loss_and_grads_match(arch, use_flash, seq, **overrides):
+    """One batch's loss and every gradient (remat on) against the
+    reference's ``jax.value_and_grad`` of its loss."""
+    cfg, jtree, ttree = _weights(arch, **overrides)
+    tb, jb = _batches(arch, 1, seq=seq)
+    jloss_fn = jax_make_loss_fn(jconfigs.reduced(jconfigs.get(arch),
+                                                 **overrides),
                                 use_flash=use_flash, remat=True)
     (jloss, _), jgrads = jax.value_and_grad(jloss_fn, has_aux=True)(jtree, jb[0])
     loss_fn = make_loss_fn(cfg, use_flash=use_flash, remat=True)

@@ -35,37 +35,46 @@ SHAPES = {"lockstep": (4, 2048, 2048, 10, 1, 256, True, 2048, 0),
           "lockstep tp=2 rank": (4, 2048, 2048, 5, 1, 256, True, 2048, 0)}
 
 
-def build_variant(warps: int, keys: int):
-    """The source with the wide forward's tiles replaced, built; returns
-    (library path, each tensor-core forward kernel's name and ptxas
-    register and spill lines)."""
+def build_source(consts: dict, tag: str, kernel: str):
+    """The source with each ``constexpr int`` named in ``consts`` set to
+    its value, built into ``build/sweep_flash_wide/lib<tag>.so``; returns
+    (library path, ptxas's name, register and spill lines for each kernel
+    whose name matches the pattern ``kernel``)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops
     src = ops.SOURCE.read_text()
-    for name, value in (("kWideWarps", warps), ("kWideKeys", keys)):
+    for name, value in consts.items():
         src, n = re.subn(rf"constexpr int {name} = \d+;",
                          f"constexpr int {name} = {value};", src)
         if n != 1:
             raise RuntimeError(f"{name} not found once in {ops.SOURCE}")
     out = ROOT / "build" / "sweep_flash_wide"
     out.mkdir(parents=True, exist_ok=True)
-    cu = out / f"flash_{warps}x{keys}.cu"
+    cu = out / f"{tag}.cu"
     cu.write_text(src)
-    lib = out / f"libflash_{warps}x{keys}.so"
+    lib = out / f"lib{tag}.so"
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
                            str(cu)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {warps}x{keys}:\n"
+        raise RuntimeError(f"nvcc failed for {tag}:\n"
                            f"{proc.stdout}{proc.stderr}")
     lines = (proc.stdout + proc.stderr).splitlines()
     ptxas = []
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "flash_fwd_mma" in line:
-            name = re.search(r"flash_fwd_mma\w*?Li\d+E(Li\d+E)*", line)
+        if "Compiling entry function" in line and re.search(kernel, line):
+            name = re.search(rf"(?:{kernel})\w*?Li\d+E(Li\d+E)*", line)
             ptxas += [name.group(0) if name else line.strip()]
             ptxas += [x.strip() for x in lines[i + 1:i + 4]
                       if "Used" in x or "spill" in x]
     return lib, ptxas
+
+
+def build_variant(warps: int, keys: int):
+    """The source with the wide forward's tiles replaced, built; returns
+    (library path, each tensor-core forward kernel's name and ptxas
+    register and spill lines)."""
+    return build_source({"kWideWarps": warps, "kWideKeys": keys},
+                        f"flash_{warps}x{keys}", "flash_fwd_mma")
 
 
 def main() -> int:
