@@ -1,0 +1,11 @@
+"""K2, ``paged_prefill``: the least time its calls' shapes need
+(``portbench/counts/k2.py``) over the device time inside the
+benchmark's ranges around the entry point, in percent."""
+
+LAYER, UNIT, SOURCE, MOVES = ("paged attention", "%", "device_trace",
+                              "prompt_tokens_per_s")
+RANGES = ("k2",)
+
+
+def read(run):
+    return run.roofline("k2")
